@@ -1,0 +1,58 @@
+"""The kernel dispatch the model layer calls (torch twin of
+``repro/kernels/ops.py``).
+
+``quantized_matmul`` routes a packed linear to the GEMV kernel for M <= 8
+rows and to the matmul kernel for more (the reference's ``ops.py:336``
+predicate); ``fused_decode_attention`` routes Sq == 1 attention to the
+flash-decode kernel.  Dense bf16 leaves (the ``lm_head``) are not kernels:
+``models/common.apply_linear`` gives them to ``torch.matmul``.
+
+``plain=True`` computes the same function with the kernels' plain versions
+on any device — the reference the on-card checks hold the kernels to.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import decode_attention as _da
+from . import packed_matmul as _pm
+from .decode_attention import decode_attention_plain, gqa_decode_attention
+from .packed_matmul import (GEMV_MAX_M, packed_gemv, packed_matmul,
+                            packed_matmul_plain)
+
+
+def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
+                     scales: torch.Tensor, scheme, *,
+                     out_dtype=torch.bfloat16,
+                     plain: bool = False) -> torch.Tensor:
+    """x [..., K] @ packed W [K, N] -> [..., N] in ``out_dtype``."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+    if plain:
+        out = packed_matmul_plain(x2, packed, scales, scheme)
+    elif x2.shape[0] <= GEMV_MAX_M:
+        out = packed_gemv(x2, packed, scales, scheme)
+    else:
+        out = packed_matmul(x2, packed, scales, scheme)
+    return out.reshape(*lead, -1).to(out_dtype)
+
+
+def fused_decode_attention(q: torch.Tensor, k_cache, v_cache,
+                           kv_valid_len: torch.Tensor, *,
+                           plain: bool = False) -> torch.Tensor:
+    if plain:
+        return decode_attention_plain(q, k_cache, v_cache, kv_valid_len)
+    return gqa_decode_attention(q, k_cache, v_cache, kv_valid_len)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {**_pm.launches, **_da.launches}
+
+
+def reset_launch_counts() -> None:
+    for counts in (_pm.launches, _da.launches):
+        for name in counts:
+            counts[name] = 0
