@@ -6,7 +6,8 @@ parameter tree with every array already converted to numpy (e.g.
 layer leaves are stacked along a leading [L] axis, and whose quantized
 leaves are objects with ``packed``, ``scales``, ``scheme_name``, ``shape``
 and ``name`` attributes.  Packed int32 words and f32 scales are copied bit
-for bit in the same ``[K/per, N]`` layout; bf16 arrays (numpy's
+for bit in the same ``[K/per, N]`` layout, w8a8's raw int8 codes bit for
+bit from ``[K, N]`` (``QLinear`` keeps them transposed); bf16 arrays (numpy's
 ``bfloat16`` extension dtype) are copied by their 16-bit patterns.
 ``params_to_numpy`` is the inverse, returning quantized leaves as
 ``NumpyQLinear`` records and bf16 tensors as their int16 bit patterns
@@ -86,7 +87,7 @@ def params_to_numpy(params: DenseLM) -> Dict[str, Any]:
         first = mods[0]
         if isinstance(first, QLinear):
             return NumpyQLinear(
-                np.stack([_array(m.packed) for m in mods]),
+                np.stack([_array(m.reference_codes()) for m in mods]),
                 np.stack([_array(m.scales) for m in mods]),
                 first.scheme_name, first.shape, first.name)
         return np.stack([_array(m.weight) for m in mods])
@@ -100,7 +101,8 @@ def params_to_numpy(params: DenseLM) -> Dict[str, Any]:
         "ffn": {k: leaf_of([b.ffn[k] for b in blocks]) for k in blocks[0].ffn},
     }
     head = params.lm_head
-    lm_head = NumpyQLinear(_array(head.packed), _array(head.scales),
+    lm_head = NumpyQLinear(_array(head.reference_codes()),
+                           _array(head.scales),
                            head.scheme_name, head.shape, head.name) \
         if isinstance(head, QLinear) else _array(head.weight)
     return {"embed": _array(params.embed),

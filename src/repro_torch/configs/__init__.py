@@ -39,6 +39,7 @@ class ModelConfig:
 
 _ARCH_MODULES: Dict[str, str] = {
     "granite-8b": "granite_8b",
+    "minitron-8b": "minitron_8b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -25,7 +25,9 @@
 // fill the SMs at decode batch sizes; a second kernel merges the splits'
 // (max, sum, accumulator) partials.  Positions past kv_valid_len are never
 // read, so a ragged batch moves only its valid bytes.  A row with
-// kv_valid_len == 0 yields 0 (the serving path always has >= 1).
+// kv_valid_len == 0 attends every position of its slab with equal weight
+// (the mean of V over all Sk), as the reference does: there every score
+// is masked to the same -1e30.  The serving path always has >= 1.
 //
 // C interface: launches on the given stream, does not synchronise, returns
 // cudaGetLastError().
@@ -130,7 +132,8 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
   float* vt = kt + kTile * ld;            // [kTile][Dh + 1]
   float* pt = vt + kTile * ld;            // [rep][kTile]
 
-  const int len = min(lens[b], Sk);
+  const bool empty = lens[b] <= 0;      // uniform weights over the slab
+  const int len = empty ? Sk : min(lens[b], Sk);
   const int s0 = sp * split_len;
   const int s1 = min(s0 + split_len, len);
 
@@ -159,8 +162,9 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
     for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
       const int r = warp + rr * kWarps;
       if (r >= rep) continue;      // warp-uniform
+      const bool in_range = t0 + lane < s1;
       float s = kNeg;
-      if (t0 + lane < s1) {
+      if (in_range && !empty) {
         s = 0.f;
         const float* qr = qs + r * Dh;
         const float* kr = kt + lane * ld;
@@ -168,7 +172,7 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const float m_new = fmaxf(m_run[rr], warp_max(s));
       const float corr = expf(m_run[rr] - m_new);
-      const float p = expf(s - m_new);
+      const float p = in_range ? expf(s - m_new) : 0.f;
       l_run[rr] = l_run[rr] * corr + warp_sum(p);
       pt[r * kTile + lane] = p;
       __syncwarp();

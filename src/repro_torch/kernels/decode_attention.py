@@ -7,7 +7,9 @@ over a slab [B, Sk, Hk, Dh] — bf16, or a ``QuantizedKV`` of int8 / fp8
 codes packed four per int32 word plus per-(position, head) f32 scales —
 attending positions < ``kv_valid_len[b]``.  Query head h reads KV head
 h // (H / Hk).  Scores, softmax and the value sum are f32; the output is
-bf16.
+bf16.  A row with ``kv_valid_len == 0`` gets equal weights over all Sk
+positions of its slab (the mean of V), as in the reference, where every
+score is then masked to the same -1e30.
 
 ``gqa_decode_attention`` launches the kernel on CUDA tensors and returns
 ``decode_attention_plain`` on CPU tensors.  ``launches`` counts kernel
@@ -45,7 +47,8 @@ def query_scale(dh: int) -> float:
 def decode_attention_plain(q: torch.Tensor, k_cache, v_cache,
                            kv_valid_len: torch.Tensor) -> torch.Tensor:
     """Plain torch: dequantize the slabs to f32, masked f32 softmax over
-    all Sk positions (masked scores -1e30), f32 value sum, / max(l, 1e-30)."""
+    all Sk positions (masked scores -1e30, so an empty row weighs every
+    position equally), f32 value sum, / max(l, 1e-30)."""
     b, sq, h, dh = q.shape
     if sq != 1:
         raise ValueError("decode attention is the Sq == 1 path")
@@ -76,7 +79,7 @@ def split_plan(b: int, hk: int, sk: int):
 def gqa_decode_attention(q: torch.Tensor, k_cache, v_cache,
                          kv_valid_len: torch.Tensor) -> torch.Tensor:
     """Fused decode attention: q [B, 1, H, Dh] bf16 over bf16 or
-    ``QuantizedKV`` slabs; kv_valid_len [B] int (>= 1 per row).  Returns
+    ``QuantizedKV`` slabs; kv_valid_len [B] int (>= 0 per row).  Returns
     [B, 1, H, Dh] bf16."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, kv_valid_len)

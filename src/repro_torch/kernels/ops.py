@@ -3,7 +3,10 @@
 
 ``quantized_matmul`` routes a packed linear to the GEMV kernel for M <= 8
 rows and to the matmul kernel for more (the reference's ``ops.py:336``
-predicate); ``fused_decode_attention`` routes Sq == 1 attention to the
+predicate), and a w8a8 linear to the int8 matmul kernel after quantizing
+all of its input rows with one per-tensor scale (``ops.py:327``: under
+W8A8 a row's output depends on the other rows of the call, by design);
+``fused_decode_attention`` routes Sq == 1 attention to the
 flash-decode kernel.  Dense bf16 leaves (the ``lm_head``) are not kernels:
 ``models/common.apply_linear`` gives them to ``torch.matmul``.
 
@@ -16,19 +19,31 @@ from typing import Dict
 
 import torch
 
+from repro_torch.quant.schemes import quantize_activations_int8
+
 from . import decode_attention as _da
 from . import packed_matmul as _pm
+from . import w8a8_matmul as _w8
 from .decode_attention import decode_attention_plain, gqa_decode_attention
 from .packed_matmul import (GEMV_MAX_M, packed_gemv, packed_matmul,
                             packed_matmul_plain)
+from .w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
 
 
 def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
                      scales: torch.Tensor, scheme, *,
                      out_dtype=torch.bfloat16,
                      plain: bool = False) -> torch.Tensor:
-    """x [..., K] @ packed W [K, N] -> [..., N] in ``out_dtype``."""
+    """x [..., K] @ quantized W [K, N] -> [..., N] in ``out_dtype``.
+    ``packed``: int32 words [K/per, N] for the packed schemes, int8 codes
+    transposed [N, K] for w8a8."""
     lead = x.shape[:-1]
+    if scheme.name == "w8a8":
+        x_codes, x_scale = quantize_activations_int8(
+            x.reshape(-1, x.shape[-1]))
+        fn = w8a8_matmul_plain if plain else w8a8_matmul
+        out = fn(x_codes, x_scale, packed, scales)
+        return out.reshape(*lead, -1).to(out_dtype)
     x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
     if plain:
         out = packed_matmul_plain(x2, packed, scales, scheme)
@@ -49,10 +64,10 @@ def fused_decode_attention(q: torch.Tensor, k_cache, v_cache,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**_pm.launches, **_da.launches}
+    return {**_pm.launches, **_w8.launches, **_da.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_pm.launches, _da.launches):
+    for counts in (_pm.launches, _w8.launches, _da.launches):
         for name in counts:
             counts[name] = 0

@@ -1,19 +1,24 @@
 """Where the logits of the kernel path part from the plain path's: one
 full-width model run teacher-forced through several versions of the
-packed matmul, each held against the plain versions.
+matmuls and the decode attention, each held against the plain versions.
 
   PYTHONPATH=src python -m repro_torch.launch.logit_spread --arch granite-8b
 
 Versions (``VARIANTS``), each run with bf16 and with int8 KV:
   plain_again   the plain versions once more (the run-to-run floor);
   kernels       the CUDA kernels, as serving runs them;
-  plain_splitk  plain, but every packed matmul sums its f32 product over
-                8 slices of K in turn: the plain math in another f32
-                summation order, with no kernel;
+  plain_splitk  plain, but every matmul sums its product over 8 slices of
+                K in turn: the plain math in another summation order, with
+                no kernel (for w8a8 the int32 sum is exact, so this equals
+                plain);
+  plain_splitkv plain, but the decode attention walks the sequence in the
+                kernel's order (its splits, tiles of 32 positions with the
+                online-softmax update, then the splits' merge);
   drop_split    plain_splitk leaving out the last slice (a split-K reduce
                 that loses one partial);
   drop_group    plain leaving out the first weight group (its rows of K)
-                of every packed matmul.
+                of every packed matmul, or the first 128 rows of K (at
+                most an eighth) of every w8a8 matmul.
 For each version it prints, per layer, the residual stream's difference
 from the plain run (max |diff| / max |x|, and the share of elements that
 differ), and the logit check that ``chip_smoke.py`` applies
@@ -33,9 +38,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
+from repro_torch.quant.kv_cache import cache_read
 from repro_torch.quant.pack import codes_per_word
 from repro_torch.quant.schemes import dequantize, effective_group
 from repro_torch.serve.engine import resolve_device
@@ -44,10 +51,14 @@ from repro_torch.serve.engine import resolve_device
 # tolerance taken relative to the logit scale (max |logit|), since the
 # paths' difference does not shrink with a logit's size (see VARIANTS)
 LOGIT_REL_TOL = 5e-2
+# a kernel path that misses that bound still passes when a plain path
+# summed in the kernels' order (no kernel) spreads at least 1 / factor as
+# far (``witness_check``); planted faults spread 10x further (PERF.md)
+WITNESS_FACTOR = 1.5
 SPLITS = 8
 ROWS, CHUNK, STEPS = 8, 64, 4
-VARIANTS = ("plain_again", "kernels", "plain_splitk", "drop_split",
-            "drop_group")
+VARIANTS = ("plain_again", "kernels", "plain_splitk", "plain_splitkv",
+            "drop_split", "drop_group")
 
 
 def logit_check(got: torch.Tensor, want: torch.Tensor,
@@ -67,6 +78,15 @@ def logit_check(got: torch.Tensor, want: torch.Tensor,
             "decided_tokens": int(decided.sum()),
             "greedy_agree": bool((same | ~decided).all()),
             "argmax_agree_all": int(same.sum())}
+
+
+def witness_check(res: dict, witness: dict,
+                  factor: float = WITNESS_FACTOR) -> bool:
+    """The order-only witness rule, for a kernel path whose logits miss
+    ``logit_check``'s bound: ``res`` (kernels vs plain) spreads at most
+    ``factor`` times as far as ``witness`` (the plain path in the kernels'
+    summation order vs plain), both from ``logit_check``."""
+    return res["max_abs_logit_diff"] <= factor * witness["max_abs_logit_diff"]
 
 
 def teacher_forced(cfg, params, prompts: torch.Tensor, steps: int, *,
@@ -102,19 +122,22 @@ def _weights(packed, scales, scheme):
     return dequantize(scheme, packed, scales, (k, packed.shape[1]))
 
 
+def _slices(k: int, drop=None):
+    step = k // SPLITS
+    return [slice(s * step, (s + 1) * step) for s in range(SPLITS)
+            if s != drop]
+
+
 def splitk_plain(drop=None):
     """The plain packed matmul summed over SPLITS slices of K in turn,
     leaving out slice ``drop``."""
     def matmul(x, packed, scales, scheme):
         w = _weights(packed, scales, scheme)
         xf = x.to(torch.float32)
-        step = w.shape[0] // SPLITS
         out = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
                           device=x.device)
-        for s in range(SPLITS):
-            if s != drop:
-                out += xf[:, s * step:(s + 1) * step] @ w[s * step:
-                                                          (s + 1) * step]
+        for sl in _slices(w.shape[0], drop):
+            out += xf[:, sl] @ w[sl]
         return out
     return matmul
 
@@ -126,22 +149,82 @@ def drop_group_plain(x, packed, scales, scheme):
     return x[:, g:].to(torch.float32) @ w[g:]
 
 
+def _w8a8_rows(rows_of):
+    """The plain w8a8 matmul summed over the K slices ``rows_of(K)`` in
+    turn (exact integer sums, as in ``w8a8_matmul_plain``)."""
+    def matmul(x_codes, x_scale, w_codes_t, w_scales):
+        xf, wf = x_codes.to(torch.float64), w_codes_t.to(torch.float64)
+        acc = sum(xf[:, sl] @ wf[:, sl].t() for sl in rows_of(xf.shape[1]))
+        return acc.to(torch.int32).to(torch.float32) * (w_scales * x_scale)
+    return matmul
+
+
+def splitkv_attention_plain(q, k_cache, v_cache, kv_valid_len):
+    """The plain decode attention in the CUDA kernel's order: the sequence
+    cut into the kernel's splits, each walked in tiles of 32 positions with
+    the online-softmax update, then the splits' (max, sum, acc) merged."""
+    b, _, h, dh = q.shape
+    k = cache_read(k_cache, torch.float32).to(torch.float32)
+    v = cache_read(v_cache, torch.float32).to(torch.float32)
+    sk, hk = k.shape[1], k.shape[2]
+    qg = (q[:, 0].to(torch.float32) * DA.query_scale(dh)).reshape(
+        b, hk, h // hk, dh)
+    lens = kv_valid_len.to(q.device)[:, None, None, None]
+    split_len, splits = DA.split_plan(b, hk, sk)
+    parts = []
+    for sp in range(splits):
+        m = torch.full((*qg.shape[:3], 1), DA._NEG, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qg)
+        for t0 in range(sp * split_len, min((sp + 1) * split_len, sk), 32):
+            t1 = min(t0 + 32, (sp + 1) * split_len, sk)
+            pos = torch.arange(t0, t1, device=q.device)
+            s = torch.einsum("bgrd,bkgd->bgrk", qg, k[:, t0:t1])
+            s = torch.where(pos < lens, s, torch.full_like(s, DA._NEG))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bgrk,bkgd->bgrd", p, v[:, t0:t1])
+            m = m_new
+        parts.append((m, l, acc))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    w = [torch.exp(p[0] - m) for p in parts]
+    l = sum(p[1] * wi for p, wi in zip(parts, w))
+    acc = sum(p[2] * wi for p, wi in zip(parts, w))
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
 @contextlib.contextmanager
-def plain_matmul(fn):
-    """Route the plain path's packed matmuls through ``fn``."""
-    saved = ops.packed_matmul_plain
-    ops.packed_matmul_plain = fn or saved
+def plain_ops(replace):
+    """Route the plain path's ``ops`` functions named in ``replace``
+    ({name: function}) through the given functions."""
+    saved = {name: getattr(ops, name) for name in replace}
+    for name, fn in replace.items():
+        setattr(ops, name, fn)
     try:
         yield
     finally:
-        ops.packed_matmul_plain = saved
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
-RUNS = {  # variant: (plain, the plain packed matmul it uses)
-    "plain": (True, None), "plain_again": (True, None),
-    "kernels": (False, None), "plain_splitk": (True, splitk_plain()),
-    "drop_split": (True, splitk_plain(drop=SPLITS - 1)),
-    "drop_group": (True, drop_group_plain)}
+RUNS = {  # variant: (plain, {ops function: the version it runs})
+    "plain": (True, {}), "plain_again": (True, {}), "kernels": (False, {}),
+    "plain_splitk": (True, {
+        "packed_matmul_plain": splitk_plain(),
+        "w8a8_matmul_plain": _w8a8_rows(_slices)}),
+    "plain_splitkv": (True, {
+        "decode_attention_plain": splitkv_attention_plain}),
+    "drop_split": (True, {
+        "packed_matmul_plain": splitk_plain(drop=SPLITS - 1),
+        "w8a8_matmul_plain": _w8a8_rows(
+            lambda k: _slices(k, drop=SPLITS - 1))}),
+    "drop_group": (True, {
+        "packed_matmul_plain": drop_group_plain,
+        "w8a8_matmul_plain": _w8a8_rows(
+            lambda k: [slice(min(128, k // SPLITS), k)])})}
 
 
 def layer_spread(got: list, want: list, n_layers: int) -> dict:
@@ -188,9 +271,9 @@ def main(argv=None) -> None:
         # the kernel run first: its greedy ids feed every other run
         for name in ("kernels", "plain",
                      *(v for v in VARIANTS if v != "kernels")):
-            plain, fn = RUNS[name]
+            plain, replace = RUNS[name]
             layers[name] = []
-            with plain_matmul(fn):
+            with plain_ops(replace):
                 logits[name], ids = teacher_forced(
                     cfg, params, prompts, STEPS, kv=kv, plain=plain,
                     feed=feed, layer_out=layers[name])

@@ -1,6 +1,7 @@
 """Where a serving step's time goes on the card: wall time vs device time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch granite-8b
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --arch minitron-8b
 
 Builds the model on the card, fills every slot with one prefill chunk,
 then times (a) prefill chunks and (b) decode steps over all slots: host

@@ -4,6 +4,7 @@ scheduler.
 
   python -m repro_torch.launch.serve --arch granite-8b \
       [--batch 8 --prompt-len 128 --max-new 32 --kv-dtype int8]
+  python -m repro_torch.launch.serve --arch minitron-8b     # W8A8
 
 (``PYTHONPATH=src`` from the repository root.)  A warm-up generation of one
 token runs off the clock first; the timed run prints one JSON report:

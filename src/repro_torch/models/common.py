@@ -1,8 +1,10 @@
 """Shared model-layer pieces: linear leaves, the weight maker, numerics.
 
 Linear leaves keep the reference's ``[K, N]`` layout (x @ W):
-  * ``QLinear``     packed int32 codes [K/per, N] + f32 scales as buffers;
-                    applied through ``kernels.ops.quantized_matmul``;
+  * ``QLinear``     packed int32 codes [K/per, N] + f32 scales as buffers
+                    (w8a8: raw int8 codes, stored transposed [N, K] for
+                    the int8 kernel); applied through
+                    ``kernels.ops.quantized_matmul``;
   * ``DenseLinear`` a bf16 [K, N] weight (``lm_head``); applied with
                     ``torch.matmul``, as the reference leaves it to XLA.
 
@@ -25,18 +27,30 @@ from repro_torch.quant.schemes import get_scheme, quantize_weights
 
 
 class QLinear(nn.Module):
-    """Packed quantized linear weights [K, N]: codes + group scales."""
+    """Quantized linear weights [K, N]: codes + group scales.
+
+    Takes the codes in the reference's layout: packed int32 words
+    [K/per, N], or for w8a8 raw int8 codes [K, N].  w8a8 codes are kept
+    transposed, [N, K] (each output column's K codes contiguous, the layout
+    the int8 kernel reads); ``reference_codes()`` gives them back as
+    [K, N]."""
 
     def __init__(self, packed: torch.Tensor, scales: torch.Tensor,
                  scheme_name: str, shape: Tuple[int, int],
                  name: Optional[str] = None):
         super().__init__()
-        self.register_buffer("packed", packed)
-        self.register_buffer("scales", scales)
         self.scheme_name = scheme_name
         self.scheme = get_scheme(scheme_name)
+        if not self.scheme.packed:
+            packed = packed.t().contiguous()
+        self.register_buffer("packed", packed)
+        self.register_buffer("scales", scales)
         self.shape = tuple(shape)
         self.name = name
+
+    def reference_codes(self) -> torch.Tensor:
+        """The codes in the reference's layout (w8a8: int8 [K, N])."""
+        return self.packed if self.scheme.packed else self.packed.t()
 
     def extra_repr(self) -> str:
         return f"{self.scheme_name}, {self.shape}, {self.name}"
@@ -105,6 +119,9 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 def activate(kind: str, x: torch.Tensor) -> torch.Tensor:
     if kind == "silu":
         return torch.nn.functional.silu(x)
+    if kind == "relu2":      # nemotron squared-ReLU, in x's dtype
+        r = torch.relu(x)
+        return r * r
     raise NotImplementedError(f"activation {kind!r} is not ported yet")
 
 

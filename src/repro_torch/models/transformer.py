@@ -35,11 +35,13 @@ def attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
+    ffn = (cfg.gated_ffn, cfg.activation)
     if (cfg.family != "dense" or cfg.norm != "rms" or cfg.tie_embeddings
-            or not cfg.gated_ffn or cfg.activation != "silu"):
+            or ffn not in ((True, "silu"), (False, "relu2"))):
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family with RMS norm, a "
-            "gated SiLU FFN and an untied lm_head so far")
+            "gated SiLU or non-gated squared-ReLU FFN and an untied lm_head "
+            "so far")
 
 
 class Block(nn.Module):
@@ -78,9 +80,13 @@ def build_params(cfg: ModelConfig, mk: QuantMaker) -> DenseLM:
                 "wk": mk.dense("attn.wk", d, hk * dh, sp),
                 "wv": mk.dense("attn.wv", d, hk * dh, sp),
                 "wo": mk.dense("attn.wo", h * dh, d, sp)}
-        ffn = {"w_gate": mk.dense("ffn.w_gate", d, f, sf),
-               "w_up": mk.dense("ffn.w_up", d, f, sf),
-               "w_down": mk.dense("ffn.w_down", f, d, sf)}
+        if cfg.gated_ffn:
+            ffn = {"w_gate": mk.dense("ffn.w_gate", d, f, sf),
+                   "w_up": mk.dense("ffn.w_up", d, f, sf),
+                   "w_down": mk.dense("ffn.w_down", f, d, sf)}
+        else:
+            ffn = {"w_in": mk.dense("ffn.w_in", d, f, sf),
+                   "w_out": mk.dense("ffn.w_out", f, d, sf)}
         layers.append(Block(mk.norm("ln1", d), attn, mk.norm("ln2", d), ffn))
     ln_f = mk.norm("ln_f", d)
     lm_head = mk.dense("lm_head", d, cfg.vocab, None)
@@ -88,6 +94,10 @@ def build_params(cfg: ModelConfig, mk: QuantMaker) -> DenseLM:
 
 
 def _ffn(cfg: ModelConfig, p: nn.ModuleDict, x, plain: bool):
+    if not cfg.gated_ffn:
+        # the reference keeps the non-gated activation in bf16
+        h = activate(cfg.activation, apply_linear(p["w_in"], x, plain=plain))
+        return apply_linear(p["w_out"], h.to(torch.bfloat16), plain=plain)
     g = apply_linear(p["w_gate"], x, plain=plain)
     u = apply_linear(p["w_up"], x, plain=plain)
     h = (activate(cfg.activation, g.to(torch.float32))

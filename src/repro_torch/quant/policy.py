@@ -8,7 +8,8 @@ counterpart: the port always runs its kernels on a CUDA device.
 Validation is eager: unknown names raise at construction, and
 ``validate_for(cfg)`` raises the config incompatibilities (a pattern that
 matches no leaf, a K that the scheme's packing word or scale group does not
-divide, a quantized KV tier on a ``d_head`` not divisible by 4).
+divide, a quantized KV tier on a ``d_head`` not divisible by 4).  The port
+serves the packed schemes, w8a8 (raw int8 codes) and bf16.
 """
 from __future__ import annotations
 
@@ -76,15 +77,11 @@ class PrecisionPolicy:
             if scheme_name == "bf16":
                 continue
             s = get_scheme(scheme_name)
-            if not s.packed:
-                raise ValueError(
-                    f"policy: leaf {name!r} asks for {scheme_name!r}, which "
-                    "the port does not serve yet (packed schemes and bf16)")
             if k % effective_group(s.group_size, k):
                 raise ValueError(
                     f"policy: leaf {name!r} has K={k}, not divisible by "
                     f"{scheme_name!r}'s scale group {s.group_size}")
-            if k % codes_per_word(s.weight_bits):
+            if s.packed and k % codes_per_word(s.weight_bits):
                 raise ValueError(
                     f"policy: leaf {name!r} has K={k}, not packable "
                     f"{codes_per_word(s.weight_bits)}-per-int32-word")
@@ -94,13 +91,18 @@ class PrecisionPolicy:
 
 def leaf_info(cfg) -> Dict[str, Tuple[int, int, str]]:
     """{logical leaf name -> (K, N, config-default scheme)} of the dense
-    family the port serves (gated FFN, untied ``lm_head``) — the names
-    ``repro``'s Maker walk gives the same leaves."""
+    family the port serves (gated or non-gated FFN, untied ``lm_head``) —
+    the names ``repro``'s Maker walk gives the same leaves."""
     d, h, hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     sp = cfg.scheme_proj or "bf16"
     sf = cfg.scheme_ffn or "bf16"
-    return {"attn.wq": (d, h * dh, sp), "attn.wk": (d, hk * dh, sp),
-            "attn.wv": (d, hk * dh, sp), "attn.wo": (h * dh, d, sp),
-            "ffn.w_gate": (d, f, sf), "ffn.w_up": (d, f, sf),
-            "ffn.w_down": (f, d, sf), "lm_head": (d, cfg.vocab, "bf16")}
+    info = {"attn.wq": (d, h * dh, sp), "attn.wk": (d, hk * dh, sp),
+            "attn.wv": (d, hk * dh, sp), "attn.wo": (h * dh, d, sp)}
+    if cfg.gated_ffn:
+        info.update({"ffn.w_gate": (d, f, sf), "ffn.w_up": (d, f, sf),
+                     "ffn.w_down": (f, d, sf)})
+    else:
+        info.update({"ffn.w_in": (d, f, sf), "ffn.w_out": (f, d, sf)})
+    info["lm_head"] = (d, cfg.vocab, "bf16")
+    return info

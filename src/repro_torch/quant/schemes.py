@@ -6,8 +6,11 @@ combinations; packed schemes store codes 8 (4-bit) or 4 (8-bit) per int32
 word with f32 group scales ``[K/G, N]`` (``[1, N]`` per channel).  Decode is
 arithmetic with DAZ (a zero exponent field reads as 0, no subnormals) and
 the E4M3 NaN code read as 0 — the same values as the reference's
-``decode_codes_arith``.  ``quantize_weights`` covers the int schemes in
-torch, so full-width weights are quantized on the device.
+``decode_codes_arith``.  w8a8 keeps raw int8 codes ``[K, N]`` (not packed
+into words) with per-channel scales ``[1, N]``, and quantizes activations
+per tensor (``quantize_activations_int8``).  ``quantize_weights`` covers
+the int schemes in torch, so full-width weights are quantized on the
+device.
 
 KV cache: ``kv_quantize`` packs one absmax-scaled 8-bit code per channel, 4
 codes per int32 word along ``d_head``, with one f32 scale per (position,
@@ -126,30 +129,54 @@ def dequantize(scheme: QuantScheme, packed: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Weight quantization (int schemes; runs on any device)
+# Weight and activation quantization (int schemes; runs on any device)
 # ---------------------------------------------------------------------------
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d as an f32 division on x's device.  (A Python-number divisor
+    would make CUDA multiply by its rounded reciprocal instead, which can
+    differ from the reference's quotient in the last bit.)"""
+    return x / x.new_full((), d)
+
+
 def quantize_weights(scheme: QuantScheme, w: torch.Tensor):
-    """Float weights [K, N] -> (packed int32 [K/per, N], scales f32 [K/G, N]).
+    """Float weights [K, N] -> (codes, scales f32 [K/G, N]).
 
     Symmetric absmax per (group, column): scale = absmax / qmax, codes =
     clip(round_half_even(w / scale)) in two's complement — the same f32
-    arithmetic as the reference's numpy quantizer."""
-    if not (scheme.packed and scheme.weight_format.startswith("int")):
+    arithmetic as the reference's numpy quantizer.  The packed int schemes
+    return int32 words [K/per, N]; w8a8 returns raw int8 codes [K, N] with
+    per-channel scales [1, N]."""
+    if not scheme.weight_format.startswith("int"):
         raise NotImplementedError(
-            f"torch quantize_weights covers the packed int schemes, "
-            f"not {scheme.name!r}")
+            f"torch quantize_weights covers the int schemes, not "
+            f"{scheme.name!r}")
     w = w.to(torch.float32)
     k, n = w.shape
     g = effective_group(scheme.group_size, k)
-    if k % g or k % codes_per_word(scheme.weight_bits):
+    if k % g or (scheme.packed and k % codes_per_word(scheme.weight_bits)):
         raise ValueError(f"K={k} does not tile scheme {scheme.name!r}")
     wg = w.reshape(k // g, g, n)
     absmax = torch.clamp(wg.abs().amax(dim=1), min=1e-12)     # [K/G, N]
     qmax = (1 << (scheme.weight_bits - 1)) - 1
-    scales = absmax / qmax
+    scales = _div(absmax, qmax)
     q = torch.round(wg / scales[:, None, :]).clamp(-qmax - 1, qmax)
+    if not scheme.packed:                   # w8a8: raw int8 codes [K, N]
+        return q.reshape(k, n).to(torch.int8), scales
     codes = (q.to(torch.int64) & ((1 << scheme.weight_bits) - 1)).reshape(k, n)
     return pack_codes(codes, scheme.weight_bits), scales
+
+
+def quantize_activations_int8(x: torch.Tensor):
+    """Per-tensor symmetric int8 activation quantization (SmoothQuant
+    style) over every element of ``x``: absmax = max(max|x.f32|, 1e-12),
+    scale = absmax / 127, codes = clip(round_half_even(x.f32 / scale),
+    -128, 127).  Returns (int8 codes shaped like x, f32 0-d scale on x's
+    device) — bit for bit the reference's ``quantize_activations_int8``."""
+    xf = x.to(torch.float32)
+    absmax = torch.clamp(xf.abs().amax(), min=1e-12)
+    scale = _div(absmax, 127.0)
+    codes = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
+    return codes, scale
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +251,11 @@ def kv_quantize(scheme: KVQuantScheme, x: torch.Tensor):
     xf = x.to(torch.float32)
     absmax = torch.clamp(xf.abs().amax(dim=-1), min=1e-12)
     if scheme.name == "int8":
-        scales = absmax / 127.0
+        scales = _div(absmax, 127.0)
         codes = torch.clamp(torch.round(xf / scales[..., None]), -128,
                             127).to(torch.int32)
     else:
-        scales = absmax / E4M3_MAX_FINITE
+        scales = _div(absmax, E4M3_MAX_FINITE)
         scaled = torch.clamp(xf / scales[..., None], -E4M3_MAX_FINITE,
                              E4M3_MAX_FINITE)
         codes = _encode_fp8_e4m3(scaled)

@@ -19,7 +19,10 @@ Each ``step()``:
 
 Retirement (EOS / max-new-tokens / slot capacity) frees the slot at once.
 With greedy sampling a request's tokens do not depend on its slot, its
-batch-mates or its admission time.  The clock is injectable for tests.
+batch-mates or its admission time — except under W8A8 weights, whose
+per-tensor activation scale spans every row of a call (the reference's
+``kernels/ops.py:327``), so batch-mates move a row's logits.  The clock is
+injectable for tests.
 """
 from __future__ import annotations
 

@@ -1,7 +1,11 @@
 """The port's codecs against the JAX reference: packing, weight decode and
-quantization, KV quantization (including the E4M3 subnormal flush) and the
-KV cache writes are exact; the precision policy resolves like the
-reference's.  Inputs come from numpy with fixed seeds."""
+quantization (packed schemes and w8a8's raw int8 codes), per-tensor int8
+activation quantization, KV quantization (including the E4M3 subnormal
+flush) and the KV cache writes are exact; the configs copy the
+reference's; the precision policy resolves like the reference's.  Inputs
+come from numpy with fixed seeds."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -184,3 +188,94 @@ def test_policy_rejects_pattern_matching_no_leaf():
     pcfg = port_config("granite-8b", smoke=True)
     with pytest.raises(ValueError, match="matches no leaf"):
         PrecisionPolicy(weights=(("mlp.*", "fp8"),)).validate_for(pcfg)
+
+
+# ---------------------------------------------------------------------------
+# w8a8: raw int8 weight codes and per-tensor activation codes
+# ---------------------------------------------------------------------------
+def _w8a8_weights(k, n):
+    """Normal weights with crafted columns: column 0 has absmax 127 (scale
+    exactly 1, so its x.5 entries are ties), column 1 is all zero (the
+    1e-12 absmax floor), column 2 holds both +absmax and -absmax."""
+    w = (RNG.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    w[:, 0] = RNG.integers(-126, 126, k) + 0.5
+    w[0, 0] = 127.0
+    w[:, 1] = 0.0
+    w[1, 2] = -np.abs(w[:, 2]).max()
+    w[2, 2] = -w[1, 2]
+    return w
+
+
+@pytest.mark.parametrize("k,n", [(64, 32), (256, 48), (96, 8)])
+def test_quantize_weights_w8a8_exact(k, n):
+    w = _w8a8_weights(k, n)
+    want = RS.quantize_weights(RS.get_scheme("w8a8"), w)
+    codes, scales = S.quantize_weights(S.get_scheme("w8a8"), _t(w))
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == (k, n)
+    assert tuple(scales.shape) == (1, n)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want.packed))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want.scales))
+    # ties round half to even; the all-zero column quantizes to 0; the
+    # extremes land on +-127 (a symmetric scale never reaches the -128 clip)
+    np.testing.assert_array_equal(codes[1:, 0].numpy(),
+                                  np.rint(w[1:, 0]).astype(np.int8))
+    assert not codes[:, 1].any() and scales[0, 1] > 0
+    assert codes[1, 2] == -127 and codes[2, 2] == 127
+
+
+def _activations(kind):
+    if kind == "ties":      # absmax 127: scale exactly 1, x.5 are ties
+        x = np.array([[0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -127.0],
+                      [127.0, 3.5, -3.5, 0.0, 4.5, -4.5, 5.49, -5.51]])
+    elif kind == "zero":
+        x = np.zeros((3, 16))
+    elif kind == "extremes":
+        x = RNG.normal(size=(4, 32)) * np.exp(RNG.normal(size=(4, 32)) * 3)
+        x[0, 0] = -np.abs(x).max() * 1.5
+        x[3, 5] = 1e-30
+    else:                   # decode rows / a prefill chunk of activations
+        x = RNG.normal(size=(9, 64)) * 3
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zero", "extremes"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_activations_int8_exact(kind, dtype):
+    x = _activations(kind)
+    xj = jnp.asarray(x, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    xt = _t(x).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    want_codes, want_scale = RS.quantize_activations_int8(xj)
+    codes, scale = S.quantize_activations_int8(xt)
+    assert codes.dtype == torch.int8 and codes.shape == xt.shape
+    assert scale.dtype == torch.float32 and scale.dim() == 0
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want_codes))
+    assert scale.item() == float(want_scale)
+    if kind == "ties":
+        assert codes[0, :6].tolist() == [0, 2, 2, 0, -2, -2]
+    if kind == "zero":
+        assert scale.item() == np.float32(1e-12) / np.float32(127)
+    if kind == "extremes":
+        assert codes.min() == -127
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "minitron-8b"])
+@pytest.mark.parametrize("smoke", [False, True])
+def test_port_config_copies_the_reference_field_for_field(arch, smoke):
+    ref, port = get_config(arch, smoke=smoke), port_config(arch, smoke=smoke)
+    for field in dataclasses.fields(port):
+        assert getattr(port, field.name) == getattr(ref, field.name), \
+            field.name
+    assert port.head_dim == ref.head_dim
+
+
+def test_policy_resolves_like_reference_on_the_non_gated_ffn():
+    cfg, pcfg = get_config("minitron-8b", smoke=True), \
+        port_config("minitron-8b", smoke=True)
+    info = leaf_info(pcfg)
+    assert info == ref_leaf_info(cfg)
+    assert {"ffn.w_in", "ffn.w_out"} <= set(info) and "ffn.w_up" not in info
+    weights = (("attn.wo", "awq_int4"), ("ffn.w_out", "bf16"))
+    want = RPolicy(weights=weights, kv="int8").validate_for(cfg)
+    got = PrecisionPolicy(weights=weights, kv="int8").validate_for(pcfg)
+    assert got.resolved_plan(pcfg) == want.resolved_plan(cfg)
+    assert got.resolved_plan(pcfg)["ffn.w_in"] == "w8a8"
