@@ -9,21 +9,34 @@ non-zero after the last phase; exceptions are not caught):
   0. the card's name and power limit, torch and CUDA versions;
   1. build every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a,
      one process per source, all started together);
-  2. every kernel against its plain torch version at the serving paths'
+  2. every kernel against its plain torch version at its path's
      full-width shapes, timed with CUDA events (L2 flushed before each
      launch) beside its bound, its plain version and one library call;
-     the int8 matmul must match its plain version exactly; decode
-     attention also with a zero-length row (equal weights over the slab);
+     the int8 matmul and the virtual-DSP lane multiply (K6, the counterpart
+     of ``repro/kernels/xtramac_mac.py``) must match their plain versions
+     exactly, K6 for every paper datatype pair at the Table VII GEMV size
+     (50,331,648 lane MACs: T = 50,331,648 / P issues); decode attention
+     also with a zero-length row (equal weights over the slab);
+  3. the MAC datapath (``repro_torch.core``, the counterpart of
+     ``repro/core``): ``xtramac_packed`` for six Fig. 6 datatype
+     combinations, 50,331,648 lane MACs each from random bit patterns
+     (NaN, inf and subnormal codes included), its Stage-2 multiply on K6,
+     held bit for bit against the plain path, against unpacked per-lane
+     MACs (``per_lane_reference``) and, on 4,096 sampled lane MACs, against
+     the exact oracle ``core/ref_mac.mac_exact``; then the cycle-level
+     ``XtraMACPipeline`` over 64 issues that switch datatype every cycle
+     (latency 4, II 1, every result checked); K6 must launch exactly once
+     per ``xtramac_packed`` call and once per pipeline issue;
   then, for granite-8b (AWQ-int4, 36 layers) and minitron-8b (W8A8,
   squared-ReLU FFN, 32 layers), each at full width with random weights
   from a seed, one model after the other:
-  3. the model: one prefill chunk and 4 decode steps through the kernels
+  4. the model: one prefill chunk and 4 decode steps through the kernels
      and through the plain versions, bf16 and int8 KV, logits within 5 %
      of the logit scale (``launch/logit_spread.logit_check``); minitron
      also runs the plain path with decode attention summed in the kernel's
      split-KV order, the witness that decides where the kernels miss 5 %
      (``logit_spread.witness_check``; PERF.md);
-  4. serving: ServingEngine + Scheduler (8 slots, max_len 512, prefill
+  5. serving: ServingEngine + Scheduler (8 slots, max_len 512, prefill
      chunk 64, bursts of up to 8) serve 6 seeded requests with staggered
      arrivals, once with bf16 KV and once with int8 KV; the kernels'
      launch counters are reset just before and read just after.  granite's
@@ -54,6 +67,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import mac as M  # noqa: E402
+from repro_torch.core import packing as P  # noqa: E402
+from repro_torch.core.pipeline import Op, XtraMACPipeline  # noqa: E402
+from repro_torch.core.ref_mac import mac_exact  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, gqa_decode_attention)
@@ -61,7 +78,12 @@ from repro_torch.kernels.packed_matmul import (  # noqa: E402
     packed_gemv, packed_matmul, packed_matmul_plain)
 from repro_torch.kernels.w8a8_matmul import (  # noqa: E402
     w8a8_matmul, w8a8_matmul_plain)
+from repro_torch.kernels.xtramac_mac import (  # noqa: E402
+    REF_MAX_STRIDE, check_reference_domain, virtual_dsp_multiply,
+    virtual_dsp_plain)
 from repro_torch.launch import logit_spread as LS  # noqa: E402
+from repro_torch.launch.profile_datapath import (  # noqa: E402
+    DATAPATH_COMBOS, TABLE_VII_LANE_MACS, random_operands)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import QuantMaker  # noqa: E402
 from repro_torch.quant.kv_cache import QuantizedKV, cache_read  # noqa: E402
@@ -76,6 +98,9 @@ from repro_torch.serve import (Request, SamplingParams, Scheduler,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+# 32-bit integer instructions on the CUDA cores: 132 SMs x 64 INT32 lanes
+# x 1.98 GHz boost clock (Hopper architecture white paper)
+INT32_OPS = 132 * 64 * 1.98e9
 
 KERNELS = {
     "packed_gemv": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -88,9 +113,12 @@ KERNELS = {
                               "src/repro/kernels/decode_attention.py:137"),
     "decode_attention_quant": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:144"),
+    "virtual_dsp_multiply": ("src/repro_torch/csrc/xtramac_mac.cu",
+                             "src/repro/kernels/xtramac_mac.py:71"),
 }
-# the kernels each model's serving path must launch, and those it must not
+# the kernels each path must launch, and those it must not
 PATH_KERNELS = {
+    "xtramac-datapath": ("virtual_dsp_multiply",),
     "granite-8b": ("packed_gemv", "packed_matmul", "decode_attention_bf16",
                    "decode_attention_quant"),
     "minitron-8b": ("w8a8_matmul", "decode_attention_bf16",
@@ -103,6 +131,8 @@ SCHEMES = ["awq_int4", "mxfp4", "fp8"]
 # bf16 ulp (outputs are rounded to bf16; the sums differ only in order);
 # model logits: LS.logit_check
 MM_RTOL, MM_ATOL = 2e-3, 1e-3
+ORACLE_SAMPLES = 4096
+PIPELINE_ISSUES = 64
 ATTN_RTOL, ATTN_ATOL = 2.0 ** -7, 1e-5
 
 FAILED_CHECKS = []
@@ -225,6 +255,7 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
     cases += w8a8_cases(timer, gen, dev, chunk)
     cases += attention_cases(timer, gen, dev)
     cases += empty_row_cases(gen, dev)
+    cases += vdsp_cases(timer, gen, dev)
     return cases
 
 
@@ -372,8 +403,218 @@ def empty_row_cases(gen, dev, b=8, h=32, hk=8, dh=128, sk=512):
     return cases
 
 
+def vdsp_plans():
+    """(pair, cap, plan, draw) of every K6 case: each paper pair under the
+    capped plan, the beyond-paper pairs uncapped where their lanes fit the
+    reference kernel's domain, and all magnitudes at their maximum."""
+    plans = [(pair, 4, P.solve_lane_plan(*pair, max_parallelism=4), "random")
+             for pair in P.PAPER_PARALLELISM]
+    for pair in P.SOLVER_BEYOND_PAPER:
+        plan = P.solve_lane_plan(*pair)
+        if plan.stride <= REF_MAX_STRIDE:
+            plans.append((pair, None, plan, "random"))
+    plans.append((("bf16", "bf16"), 4,
+                  P.solve_lane_plan("bf16", "bf16", max_parallelism=4), "max"))
+    return plans
+
+
+def vdsp_case(timer, gen, dev, pair, cap, plan, draw, dtype, fn, plain_fn):
+    """One K6 case at T = 50,331,648 / P: kernel ``fn`` against
+    ``plain_fn`` bit for bit, timed beside its bound, the plain version and
+    the broadcast multiply ``(a[:, :, None] * b[:, None, :]).flatten(1)``,
+    which computes the same lanes where magnitudes stay within the
+    format's maximum (lane isolation; lanes are i-major)."""
+    t = TABLE_VII_LANE_MACS // plan.parallelism
+    n_a, n_b = len(plan.offsets_a), len(plan.offsets_b)
+    if draw == "max":
+        a = torch.full((t, n_a), (1 << plan.w_a) - 1, dtype=dtype, device=dev)
+        b = torch.full((t, n_b), (1 << plan.w_b) - 1, dtype=dtype, device=dev)
+    else:
+        a = torch.randint(0, P.max_magnitude(plan.fmt_a) + 1, (t, n_a),
+                          generator=gen, device=dev, dtype=dtype)
+        b = torch.randint(0, P.max_magnitude(plan.fmt_b) + 1, (t, n_b),
+                          generator=gen, device=dev, dtype=dtype)
+
+    def library():
+        return (a[:, :, None] * b[:, None, :]).flatten(1)
+
+    got = fn(a, b, plan)
+    want = plain_fn(a, b, plan)
+    lib = library()
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    ok = bool(torch.equal(got, want))
+    lib_ok = bool(torch.equal(lib, want))
+    elem = torch.empty((), dtype=dtype).element_size()
+    b_ms, by = bound_ms(t * (n_a + n_b + plan.parallelism) * elem,
+                        t * (n_a + n_b + 1 + plan.parallelism), INT32_OPS)
+    case = {"name": "virtual_dsp_multiply", "pair": "x".join(pair),
+            "cap": cap, "draw": draw, "dtype": str(dtype).split(".")[-1],
+            "t": t, "p": plan.parallelism, "stride": plan.stride,
+            "max_abs_err": err, "ok": ok, "library_equal": lib_ok,
+            "ms": timer.ms(lambda: fn(a, b, plan)),
+            "plain_ms": timer.ms(lambda: plain_fn(a, b, plan)),
+            "library_ms": timer.ms(library),
+            "library": "(a[:, :, None] * b[:, None, :]).flatten(1)",
+            "bound_ms": b_ms, "bound_by": by}
+    log(json.dumps(case))
+    require(ok, f"virtual_dsp_multiply {case['pair']} cap={cap} {draw} "
+                f"{case['dtype']}: max |err| {err} (must be 0)")
+    require(lib_ok, f"virtual_dsp_multiply {case['pair']} cap={cap} {draw}: "
+                    "lanes differ from a_i * b_j")
+    return case
+
+
+def vdsp_cases(timer, gen, dev):
+    """K6 in its int32 instantiation (``virtual_dsp_multiply``) for every
+    case of ``vdsp_plans``, and its int64 one (``packed_multiply``) on a
+    40-bit lane (fp32 x int16), which the int32 entry must refuse."""
+    cases = []
+    for pair, cap, plan, draw in vdsp_plans():
+        cases.append(vdsp_case(
+            timer, gen, dev, pair, cap, plan, draw, torch.int32,
+            virtual_dsp_multiply,
+            lambda a, b, p: virtual_dsp_plain(a, b, p).to(torch.int32)))
+    plan = P.solve_lane_plan("fp32", "int16")
+    try:
+        check_reference_domain(plan)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "virtual_dsp_multiply accepted a 40-bit lane")
+    cases.append(vdsp_case(
+        timer, gen, dev, ("fp32", "int16"), None, plan, "random", torch.int64,
+        lambda a, b, p: P.packed_multiply(p, a, b),
+        lambda a, b, p: P.packed_multiply(p, a, b, plain=True)))
+    return cases
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the model through the kernels and through the plain versions
+# Phase 3: the MAC datapath through K6
+# ---------------------------------------------------------------------------
+def special_codes(fmt, bits):
+    """How many NaN, inf and subnormal codes ``bits`` holds (floats)."""
+    if not fmt.is_float:
+        return {}
+    _, e, m = fmt.fields(bits)
+    return {"nan": int(fmt.is_nan(bits).sum()),
+            "inf": int(fmt.is_inf(bits).sum()),
+            "subnormal": int(((e == 0) & (m != 0)).sum())}
+
+
+def datapath_combo(combo, gen, dev, rng):
+    """``xtramac_packed`` at 50,331,648 lane MACs of one combination, held
+    to the plain path, to per-lane MACs and to the exact oracle."""
+    cfg = M.MacConfig.make(*combo)
+    plan = P.solve_lane_plan(cfg.fmt_a, cfg.fmt_b, max_parallelism=4)
+    t, lanes = TABLE_VII_LANE_MACS // plan.parallelism, plan.parallelism
+    a, b, c = random_operands(cfg, plan, gen, dev, TABLE_VII_LANE_MACS)
+    before = ops.launch_counts()["virtual_dsp_multiply"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = P.xtramac_packed(cfg, plan, a, b, c)
+    torch.cuda.synchronize()
+    packed_s = time.perf_counter() - t0
+    kernel_launches = ops.launch_counts()["virtual_dsp_multiply"] - before
+    plain_ok = bool(torch.equal(got, P.xtramac_packed(cfg, plan, a, b, c,
+                                                      plain=True)))
+    lane_ok = bool(torch.equal(got, P.per_lane_reference(cfg, plan, a, b, c)))
+    # the exact oracle on sampled (issue, lane) pairs
+    rows = torch.as_tensor(rng.integers(0, t, ORACLE_SAMPLES), device=dev)
+    cols = rng.integers(0, lanes, ORACLE_SAMPLES)
+    a_h, b_h, c_h = (x[rows].cpu().numpy() for x in (a, b, c))
+    sampled = got[rows, torch.as_tensor(cols, device=dev)].cpu().numpy()
+    pos = plan.lane_positions
+    want = [mac_exact(cfg.fmt_a, cfg.fmt_b, cfg.fmt_c, cfg.fmt_p,
+                      a_h[k, pos[l][0]], b_h[k, pos[l][1]], c_h[k, l])
+            for k, l in enumerate(cols)]
+    oracle_bad = int((sampled != np.asarray(want, np.int64)).sum())
+    specials = {"a": special_codes(cfg.fmt_a, a),
+                "b": special_codes(cfg.fmt_b, b),
+                "c": special_codes(cfg.fmt_c, c)}
+    case = {"combo": cfg.name, "p": lanes, "t": t, "lane_macs": t * lanes,
+            "packed_call_s": packed_s, "kernel_launches": kernel_launches,
+            "equal_to_plain": plain_ok, "equal_to_per_lane": lane_ok,
+            "oracle_samples": ORACLE_SAMPLES, "oracle_mismatches": oracle_bad,
+            "special_codes": specials}
+    log(json.dumps(case))
+    require(tuple(got.shape) == (t, lanes) and bool(
+        ((got >= 0) & (got < (1 << cfg.fmt_p.bits))).all()),
+        f"datapath {cfg.name}: output {tuple(got.shape)} or codes outside "
+        f"{cfg.fmt_p.name}")
+    require(kernel_launches == 1, f"datapath {cfg.name}: {kernel_launches} "
+                                  "K6 launches in one xtramac_packed call")
+    require(plain_ok, f"datapath {cfg.name}: K6 path differs from the plain "
+                      "path")
+    require(lane_ok, f"datapath {cfg.name}: packed lanes differ from "
+                     "per-lane MACs")
+    require(oracle_bad == 0, f"datapath {cfg.name}: {oracle_bad} of "
+                             f"{ORACLE_SAMPLES} samples differ from mac_exact")
+    for port, fmt in (("a", cfg.fmt_a), ("b", cfg.fmt_b), ("c", cfg.fmt_c)):
+        if fmt.is_float:
+            need = ["subnormal"] + (["nan"] if fmt.special_rule != "none"
+                                    else []) \
+                + (["inf"] if fmt.special_rule == "ieee" else [])
+            require(all(specials[port][k] > 0 for k in need),
+                    f"datapath {cfg.name}: operand {port} lacks special "
+                    f"codes {specials[port]}")
+    return case
+
+
+def pipeline_case(dev, rng):
+    """``XtraMACPipeline`` (int4 x bf16 and bf16 x bf16, the reference's
+    fig6_parallelism setup) over 64 issues that switch datatype every
+    cycle: no result before cycle 4, then one per cycle (II 1), each equal
+    to unpacked per-lane MACs."""
+    cfgs = [M.MacConfig.make("int4", "bf16", "bf16", "bf16"),
+            M.MacConfig.make("bf16", "bf16", "bf16", "bf16")]
+    pipe = XtraMACPipeline(cfgs, device=dev)
+    issues = []
+    for i in range(PIPELINE_ISSUES):
+        cfg, plan = cfgs[i % 2], pipe.plans[i % 2]
+        issues.append(Op(i % 2,
+                         rng.integers(0, 1 << cfg.fmt_a.bits,
+                                      len(plan.offsets_a)),
+                         rng.integers(0, 1 << cfg.fmt_b.bits,
+                                      len(plan.offsets_b)),
+                         rng.integers(0, 1 << cfg.fmt_c.bits,
+                                      plan.parallelism)))
+    t0 = time.perf_counter()
+    outs = [pipe.step(op) for op in issues]
+    outs += [pipe.step(None) for _ in range(pipe.latency)]
+    wall = time.perf_counter() - t0
+    first = next(i for i, o in enumerate(outs) if o is not None)
+    results = outs[first:]
+    ii_one = all(o is not None for o in results) \
+        and len(results) == len(issues)
+    bad = 0
+    for op, got in zip(issues, results):
+        cfg, plan = cfgs[op.dtype_sel], pipe.plans[op.dtype_sel]
+        want = P.per_lane_reference(
+            cfg, plan, *(torch.as_tensor(x, device=dev)[None]
+                         for x in (op.a_bits, op.b_bits, op.c_bits)))[0]
+        bad += int(not np.array_equal(got, want.cpu().numpy()))
+    case = {"pipeline": [c.name for c in cfgs], "issues": len(issues),
+            "latency": pipe.latency, "first_result_cycle": first,
+            "ii_one": ii_one, "mismatches": bad, "wall_s": wall}
+    log(json.dumps(case))
+    require(pipe.latency == 4 and first == 4,
+            f"pipeline: latency {pipe.latency}, first result at cycle {first}")
+    require(ii_one, "pipeline: not one result per cycle")
+    require(bad == 0, f"pipeline: {bad} issues differ from per-lane MACs")
+    return case
+
+
+def datapath_phase(gen, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    combos = [datapath_combo(combo, gen, dev, rng)
+              for combo in DATAPATH_COMBOS]
+    torch.cuda.empty_cache()
+    return {"combos": combos, "pipeline": pipeline_case(dev, rng)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the model through the kernels and through the plain versions
 # ---------------------------------------------------------------------------
 def model_phase(cfg, params, dev, chunk: int, rows=8, steps=4, seed=1,
                 witness=None):
@@ -413,7 +654,7 @@ def model_phase(cfg, params, dev, chunk: int, rows=8, steps=4, seed=1,
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: serving through the engine and scheduler
+# Phase 5: serving through the engine and scheduler
 # ---------------------------------------------------------------------------
 def serve_requests(cfg, seed=2, n=6, new_tokens=32):
     rng = np.random.default_rng(seed)
@@ -497,13 +738,7 @@ def serve_phase(cfg, params, chunk, dev):
                         "solo run")
         reports.append(rep)
     log(json.dumps({"serve_launches": launches, "arch": cfg.name}))
-    for name in KERNELS:
-        if name in PATH_KERNELS[cfg.name]:
-            require(launches[name] > 0,
-                    f"{cfg.name}: {name} was not launched while serving")
-        else:
-            require(launches[name] == 0,
-                    f"{cfg.name}: {name} ran on a path it is not on")
+    check_path_launches(cfg.name, launches)
     # every W8A8 leaf call of every forward (prefill chunk or decode step)
     # went through the int8 kernel
     want = n_w8a8 * cfg.n_layers * forwards
@@ -511,6 +746,16 @@ def serve_phase(cfg, params, chunk, dev):
             f"{cfg.name}: {launches['w8a8_matmul']} int8 kernel launches, "
             f"{want} W8A8 leaf calls")
     return reports, launches
+
+
+def check_path_launches(path: str, launches) -> None:
+    """Every kernel of ``path`` launched in its run, and no other."""
+    for name in KERNELS:
+        if name in PATH_KERNELS[path]:
+            require(launches[name] > 0, f"{path}: {name} was not launched")
+        else:
+            require(launches[name] == 0,
+                    f"{path}: {name} ran on a path it is not on")
 
 
 # ---------------------------------------------------------------------------
@@ -539,8 +784,28 @@ def main() -> None:
     result["cases"] = cases = kernel_phase(timer, gen, dev, chunk)
     log(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
     del timer
+    torch.cuda.empty_cache()
 
-    launches_by_path = {}
+    # the MAC datapath: launch counts set to 0 just before, read just after
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    result["datapath"] = datapath_phase(gen, dev)
+    launches_by_path = {"xtramac-datapath": ops.launch_counts()}
+    result["datapath"].update(
+        seconds=time.perf_counter() - t0,
+        launches=launches_by_path["xtramac-datapath"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log(json.dumps({"datapath_phase_s": result["datapath"]["seconds"],
+                    "peak_memory_bytes":
+                        result["datapath"]["peak_memory_bytes"],
+                    "launches": launches_by_path["xtramac-datapath"]}))
+    check_path_launches("xtramac-datapath",
+                        launches_by_path["xtramac-datapath"])
+    want = len(DATAPATH_COMBOS) + PIPELINE_ISSUES
+    got = launches_by_path["xtramac-datapath"]["virtual_dsp_multiply"]
+    require(got == want, f"datapath: {got} K6 launches, {want} xtramac_packed "
+                         "calls and pipeline issues")
     for arch, witness in (("granite-8b", None),
                           ("minitron-8b", "plain_splitkv")):
         cfg = get_config(arch)
@@ -568,15 +833,17 @@ def main() -> None:
         json.dump(result, f, indent=1)
 
     # one summary entry per kernel: the worst error over its cases, times
-    # at the serving path's own shape (decode M = 8 slots, prefill M = 64,
-    # the widest linear; int8 KV for the quantized attention); launches
-    # over both models' serve phases
+    # at its path's own shape (decode M = 8 slots, prefill M = 64, the
+    # widest linear; int8 KV for the quantized attention; K6 on int4 x bf16
+    # at the Table VII size); launches over every path's run
     rep_case = {"packed_gemv": dict(scheme="awq_int4", m=8, k=4096, n=14336),
                 "packed_matmul": dict(scheme="awq_int4", m=chunk, k=4096,
                                       n=14336),
                 "w8a8_matmul": dict(m=8, k=4096, n=16384),
                 "decode_attention_bf16": dict(kv="bf16"),
-                "decode_attention_quant": dict(kv="int8")}
+                "decode_attention_quant": dict(kv="int8"),
+                "virtual_dsp_multiply": dict(pair="int4xbf16", cap=4,
+                                             draw="random", dtype="int32")}
     summary = []
     for name, (source, replaces) in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]

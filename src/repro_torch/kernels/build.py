@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("packed_matmul", "w8a8_matmul", "decode_attention")
+SOURCES = ("packed_matmul", "w8a8_matmul", "decode_attention", "xtramac_mac")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

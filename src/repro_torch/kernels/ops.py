@@ -24,10 +24,13 @@ from repro_torch.quant.schemes import quantize_activations_int8
 from . import decode_attention as _da
 from . import packed_matmul as _pm
 from . import w8a8_matmul as _w8
+from . import xtramac_mac as _xm
 from .decode_attention import decode_attention_plain, gqa_decode_attention
 from .packed_matmul import (GEMV_MAX_M, packed_gemv, packed_matmul,
                             packed_matmul_plain)
 from .w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
+from .xtramac_mac import (virtual_dsp_multiply,  # noqa: F401  (re-export)
+                          virtual_dsp_plain)
 
 
 def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -64,10 +67,10 @@ def fused_decode_attention(q: torch.Tensor, k_cache, v_cache,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**_pm.launches, **_w8.launches, **_da.launches}
+    return {**_pm.launches, **_w8.launches, **_da.launches, **_xm.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_pm.launches, _w8.launches, _da.launches):
+    for counts in (_pm.launches, _w8.launches, _da.launches, _xm.launches):
         for name in counts:
             counts[name] = 0

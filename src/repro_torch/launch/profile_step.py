@@ -41,7 +41,10 @@ def _kernel_times(prof, steps: int):
                   key=lambda kv: -kv[1])
 
 
-def _measure(step, steps: int, dev):
+def measure(step, steps: int, dev, top=12):
+    """Host wall ms per call of ``step`` (ending in a device sync), then one
+    profiler pass: device-busy ms, idle share and the ``top`` kernels by
+    time (all of them for ``top=None``)."""
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -58,7 +61,7 @@ def _measure(step, steps: int, dev):
     busy = sum(t for _, t in kernels) if kernels else None
     return {"steps": steps, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": None if busy is None else 1.0 - busy / wall,
-            "kernels": [{"name": n[:80], "ms": t} for n, t in kernels[:12]]}
+            "kernels": [{"name": n[:80], "ms": t} for n, t in kernels[:top]]}
 
 
 def main(argv=None) -> None:
@@ -97,8 +100,8 @@ def main(argv=None) -> None:
     print(json.dumps({
         "device": torch.cuda.get_device_name(dev), "arch": cfg.name,
         "kv": args.kv_dtype, "n_slots": args.n_slots, "chunk": args.chunk,
-        "prefill_chunk": _measure(prefill, args.steps, dev),
-        "decode_step": _measure(decode, args.steps, dev)}))
+        "prefill_chunk": measure(prefill, args.steps, dev),
+        "decode_step": measure(decode, args.steps, dev)}))
 
 
 if __name__ == "__main__":

@@ -44,6 +44,10 @@ def test_every_port_module_imports_without_cuda():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     assert "repro_torch.kernels.packed_matmul" in names
+    for core in ("formats", "ref_mac", "mac", "packing", "pipeline",
+                 "resource_model", "gemv_engine"):
+        assert f"repro_torch.core.{core}" in names
+    assert "repro_torch.kernels.xtramac_mac" in names
     for name in names:
         importlib.import_module(name)
 

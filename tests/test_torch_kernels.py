@@ -9,10 +9,15 @@ jnp oracles:
   * the w8a8 int8 matmul bit for bit (its int32 sums are exact);
   * decode attention (bf16 / int8 / fp8 slabs) to one bf16 ulp (rtol
     2^-7): both round an f32 result to bf16 — also with zero-length rows,
-    which attend their whole slab with equal weights.
+    which attend their whole slab with equal weights;
+  * the virtual-DSP lane multiply (K6) bit for bit, against the reference
+    kernel in interpret mode and its int64 oracle, for every paper
+    datatype pair.
 Tests marked ``gpu`` run the CUDA kernels against the plain versions and
 skip when no card is present.
 """
+from ctypes import sizeof as ctypes_sizeof
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,12 +29,16 @@ from repro.kernels.ops import quantized_matmul as ref_quantized_matmul
 from repro.kernels.packed_matmul import packed_gemv as ref_gemv
 from repro.kernels.packed_matmul import packed_matmul as ref_matmul
 from repro.kernels.packed_matmul import w8a8_matmul as ref_w8a8
+from repro.kernels.xtramac_mac import virtual_dsp_multiply as ref_vdsp
+from repro.core import packing as RP
 from repro.quant import kv_cache as RKV
 from repro.quant import schemes as RS
+from repro_torch.core import packing as P
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import packed_matmul as PM
 from repro_torch.kernels import w8a8_matmul as W8
+from repro_torch.kernels import xtramac_mac as XM
 from repro_torch.quant import schemes as S
 from repro_torch.quant.kv_cache import QuantizedKV
 
@@ -277,6 +286,85 @@ def test_build_targets_hopper_and_keys_libraries_by_source_and_flags():
 
 
 # ---------------------------------------------------------------------------
+# the virtual-DSP lane multiply (K6)
+# ---------------------------------------------------------------------------
+def _vdsp_inputs(plan, t, seed, all_max=False):
+    """Seeded magnitudes below 2^w per port (the reference kernel test's
+    draw), or every magnitude 2^w - 1 (the full-width product)."""
+    rng = np.random.default_rng(seed)
+    n_a, n_b = len(plan.offsets_a), len(plan.offsets_b)
+    if all_max:
+        return (np.full((t, n_a), (1 << plan.w_a) - 1, np.int64),
+                np.full((t, n_b), (1 << plan.w_b) - 1, np.int64))
+    return (rng.integers(0, 1 << plan.w_a, size=(t, n_a), dtype=np.int64),
+            rng.integers(0, 1 << plan.w_b, size=(t, n_b), dtype=np.int64))
+
+
+VDSP_CASES = [(pair, "random") for pair in sorted(RP.PAPER_PARALLELISM)] + [
+    (("bf16", "bf16"), "max")]
+
+
+@pytest.mark.parametrize("pair,draw", VDSP_CASES,
+                         ids=lambda x: "x".join(x) if isinstance(x, tuple)
+                         else x)
+def test_virtual_dsp_plain_vs_reference_kernel_bitwise(pair, draw):
+    plan = P.solve_lane_plan(*pair, max_parallelism=4)
+    rplan = RP.solve_lane_plan(*pair, max_parallelism=4)
+    t = 2048 if draw == "random" else 256
+    a, b = _vdsp_inputs(plan, t, 41, all_max=draw == "max")
+    want_kernel = np.asarray(ref_vdsp(a, b, rplan, bt=512 if t > 256 else 256,
+                                      interpret=True))
+    want_oracle = ref.virtual_dsp_ref(rplan, a, b)
+    got = XM.virtual_dsp_multiply(_t(a), _t(b), plan)
+    assert got.dtype == torch.int32 and got.shape == want_kernel.shape
+    np.testing.assert_array_equal(got.numpy(), want_kernel)
+    np.testing.assert_array_equal(got.numpy(), want_oracle)
+    np.testing.assert_array_equal(
+        XM.virtual_dsp_plain(_t(a), _t(b), plan).numpy(), want_oracle)
+    np.testing.assert_array_equal(
+        XM.virtual_dsp_multiply_wide(_t(a), _t(b), plan).numpy(), want_oracle)
+    assert ops.virtual_dsp_multiply is XM.virtual_dsp_multiply
+
+
+@pytest.mark.parametrize("pair", [("fp16", "fp16"), ("fp32", "int16"),
+                                  ("int16", "int16"), ("fp32", "bf16")])
+def test_virtual_dsp_multiply_raises_outside_reference_domain(pair):
+    """The reference kernel's lane window is <= 19 bits below bit 48
+    (its _extract_lane asserts); the int64 entry takes these plans."""
+    plan = P.solve_lane_plan(*pair)
+    a, b = _vdsp_inputs(plan, 64, 42)
+    with pytest.raises(ValueError, match="reference kernel's domain"):
+        XM.virtual_dsp_multiply(_t(a), _t(b), plan)
+    with pytest.raises(AssertionError):
+        ref_vdsp(a, b, RP.solve_lane_plan(*pair), bt=64, interpret=True)
+    np.testing.assert_array_equal(
+        XM.virtual_dsp_multiply_wide(_t(a), _t(b), plan).numpy(),
+        ref.virtual_dsp_ref(RP.solve_lane_plan(*pair), a, b))
+
+
+def test_virtual_dsp_wrappers_raise_on_devices_without_a_kernel():
+    plan = P.solve_lane_plan("int4", "bf16", max_parallelism=4)
+    a = torch.empty((4, 2), dtype=torch.int32, device="meta")
+    b = torch.empty((4, 1), dtype=torch.int32, device="meta")
+    for fn in (XM.virtual_dsp_multiply, XM.virtual_dsp_multiply_wide):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(a, b, plan)
+    with pytest.raises(ValueError, match="shapes"):
+        XM.virtual_dsp_multiply(torch.zeros((4, 3), dtype=torch.int32),
+                                torch.zeros((4, 1), dtype=torch.int32), plan)
+
+
+def test_virtual_dsp_kernel_plan_mirrors_the_lane_plan():
+    plan = P.solve_lane_plan("fp4_e2m1", "fp4_e2m1")          # 2 x 4 lanes
+    k = XM._kernel_plan(plan)
+    assert (k.n_a, k.n_b, k.n_lanes, k.stride) == (2, 4, 8, plan.stride)
+    assert list(k.off_a[:2]) == list(plan.offsets_a)
+    assert list(k.off_b[:4]) == list(plan.offsets_b)
+    assert list(k.pos[:8]) == [p for (_, _, p) in plan.lane_positions]
+    assert ctypes_sizeof(k) == 4 * (4 + 2 * XM.MAX_PORT_LANES + XM.MAX_LANES)
+
+
+# ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
@@ -344,3 +432,33 @@ def test_decode_attention_empty_rows_on_card(cuda_device, tier):
     want = DA.decode_attention_plain(qd, pk, pv, lens).float()
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair,draw", VDSP_CASES,
+                         ids=lambda x: "x".join(x) if isinstance(x, tuple)
+                         else x)
+def test_virtual_dsp_kernel_matches_plain_on_card(cuda_device, pair, draw):
+    plan = P.solve_lane_plan(*pair, max_parallelism=4)
+    a, b = _vdsp_inputs(plan, 100_003, 43, all_max=draw == "max")
+    a, b = _t(a).to(cuda_device), _t(b).to(cuda_device)
+    before = ops.launch_counts()["virtual_dsp_multiply"]
+    got = XM.virtual_dsp_multiply(a, b, plan)
+    wide = XM.virtual_dsp_multiply_wide(a, b, plan)
+    assert ops.launch_counts()["virtual_dsp_multiply"] == before + 2
+    want = XM.virtual_dsp_plain(a, b, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(torch.int64), want)
+    assert torch.equal(wide, want)
+
+
+@pytest.mark.gpu
+def test_virtual_dsp_wide_kernel_matches_plain_on_card(cuda_device):
+    """The int64 instantiation on a 40-bit lane (fp32 x int16)."""
+    plan = P.solve_lane_plan("fp32", "int16")
+    a, b = _vdsp_inputs(plan, 100_003, 44)
+    a, b = _t(a).to(cuda_device), _t(b).to(cuda_device)
+    got = P.packed_multiply(plan, a, b)
+    want = P.packed_multiply(plan, a, b, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
