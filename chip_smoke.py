@@ -11,12 +11,17 @@ non-zero after the last phase; exceptions are not caught):
      one process per source, all started together);
   2. every kernel against its plain torch version at its path's
      full-width shapes, timed with CUDA events (L2 flushed before each
-     launch) beside its bound, its plain version and one library call;
-     the int8 matmul and the virtual-DSP lane multiply (K6, the counterpart
-     of ``repro/kernels/xtramac_mac.py``) must match their plain versions
-     exactly, K6 for every paper datatype pair at the Table VII GEMV size
-     (50,331,648 lane MACs: T = 50,331,648 / P issues); decode attention
-     also with a zero-length row (equal weights over the slab);
+     launch) beside its bound, its plain version and one library call:
+     the packed GEMV (K1, M = 1, 8) and the tensor-core packed matmul (K2,
+     M = 9, 64, 100) for three schemes on granite's four linear shapes,
+     plus K2 on a ragged N (1000) and on decode leaves with N % 4 != 0
+     (1022) that the dispatch routes to it; decode attention (K3 / K4) in
+     three KV tiers on four head layouts (Dh 128, 192, 64, 112), also
+     with zero-length rows (equal weights over the slab); the int8 matmul
+     (also at K = 4100, zero-padded) and the virtual-DSP lane multiply
+     (K6, the counterpart of ``repro/kernels/xtramac_mac.py``) must match
+     their plain versions exactly, K6 for every paper datatype pair at the
+     Table VII GEMV size (50,331,648 lane MACs: T = 50,331,648 / P issues);
   3. the MAC datapath (``repro_torch.core``, the counterpart of
      ``repro/core``): ``xtramac_packed`` for six Fig. 6 datatype
      combinations, 50,331,648 lane MACs each from random bit patterns
@@ -125,7 +130,19 @@ PATH_KERNELS = {
                     "decode_attention_quant"),
 }
 LINEAR_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
-W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096)]
+MATMUL_ROWS = (9, 64, 100)          # K2: the prefill chunk (64) and beside
+# (scheme, M, N) at K = 4096: a ragged N edge, and decode leaves with
+# N % 4 != 0 that the dispatch sends to K2
+RAGGED_LEAVES = [("awq_int4", 64, 1000), ("awq_int4", 8, 1022),
+                 ("fp8", 8, 1022)]
+# K = 4100 (not a multiple of 16): the int8 kernel on zero-padded copies
+W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
+               (4100, 4096)]
+# decode attention: granite / minitron (the table case), nemotron-4-340b
+# (d_head 192, GQA 96 / 8), qwen3-moe (64, 32 / 4), zamba2-7b (112, 32 / 32)
+ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
+ATTN_LAYOUTS = [dict(h=32, hk=8, dh=128), dict(h=96, hk=8, dh=192),
+                dict(h=32, hk=4, dh=64), dict(h=32, hk=32, dh=112)]
 SCHEMES = ["awq_int4", "mxfp4", "fp8"]
 # matmul tolerance of the reference's kernel tests; decode attention to one
 # bf16 ulp (outputs are rounded to bf16; the sums differ only in order);
@@ -150,11 +167,12 @@ def log(*a) -> None:
 
 
 class Timer:
-    """Mean device time of one call, from CUDA events around each call,
+    """Median device time of one call, from CUDA events around each call,
     with the L2 cache flushed (a 256 MB write) before every call: the
     serving loop reads each weight and KV byte cold.  A ~2 ms device spin
     before the start event keeps the stream busy while the host runs the
-    wrapper, so the events time the device work and not the host's."""
+    wrapper, so the events time the device work and not the host's; the
+    median drops a call whose host thread was held up past the spin."""
 
     SPIN_CYCLES = 4_000_000
 
@@ -167,7 +185,7 @@ class Timer:
     def ms(self, fn, reps: int = 20, warmup: int = 3) -> float:
         for _ in range(warmup):
             fn()
-        total = 0.0
+        times = []
         for _ in range(reps):
             self.flush.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
@@ -175,8 +193,8 @@ class Timer:
             fn()
             self.e1.record()
             self.e1.synchronize()
-            total += self.e0.elapsed_time(self.e1)
-        return total / reps
+            times.append(self.e0.elapsed_time(self.e1))
+        return float(np.median(times))
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -215,45 +233,74 @@ def make_packed_weights(scheme_name: str, k: int, n: int, gen, dev):
     return scheme, packed, scales
 
 
+def packed_case(timer: Timer, name, fn, scheme, packed, scales, w_bf16, m,
+                gen, dev, launch_name):
+    """One packed linear leaf: ``fn`` (a wrapper, or the dispatch) against
+    ``packed_matmul_plain`` at the reference's kernel tolerance, timed
+    beside its bound, its plain version and ``x @ W_bf16``.  ``fn`` must
+    launch ``launch_name`` once."""
+    k, n = w_bf16.shape
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = ops.launch_counts()[launch_name]
+    got = fn(x, packed, scales, scheme)
+    launched = ops.launch_counts()[launch_name] - before
+    want = packed_matmul_plain(x, packed, scales, scheme)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL))
+    b, by = bound_ms(nbytes(x, packed, scales, got), 2.0 * m * k * n)
+    case = {
+        "name": name, "scheme": scheme.name, "m": m, "k": k, "n": n,
+        "max_abs_err": err, "max_rel_err": err / float(want.abs().max()),
+        "max_abs_out": float(want.abs().max()), "ok": ok,
+        "ms": timer.ms(lambda: fn(x, packed, scales, scheme)),
+        "plain_ms": timer.ms(lambda: packed_matmul_plain(
+            x, packed, scales, scheme)),
+        "library_ms": timer.ms(lambda: x @ w_bf16),
+        "library": "torch.matmul(x bf16, dequantized W bf16)",
+        "bound_ms": b, "bound_by": by}
+    log(json.dumps(case))
+    require(ok, f"{name} {scheme.name} M={m} K={k} N={n}: max |err| {err}")
+    require(launched == 1, f"{name} {scheme.name} M={m} K={k} N={n}: "
+                           f"{launched} {launch_name} launches, not 1")
+    return case
+
+
+def leaf_matmul(x, packed, scales, scheme):
+    """A packed leaf through the model's dispatch, f32 out."""
+    return ops.quantized_matmul(x, packed, scales, scheme,
+                                out_dtype=torch.float32)
+
+
 def kernel_phase(timer: Timer, gen, dev, chunk: int):
     cases = []
-    for kind, ms_list in (("packed_gemv", (1, 8)), ("packed_matmul", (chunk,))):
-        fn = packed_gemv if kind == "packed_gemv" else packed_matmul
-        for scheme_name in SCHEMES:
-            for k, n in LINEAR_SHAPES:
-                scheme, packed, scales = make_packed_weights(
-                    scheme_name, k, n, gen, dev)
-                w_bf16 = dequantize(scheme, packed, scales, (k, n)).to(
-                    torch.bfloat16)
+    for scheme_name in SCHEMES:
+        for k, n in LINEAR_SHAPES:
+            scheme, packed, scales = make_packed_weights(
+                scheme_name, k, n, gen, dev)
+            w_bf16 = dequantize(scheme, packed, scales, (k, n)).to(
+                torch.bfloat16)
+            for kind, fn, ms_list in (
+                    ("packed_gemv", packed_gemv, (1, 8)),
+                    ("packed_matmul", packed_matmul, MATMUL_ROWS)):
                 for m in ms_list:
-                    x = torch.randn((m, k), generator=gen,
-                                    device=dev).to(torch.bfloat16)
-                    got = fn(x, packed, scales, scheme)
-                    want = packed_matmul_plain(x, packed, scales, scheme)
-                    torch.cuda.synchronize()
-                    err = float((got - want).abs().max())
-                    ok = bool(torch.allclose(got, want, rtol=MM_RTOL,
-                                             atol=MM_ATOL))
-                    b, by = bound_ms(nbytes(x, packed, scales, got),
-                                     2.0 * m * k * n)
-                    case = {
-                        "name": kind, "scheme": scheme_name, "m": m, "k": k,
-                        "n": n, "max_abs_err": err,
-                        "max_rel_err": err / float(want.abs().max()),
-                        "max_abs_out": float(want.abs().max()), "ok": ok,
-                        "ms": timer.ms(lambda: fn(x, packed, scales, scheme)),
-                        "plain_ms": timer.ms(lambda: packed_matmul_plain(
-                            x, packed, scales, scheme)),
-                        "library_ms": timer.ms(lambda: x @ w_bf16),
-                        "library": "torch.matmul(x bf16, dequantized W bf16)",
-                        "bound_ms": b, "bound_by": by}
-                    cases.append(case)
-                    log(json.dumps(case))
-                    require(ok, f"{kind} {scheme_name} M={m} K={k} N={n}: "
-                                f"max |err| {err}")
-                del packed, scales, w_bf16
+                    cases.append(packed_case(timer, kind, fn, scheme, packed,
+                                             scales, w_bf16, m, gen, dev,
+                                             kind))
+            del packed, scales, w_bf16
+    # K2 beyond the served shapes: a ragged N edge, and decode leaves the
+    # GEMV does not take (N % 4 != 0), which the dispatch routes to K2
+    for scheme_name, m, n in RAGGED_LEAVES:
+        scheme, packed, scales = make_packed_weights(scheme_name, 4096, n,
+                                                     gen, dev)
+        w_bf16 = dequantize(scheme, packed, scales, (4096, n)).to(
+            torch.bfloat16)
+        cases.append(packed_case(timer, "packed_matmul", leaf_matmul, scheme,
+                                 packed, scales, w_bf16, m, gen, dev,
+                                 "packed_matmul"))
     cases += w8a8_cases(timer, gen, dev, chunk)
-    cases += attention_cases(timer, gen, dev)
+    for layout in ATTN_LAYOUTS:
+        cases += attention_cases(timer, gen, dev, **layout)
     cases += empty_row_cases(gen, dev)
     cases += vdsp_cases(timer, gen, dev)
     return cases
@@ -283,13 +330,18 @@ def w8a8_cases(timer: Timer, gen, dev, chunk: int):
             ok = bool(torch.equal(got, want))
             b, by = bound_ms(nbytes(xc, xs, wt, scales, got), 2.0 * m * k * n,
                              INT8_OPS)
-            # _int_mm takes more than 16 rows: decode rows are padded to 32
-            lib_m = max(m, 32)
-            xl = torch.zeros((lib_m, k), dtype=torch.int8, device=dev)
-            xl[:m] = xc
+            # _int_mm takes more than 16 rows and K % 8 == 0: decode rows
+            # are padded to 32, K with zero codes to a multiple of 16
+            lib_m, lib_k = max(m, 32), -(-k // 16) * 16
+            xl = torch.zeros((lib_m, lib_k), dtype=torch.int8, device=dev)
+            xl[:m, :k] = xc
+            wl = wt
+            if lib_k != k:
+                wl = torch.zeros((n, lib_k), dtype=torch.int8, device=dev)
+                wl[:, :k] = wt
 
             def library():
-                return torch._int_mm(xl, wt.t()).to(torch.float32) \
+                return torch._int_mm(xl, wl.t()).to(torch.float32) \
                     * (scales * xs)
 
             case = {
@@ -301,7 +353,8 @@ def w8a8_cases(timer: Timer, gen, dev, chunk: int):
                     xc, xs, wt, scales)),
                 "library_ms": timer.ms(library),
                 "library": "torch._int_mm(x int8, W int8) + epilogue"
-                           + (f", M padded to {lib_m}" if lib_m != m else ""),
+                           + (f", M padded to {lib_m}" if lib_m != m else "")
+                           + (f", K padded to {lib_k}" if lib_k != k else ""),
                 "bound_ms": b, "bound_by": by}
             cases.append(case)
             log(json.dumps(case))
@@ -312,8 +365,7 @@ def w8a8_cases(timer: Timer, gen, dev, chunk: int):
 
 
 def attention_cases(timer: Timer, gen, dev, b=8, h=32, hk=8, dh=128, sk=1024):
-    lens = torch.tensor([1024, 1, 37, 512, 1000, 300, 768, 64],
-                        dtype=torch.int32, device=dev)[:b]
+    lens = torch.tensor(ATTN_LENS, dtype=torch.int32, device=dev)[:b]
     q = torch.randn((b, 1, h, dh), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
     v = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
@@ -840,8 +892,8 @@ def main() -> None:
                 "packed_matmul": dict(scheme="awq_int4", m=chunk, k=4096,
                                       n=14336),
                 "w8a8_matmul": dict(m=8, k=4096, n=16384),
-                "decode_attention_bf16": dict(kv="bf16"),
-                "decode_attention_quant": dict(kv="int8"),
+                "decode_attention_bf16": dict(kv="bf16", h=32, dh=128),
+                "decode_attention_quant": dict(kv="int8", h=32, dh=128),
                 "virtual_dsp_multiply": dict(pair="int4xbf16", cap=4,
                                              draw="random", dtype="int32")}
     summary = []

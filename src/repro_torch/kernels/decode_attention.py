@@ -12,8 +12,12 @@ positions of its slab (the mean of V), as in the reference, where every
 score is then masked to the same -1e30.
 
 ``gqa_decode_attention`` launches the kernel on CUDA tensors and returns
-``decode_attention_plain`` on CPU tensors.  ``launches`` counts kernel
-launches by slab kind ("decode_attention_bf16" / "decode_attention_quant").
+``decode_attention_plain`` on CPU tensors.  The kernel takes H % Hk == 0,
+H / Hk <= 16 and Dh % 4 == 0 up to 256 (every layout of the reference's
+configs: Dh 16 to 192, H / Hk up to 12); its grid is a fixed split of Sk
+(``split_plan``), so the host never reads ``kv_valid_len``.  ``launches``
+counts kernel launches by slab kind ("decode_attention_bf16" /
+"decode_attention_quant").
 """
 from __future__ import annotations
 
@@ -31,12 +35,16 @@ launches: Dict[str, int] = {"decode_attention_bf16": 0,
                             "decode_attention_quant": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decode_attention": [_P] * 10 + [_I] * 8
+_SIGNATURES = {"decode_attention": [_P] * 10 + [_I] * 7
                + [ctypes.c_float, _P]}
 _KIND = {"bf16": 0, "int8": 1, "fp8": 2}
 _NEG = -1e30
-_TILE = 32
-_TARGET_BLOCKS = 264      # two waves over the H100's 132 SMs
+TILE = 32                 # positions per tile
+SPAN = 64                 # positions per block: two tiles
+WARPS = 4                 # warps per block; warp w takes positions
+GROUP = 8                 # [GROUP w, GROUP (w + 1)) of each tile
+MAX_DH = 256              # dims per lane up to 8
+MAX_REP = 16              # query heads per KV head: 4 per warp
 
 
 def query_scale(dh: int) -> float:
@@ -68,12 +76,23 @@ def decode_attention_plain(q: torch.Tensor, k_cache, v_cache,
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
-def split_plan(b: int, hk: int, sk: int):
-    """(split_len, splits): split the sequence in multiples of 32 positions
-    until the grid holds about two waves of blocks."""
-    want = max(1, -(-_TARGET_BLOCKS // (b * hk)))
-    split_len = -(-(-(-sk // want)) // _TILE) * _TILE
-    return split_len, -(-sk // split_len)
+def split_plan(sk: int):
+    """(span, splits): the kernel's fixed split of the sequence into spans
+    of SPAN positions (two tiles of TILE), ceil(Sk / SPAN) of them.  It
+    depends on the slab length only, never on ``kv_valid_len``: spans past
+    a row's length exit at once on the card."""
+    return SPAN, -(-sk // SPAN)
+
+
+def copy_width(row_bytes: int, *ptrs: int) -> int:
+    """The kernel's cp.async width for a slab: 16, 8 or 4 bytes, the
+    largest that divides a (position, head) row's bytes and every slab
+    address."""
+    for w in (16, 8, 4):
+        if row_bytes % w == 0 and all(p % w == 0 for p in ptrs):
+            return w
+    raise ValueError(f"KV rows of {row_bytes} bytes at {ptrs} are not "
+                     "4-byte aligned")
 
 
 def gqa_decode_attention(q: torch.Tensor, k_cache, v_cache,
@@ -97,10 +116,11 @@ def gqa_decode_attention(q: torch.Tensor, k_cache, v_cache,
         raise TypeError("k_cache and v_cache must share one KV scheme")
     if sq != 1 or q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError("q must be a contiguous bf16 [B, 1, H, Dh] tensor")
-    if h % hk or h // hk > 16 or dh > 128 or dh % 4:
+    if h % hk or h // hk > MAX_REP or dh > MAX_DH or dh % 4:
         raise ValueError(f"unsupported head layout H={h} Hk={hk} Dh={dh} "
-                         "(needs H % Hk == 0, H / Hk <= 16, Dh <= 128, "
-                         "Dh % 4 == 0)")
+                         f"(needs H % Hk == 0, H / Hk <= {MAX_REP}, "
+                         f"Dh <= {MAX_DH}, Dh % 4 == 0; no config of the "
+                         "reference exceeds H / Hk = 12 or Dh = 192)")
     want = (b, sk, hk, dh // 4 if quant else dh)
     slab_dtype = torch.int32 if quant else torch.bfloat16
     tensors = [kslab, vslab]
@@ -121,7 +141,9 @@ def gqa_decode_attention(q: torch.Tensor, k_cache, v_cache,
     if tuple(lens.shape) != (b,):
         raise ValueError(f"kv_valid_len must be [B]={b}, got {tuple(lens.shape)}")
 
-    split_len, splits = split_plan(b, hk, sk)
+    _, splits = split_plan(sk)
+    chunk = copy_width(2 * dh if not quant else dh, kslab.data_ptr(),
+                       vslab.data_ptr())
     part_m = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, h, splits, dh), dtype=torch.float32,
@@ -135,7 +157,7 @@ def gqa_decode_attention(q: torch.Tensor, k_cache, v_cache,
             q.data_ptr(), kslab.data_ptr(), vslab.data_ptr(), ks, vs,
             lens.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), out.data_ptr(), b, sk, h, hk, dh, kind,
-            split_len, splits, query_scale(dh),
+            chunk, query_scale(dh),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, "decode_attention", err)
     launches["decode_attention_quant" if quant else "decode_attention_bf16"] += 1

@@ -11,8 +11,11 @@ the weight codes int8 given **transposed**, ``w_codes_t`` [N, K], and
 per-channel f32 ``w_scales`` [1, N].  The int32 sum is exact, so kernel,
 plain version and the reference's ``w8a8_matmul_ref`` agree bit for bit.
 
-  * ``w8a8_matmul``       — launches the kernel on CUDA tensors, returns the
-    plain version on CPU tensors, raises for any other device;
+  * ``w8a8_matmul``       — launches the kernel on CUDA tensors (zero-padding
+    both operands along K to a multiple of 16 where K or an address does
+    not suit the kernel's 16-byte loads: zero codes add exactly 0 to the
+    int32 sums), returns the plain version on CPU tensors, raises for any
+    other device;
   * ``w8a8_matmul_plain`` — plain torch on any device.
 
 ``launches`` counts kernel launches; plain calls do not count.
@@ -52,6 +55,20 @@ def m_tiles(m: int) -> int:
     return 1 if m <= 16 else 2 if m <= 32 else 4
 
 
+def w8a8_takes(k: int, x_ptr: int, w_ptr: int) -> bool:
+    """Whether the kernel takes the code operands as they are: K % 16 == 0
+    and both 16-byte aligned (its 16-byte loads).  Otherwise the wrapper
+    runs it on copies zero-padded along K to a multiple of 16."""
+    return k % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
+
+
+def _pad_k(codes: torch.Tensor, k: int) -> torch.Tensor:
+    out = torch.zeros((codes.shape[0], k), dtype=codes.dtype,
+                      device=codes.device)
+    out[:, :codes.shape[1]] = codes
+    return out
+
+
 def split_plan(m: int, k: int, n: int) -> Tuple[int, int]:
     """(k_per_split, splits): split K in steps of 64 (at least 256 per
     split) until the grid of 128-column, 16 x m_tiles-row blocks holds
@@ -86,9 +103,6 @@ def _check(x_codes, x_scale, w_codes_t, w_scales):
     if x_scale.numel() != 1 or w_scales.numel() != n:
         raise ValueError("w8a8_matmul: x_scale must hold 1 value and "
                          f"w_scales N={n}")
-    if k % 16 or x_codes.data_ptr() % 16 or w_codes_t.data_ptr() % 16:
-        raise ValueError("w8a8_matmul needs K % 16 == 0 and 16-byte aligned "
-                         "codes")
     return m, k, n
 
 
@@ -105,6 +119,9 @@ def w8a8_matmul(x_codes: torch.Tensor, x_scale: torch.Tensor,
     if x_codes.device.type != "cuda":
         raise ValueError(f"w8a8_matmul: no kernel for device {x_codes.device}")
     m, k, n = _check(x_codes, x_scale, w_codes_t, w_scales)
+    if not w8a8_takes(k, x_codes.data_ptr(), w_codes_t.data_ptr()):
+        k = -(-k // 16) * 16
+        x_codes, w_codes_t = _pad_k(x_codes, k), _pad_k(w_codes_t, k)
     kps, splits = split_plan(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
     partial = torch.empty((splits, m, n) if splits > 1 else (0,),

@@ -12,8 +12,12 @@ Versions (``VARIANTS``), each run with bf16 and with int8 KV:
                 no kernel (for w8a8 the int32 sum is exact, so this equals
                 plain);
   plain_splitkv plain, but the decode attention walks the sequence in the
-                kernel's order (its splits, tiles of 32 positions with the
-                online-softmax update, then the splits' merge);
+                kernel's order (spans of 64 positions; in a span, 4 runs of
+                the online-softmax update over 8 positions of each tile of
+                32, merged in order; then the spans' merge);
+  plain_groupk  plain, but every packed matmul takes K2's association: per
+                scale group, x @ codes in f32, times the group's scale,
+                summed in group order (w8a8 unchanged: exact);
   drop_split    plain_splitk leaving out the last slice (a split-K reduce
                 that loses one partial);
   drop_group    plain leaving out the first weight group (its rows of K)
@@ -40,6 +44,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
+from repro_torch.kernels.packed_matmul import packed_matmul_grouped
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
 from repro_torch.quant.kv_cache import cache_read
@@ -58,7 +63,7 @@ WITNESS_FACTOR = 1.5
 SPLITS = 8
 ROWS, CHUNK, STEPS = 8, 64, 4
 VARIANTS = ("plain_again", "kernels", "plain_splitk", "plain_splitkv",
-            "drop_split", "drop_group")
+            "plain_groupk", "drop_split", "drop_group")
 
 
 def logit_check(got: torch.Tensor, want: torch.Tensor,
@@ -159,10 +164,23 @@ def _w8a8_rows(rows_of):
     return matmul
 
 
+def _merge(parts):
+    """(max, sum, acc) partials merged in order, as the kernel merges its
+    warps and its spans."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    w = [torch.exp(p[0] - m) for p in parts]
+    l = sum(p[1] * wi for p, wi in zip(parts, w))
+    acc = sum(p[2] * wi for p, wi in zip(parts, w))
+    return m, l, acc
+
+
 def splitkv_attention_plain(q, k_cache, v_cache, kv_valid_len):
     """The plain decode attention in the CUDA kernel's order: the sequence
-    cut into the kernel's splits, each walked in tiles of 32 positions with
-    the online-softmax update, then the splits' (max, sum, acc) merged."""
+    cut into the kernel's spans (``DA.split_plan``); in a span, warp w
+    walks positions [GROUP w, GROUP (w + 1)) of each tile of ``DA.TILE``
+    with the online-softmax update, the warps' (max, sum, acc) merged in
+    warp order, then the spans' in span order.  (Positions past a row's
+    length change nothing: their weights are exactly 0.)"""
     b, _, h, dh = q.shape
     k = cache_read(k_cache, torch.float32).to(torch.float32)
     v = cache_read(v_cache, torch.float32).to(torch.float32)
@@ -170,28 +188,33 @@ def splitkv_attention_plain(q, k_cache, v_cache, kv_valid_len):
     qg = (q[:, 0].to(torch.float32) * DA.query_scale(dh)).reshape(
         b, hk, h // hk, dh)
     lens = kv_valid_len.to(q.device)[:, None, None, None]
-    split_len, splits = DA.split_plan(b, hk, sk)
-    parts = []
+    span, splits = DA.split_plan(sk)
+    spans = []
     for sp in range(splits):
-        m = torch.full((*qg.shape[:3], 1), DA._NEG, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(qg)
-        for t0 in range(sp * split_len, min((sp + 1) * split_len, sk), 32):
-            t1 = min(t0 + 32, (sp + 1) * split_len, sk)
-            pos = torch.arange(t0, t1, device=q.device)
-            s = torch.einsum("bgrd,bkgd->bgrk", qg, k[:, t0:t1])
-            s = torch.where(pos < lens, s, torch.full_like(s, DA._NEG))
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
-            l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + torch.einsum("bgrk,bkgd->bgrd", p, v[:, t0:t1])
-            m = m_new
-        parts.append((m, l, acc))
-    m = torch.stack([p[0] for p in parts]).amax(0)
-    w = [torch.exp(p[0] - m) for p in parts]
-    l = sum(p[1] * wi for p, wi in zip(parts, w))
-    acc = sum(p[2] * wi for p, wi in zip(parts, w))
+        end = min((sp + 1) * span, sk)
+        warps = []
+        for w in range(DA.WARPS):
+            m = torch.full((*qg.shape[:3], 1), DA._NEG, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros_like(qg)
+            for t0 in range(sp * span, end, DA.TILE):
+                p0 = t0 + DA.GROUP * w
+                p1 = min(p0 + DA.GROUP, end)
+                if p0 >= p1:
+                    continue
+                pos = torch.arange(p0, p1, device=q.device)
+                s = torch.einsum("bgrd,bkgd->bgrk", qg, k[:, p0:p1])
+                s = torch.where(pos < lens, s, torch.full_like(s, DA._NEG))
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + torch.einsum("bgrk,bkgd->bgrd", p,
+                                                v[:, p0:p1])
+                m = m_new
+            warps.append((m, l, acc))
+        spans.append(_merge(warps))
+    _, l, acc = _merge(spans)
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
@@ -217,6 +240,7 @@ RUNS = {  # variant: (plain, {ops function: the version it runs})
         "w8a8_matmul_plain": _w8a8_rows(_slices)}),
     "plain_splitkv": (True, {
         "decode_attention_plain": splitkv_attention_plain}),
+    "plain_groupk": (True, {"packed_matmul_plain": packed_matmul_grouped}),
     "drop_split": (True, {
         "packed_matmul_plain": splitk_plain(drop=SPLITS - 1),
         "w8a8_matmul_plain": _w8a8_rows(

@@ -26,6 +26,7 @@ import torch
 from repro.kernels import ref
 from repro.kernels.decode_attention import gqa_decode_attention as ref_decode
 from repro.kernels.ops import quantized_matmul as ref_quantized_matmul
+from repro.kernels.packed_matmul import decode_codes_arith
 from repro.kernels.packed_matmul import packed_gemv as ref_gemv
 from repro.kernels.packed_matmul import packed_matmul as ref_matmul
 from repro.kernels.packed_matmul import w8a8_matmul as ref_w8a8
@@ -122,6 +123,92 @@ def test_packed_wrappers_raise_on_devices_without_a_kernel(fn):
     scales = torch.empty((2, 64), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fn(x, packed, scales, scheme)
+
+
+@pytest.mark.parametrize("scheme", ["awq_int4", "mxfp4", "fp8"])
+def test_kernel_decode_gives_every_code_exactly_in_bf16(scheme):
+    """K2 feeds the tensor cores the codes as bf16: every code of int4,
+    e2m1 and e4m3, decoded by K2's integer operations, is bit for bit the
+    bf16 cast of the reference decode (DAZ, NaN code as 0), and that cast
+    is exact."""
+    sch = S.get_scheme(scheme)
+    codes = torch.arange(1 << sch.weight_bits)
+    bits = PM.kernel_decode_bf16(sch, codes)
+    want = _t(decode_codes_arith(RS.get_scheme(scheme),
+                                 jnp.asarray(codes.numpy(), jnp.int32)))
+    got = PM.bf16_from_bits(bits)
+    assert torch.equal(got.view(torch.int16),
+                       want.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(got.to(torch.float32), want)
+
+
+@pytest.mark.parametrize("scheme", ["awq_int4", "mxfp4", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(16, 256, 128), (64, 512, 128),
+                                   (16, 4096, 128)])
+def test_grouped_association_vs_reference_kernel(scheme, m, k, n):
+    """K2's association — per scale group, x @ codes in f32, times the
+    group's scale, summed in group order — against the reference's
+    interpret-mode kernel (which scales each code before the sum)."""
+    qw = _weights(scheme, k, n)
+    x = RNG.normal(size=(m, k)).astype(np.float32)
+    want = np.asarray(ref_matmul(jnp.asarray(x, jnp.bfloat16), qw,
+                                 interpret=True))
+    got = PM.packed_matmul_grouped(_bf16(x), _t(qw.packed), _t(qw.scales),
+                                   S.get_scheme(scheme)).numpy()
+    np.testing.assert_allclose(got, want, **MM_TOL)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,k,n", [(64, 4096, 14336), (64, 4096, 4096),
+                                   (64, 4096, 1024), (64, 14336, 4096),
+                                   (8, 4096, 1022), (9, 4096, 1000),
+                                   (100, 4096, 14336), (1, 72, 6)])
+def test_matmul_plan_tiles_k_and_fills_the_card(m, k, n, bits):
+    mt, nt, kps, splits = PM.matmul_plan(m, k, n, bits)
+    assert mt == (1 if m <= 16 else 4)
+    assert nt == (2 if mt == 4 and bits == 4 else 1)
+    assert kps % 128 == 0 and (splits - 1) * kps < k <= splits * kps
+    blocks = -(-n // (64 * nt)) * -(-m // (16 * mt))
+    assert blocks * splits <= 264 or splits == 1
+    if splits > 1:                       # split only short of 2 per SM
+        assert blocks < 132 and kps >= 4 * 128
+    if (m, n) == (64, 14336):            # 112 or 224 blocks
+        assert splits == (2 if bits == 4 else 1)
+
+
+@pytest.mark.parametrize("scheme,m,n,packed_off,scales_off,route", [
+    ("awq_int4", 8, 4096, 0, 0, "gemv"),
+    ("awq_int4", 1, 14336, 0, 0, "gemv"),
+    ("awq_int4", 9, 4096, 0, 0, "matmul"),
+    ("awq_int4", 64, 14336, 0, 0, "matmul"),
+    ("awq_int4", 8, 1022, 0, 0, "matmul"),    # N % 4 != 0
+    ("mxfp4", 4, 4096, 4, 0, "matmul"),       # words not 16-byte aligned
+    ("fp8", 2, 4096, 0, 8, "matmul"),         # scales not 16-byte aligned
+])
+def test_linear_route_sends_what_k1_refuses_to_k2(scheme, m, n, packed_off,
+                                                   scales_off, route):
+    sch = S.get_scheme(scheme)
+    assert ops.linear_route(sch, m, 4096, n, 1024 + packed_off,
+                            2048 + scales_off) == route
+
+
+@pytest.mark.parametrize("k,x_off,w_off,takes", [
+    (4096, 0, 0, True), (16384, 0, 0, True), (4100, 0, 0, False),
+    (200, 0, 0, False), (4096, 8, 0, False), (4096, 0, 4, False)])
+def test_w8a8_pads_k_where_the_kernel_needs_it(k, x_off, w_off, takes):
+    """K % 16 != 0 or an operand not 16-byte aligned: the leaf runs on
+    copies zero-padded along K to a multiple of 16, and the padded product
+    is the unpadded one bit for bit (zero codes add exactly 0)."""
+    sch = S.get_scheme("w8a8")
+    assert W8.w8a8_takes(k, 4096 + x_off, 8192 + w_off) is takes
+    route = ops.linear_route(sch, 8, k, 64, 8192 + w_off, 0, 4096 + x_off)
+    assert route == ("w8a8" if takes else "w8a8_padded")
+    kk = min(k, 200)
+    _, (xc, xs, wt, ws) = _w8a8_operands(3, kk, 40)
+    kp = -(-kk // 16) * 16
+    padded_out = W8.w8a8_matmul_plain(W8._pad_k(xc, kp), xs,
+                                      W8._pad_k(wt, kp), ws)
+    assert torch.equal(padded_out, W8.w8a8_matmul_plain(xc, xs, wt, ws))
 
 
 # ---------------------------------------------------------------------------
@@ -259,11 +346,46 @@ def test_decode_attention_empty_rows_match_reference_kernel(tier):
     np.testing.assert_allclose(got[0, 0], mean_v, **ATTN_TOL)
 
 
+@pytest.mark.parametrize("tier", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("h,hk,dh", [(12, 2, 192), (4, 4, 112)])
+def test_decode_attention_plain_wide_heads_vs_reference_kernel(tier, h, hk,
+                                                               dh):
+    """The head layouts the port's kernel now takes: nemotron-4-340b's
+    d_head 192 (GQA, rep 6 here) and zamba2-7b's 112 (rep 1)."""
+    q, k, v, lens = _attn_inputs(b=3, s=40, h=h, hk=hk, dh=dh)
+    (rk, rv), (pk, pv) = _slabs(tier, k, v)
+    qj = jnp.asarray(q, jnp.bfloat16)
+    want = np.asarray(ref_decode(qj, rk, rv, jnp.asarray(lens),
+                                 interpret=True), np.float32)
+    got = DA.gqa_decode_attention(_bf16(q), pk, pv, _t(lens))
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.to(torch.float32).numpy(), want,
+                               **ATTN_TOL)
+
+
+def test_decode_copy_width_follows_rows_and_alignment():
+    assert DA.copy_width(256, 0, 1 << 20) == 16       # bf16, Dh 128
+    assert DA.copy_width(112, 0, 0) == 16             # int8 codes, Dh 112
+    assert DA.copy_width(72, 0, 0) == 8               # bf16, Dh 36
+    assert DA.copy_width(36, 0, 0) == 4               # codes, Dh 36
+    assert DA.copy_width(256, 8, 0) == 8              # a slab 8-aligned
+    with pytest.raises(ValueError):
+        DA.copy_width(256, 2, 0)
+
+
 @pytest.mark.parametrize("b,hk,sk", [(8, 8, 1024), (8, 8, 512), (1, 2, 48)])
 def test_decode_split_plan_tiles_the_sequence(b, hk, sk):
-    split_len, splits = DA.split_plan(b, hk, sk)
-    assert split_len % 32 == 0
-    assert (splits - 1) * split_len < sk <= splits * split_len
+    """Fixed spans of at most SPAN positions (two tiles) cover every
+    position exactly once; the plan takes the slab length only — never
+    kv_valid_len — so the host reads no lengths."""
+    import inspect
+    assert list(inspect.signature(DA.split_plan).parameters) == ["sk"]
+    span, splits = DA.split_plan(sk)
+    assert span == DA.SPAN <= 2 * DA.TILE and span % DA.TILE == 0
+    covered = np.zeros(sk, np.int64)
+    for sp in range(splits):
+        covered[sp * span:min((sp + 1) * span, sk)] += 1
+    assert (covered == 1).all() and (splits - 1) * span < sk
 
 
 def test_decode_attention_raises_on_devices_without_a_kernel():
@@ -369,14 +491,22 @@ def test_virtual_dsp_kernel_plan_mirrors_the_lane_plan():
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
 @pytest.mark.parametrize("scheme", ["awq_int4", "mxfp4", "fp8"])
-@pytest.mark.parametrize("m", [1, 8, 64])
-def test_packed_kernels_match_plain_on_card(cuda_device, scheme, m):
-    qw = _weights(scheme, 1024, 512)
+@pytest.mark.parametrize("m,n", [(1, 512), (8, 512), (9, 512), (64, 512),
+                                 (100, 512), (64, 1000), (8, 1022)])
+def test_packed_kernels_match_plain_on_card(cuda_device, scheme, m, n):
+    """K1 and K2 as ``quantized_matmul`` routes them: M <= 8 to K1 where
+    it takes the leaf, everything else (ragged N, N % 4 != 0) to K2."""
+    qw = _weights(scheme, 1024, n)
     x = _bf16(RNG.normal(size=(m, 1024))).to(cuda_device)
     packed, scales = _t(qw.packed).to(cuda_device), _t(qw.scales).to(cuda_device)
     sch = S.get_scheme(scheme)
-    fn = PM.packed_gemv if m <= 8 else PM.packed_matmul
-    got = fn(x, packed, scales, sch)
+    route = ops.linear_route(sch, m, 1024, n, packed.data_ptr(),
+                             scales.data_ptr())
+    assert route == ("gemv" if m <= 8 and n % 4 == 0 else "matmul")
+    before = ops.launch_counts()[f"packed_{route}"]
+    got = ops.quantized_matmul(x, packed, scales, sch,
+                               out_dtype=torch.float32)
+    assert ops.launch_counts()[f"packed_{route}"] == before + 1
     want = PM.packed_matmul_plain(x, packed, scales, sch)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **MM_TOL)
@@ -384,8 +514,11 @@ def test_packed_kernels_match_plain_on_card(cuda_device, scheme, m):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tier", ["bf16", "int8", "fp8"])
-def test_decode_attention_kernel_matches_plain_on_card(cuda_device, tier):
-    q, k, v, lens = _attn_inputs(b=3, s=96, h=32, hk=8, dh=128)
+@pytest.mark.parametrize("h,hk,dh", [(32, 8, 128), (32, 4, 64),
+                                     (32, 32, 112), (96, 8, 192)])
+def test_decode_attention_kernel_matches_plain_on_card(cuda_device, tier, h,
+                                                       hk, dh):
+    q, k, v, lens = _attn_inputs(b=3, s=150, h=h, hk=hk, dh=dh)
     _, (pk, pv) = _slabs(tier, k, v)
     if tier == "bf16":
         pk, pv = pk.to(cuda_device), pv.to(cuda_device)
@@ -404,8 +537,10 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda_device, tier):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 1024), (8, 4096, 16384),
                                    (64, 16384, 4096), (9, 208, 136),
-                                   (33, 1040, 250), (100, 512, 384)])
+                                   (33, 1040, 250), (100, 512, 384),
+                                   (8, 4100, 256), (64, 200, 40)])
 def test_w8a8_kernel_matches_plain_on_card_bitwise(cuda_device, m, k, n):
+    """K % 16 != 0 (the last two) runs zero-padded along K."""
     _, (xc, xs, wt, ws) = _w8a8_operands(m, k, n)
     xc, xs, wt, ws = (t.to(cuda_device) for t in (xc, xs, wt, ws))
     got = W8.w8a8_matmul(xc, xs, wt, ws)

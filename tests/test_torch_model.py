@@ -284,7 +284,7 @@ def test_init_cache_layouts():
 
 @pytest.mark.parametrize("variant,passes", [
     ("plain_again", True), ("plain_splitk", True), ("plain_splitkv", True),
-    ("drop_split", False), ("drop_group", False)])
+    ("plain_groupk", True), ("drop_split", False), ("drop_group", False)])
 def test_logit_check_passes_a_reordered_sum_and_fails_planted_faults(
         smoke, variant, passes):
     """The model-phase check of chip_smoke.py, at smoke size on the CPU:
@@ -320,14 +320,14 @@ def _logit_check_variant(models, variant, passes):
 
 @pytest.mark.parametrize("variant,passes", [
     ("plain_again", True), ("plain_splitk", True), ("plain_splitkv", True),
-    ("drop_split", False), ("drop_group", False)])
+    ("plain_groupk", True), ("drop_split", False), ("drop_group", False)])
 def test_logit_check_on_w8a8_passes_reordered_sums_and_fails_faults(
         minitron, variant, passes):
     """The same on minitron-smoke: the reordered int32 sum is exact (no
     difference at all), the split-KV attention order passes, a dropped
     K slice or a dropped block of 128 K rows fails."""
     res = _logit_check_variant(minitron, variant, passes)
-    if variant == "plain_splitk":
+    if variant in ("plain_splitk", "plain_groupk"):   # no packed leaf moves
         assert res["max_abs_logit_diff"] == 0.0
 
 
