@@ -12,7 +12,7 @@ non-zero after the last phase; exceptions are not caught):
   2. every kernel against its plain torch version at its path's
      full-width shapes, timed with CUDA events (L2 flushed before each
      launch) beside its bound, its plain version and one library call:
-     the packed GEMV (K1, M = 1, 8) and the tensor-core packed matmul (K2,
+     the packed GEMV (K1, M = 1, 3, 8) and the tensor-core packed matmul (K2,
      M = 9, 64, 100) for three schemes on granite's four linear shapes,
      plus K2 on a ragged N (1000) and on decode leaves with N % 4 != 0
      (1022) that the dispatch routes to it; decode attention (K3 / K4) in
@@ -21,7 +21,9 @@ non-zero after the last phase; exceptions are not caught):
      (also at K = 4100, zero-padded) and the virtual-DSP lane multiply
      (K6, the counterpart of ``repro/kernels/xtramac_mac.py``) must match
      their plain versions exactly, K6 for every paper datatype pair at the
-     Table VII GEMV size (50,331,648 lane MACs: T = 50,331,648 / P issues);
+     Table VII GEMV size (50,331,648 lane MACs: T = 50,331,648 / P issues)
+     and, in both instantiations, at a T that is no whole number of its
+     row tiles;
   3. the MAC datapath (``repro_torch.core``, the counterpart of
      ``repro/core``): ``xtramac_packed`` for six Fig. 6 datatype
      combinations, 50,331,648 lane MACs each from random bit patterns
@@ -130,7 +132,10 @@ PATH_KERNELS = {
                     "decode_attention_quant"),
 }
 LINEAR_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+GEMV_ROWS = (1, 3, 8)               # K1: decode rows
 MATMUL_ROWS = (9, 64, 100)          # K2: the prefill chunk (64) and beside
+# K6 at a T that is no whole number of any body's row tile (256, 512, 1024)
+VDSP_RAGGED = 987
 # (scheme, M, N) at K = 4096: a ragged N edge, and decode leaves with
 # N % 4 != 0 that the dispatch sends to K2
 RAGGED_LEAVES = [("awq_int4", 64, 1000), ("awq_int4", 8, 1022),
@@ -281,7 +286,7 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
             w_bf16 = dequantize(scheme, packed, scales, (k, n)).to(
                 torch.bfloat16)
             for kind, fn, ms_list in (
-                    ("packed_gemv", packed_gemv, (1, 8)),
+                    ("packed_gemv", packed_gemv, GEMV_ROWS),
                     ("packed_matmul", packed_matmul, MATMUL_ROWS)):
                 for m in ms_list:
                     cases.append(packed_case(timer, kind, fn, scheme, packed,
@@ -470,13 +475,14 @@ def vdsp_plans():
     return plans
 
 
-def vdsp_case(timer, gen, dev, pair, cap, plan, draw, dtype, fn, plain_fn):
-    """One K6 case at T = 50,331,648 / P: kernel ``fn`` against
-    ``plain_fn`` bit for bit, timed beside its bound, the plain version and
-    the broadcast multiply ``(a[:, :, None] * b[:, None, :]).flatten(1)``,
-    which computes the same lanes where magnitudes stay within the
-    format's maximum (lane isolation; lanes are i-major)."""
-    t = TABLE_VII_LANE_MACS // plan.parallelism
+def vdsp_case(timer, gen, dev, pair, cap, plan, draw, dtype, fn, plain_fn,
+              short=0):
+    """One K6 case at T = 50,331,648 / P - ``short``: kernel ``fn``
+    against ``plain_fn`` bit for bit, timed beside its bound, the plain
+    version and the broadcast multiply ``(a[:, :, None] * b[:, None,
+    :]).flatten(1)``, which computes the same lanes where magnitudes stay
+    within the format's maximum (lane isolation; lanes are i-major)."""
+    t = TABLE_VII_LANE_MACS // plan.parallelism - short
     n_a, n_b = len(plan.offsets_a), len(plan.offsets_b)
     if draw == "max":
         a = torch.full((t, n_a), (1 << plan.w_a) - 1, dtype=dtype, device=dev)
@@ -502,6 +508,7 @@ def vdsp_case(timer, gen, dev, pair, cap, plan, draw, dtype, fn, plain_fn):
                         t * (n_a + n_b + 1 + plan.parallelism), INT32_OPS)
     case = {"name": "virtual_dsp_multiply", "pair": "x".join(pair),
             "cap": cap, "draw": draw, "dtype": str(dtype).split(".")[-1],
+            "ragged": short > 0,
             "t": t, "p": plan.parallelism, "stride": plan.stride,
             "max_abs_err": err, "ok": ok, "library_equal": lib_ok,
             "ms": timer.ms(lambda: fn(a, b, plan)),
@@ -520,13 +527,22 @@ def vdsp_case(timer, gen, dev, pair, cap, plan, draw, dtype, fn, plain_fn):
 def vdsp_cases(timer, gen, dev):
     """K6 in its int32 instantiation (``virtual_dsp_multiply``) for every
     case of ``vdsp_plans``, and its int64 one (``packed_multiply``) on a
-    40-bit lane (fp32 x int16), which the int32 entry must refuse."""
-    cases = []
-    for pair, cap, plan, draw in vdsp_plans():
-        cases.append(vdsp_case(
+    40-bit lane (fp32 x int16), which the int32 entry must refuse; then
+    both on int4 x bf16 / fp32 x int16 at a ragged T."""
+    def int32_case(pair, cap, plan, draw, short=0):
+        return vdsp_case(
             timer, gen, dev, pair, cap, plan, draw, torch.int32,
             virtual_dsp_multiply,
-            lambda a, b, p: virtual_dsp_plain(a, b, p).to(torch.int32)))
+            lambda a, b, p: virtual_dsp_plain(a, b, p).to(torch.int32),
+            short)
+
+    def int64_case(plan, short=0):
+        return vdsp_case(
+            timer, gen, dev, ("fp32", "int16"), None, plan, "random",
+            torch.int64, lambda a, b, p: P.packed_multiply(p, a, b),
+            lambda a, b, p: P.packed_multiply(p, a, b, plain=True), short)
+
+    cases = [int32_case(*case) for case in vdsp_plans()]
     plan = P.solve_lane_plan("fp32", "int16")
     try:
         check_reference_domain(plan)
@@ -534,10 +550,10 @@ def vdsp_cases(timer, gen, dev):
     except ValueError:
         refused = True
     require(refused, "virtual_dsp_multiply accepted a 40-bit lane")
-    cases.append(vdsp_case(
-        timer, gen, dev, ("fp32", "int16"), None, plan, "random", torch.int64,
-        lambda a, b, p: P.packed_multiply(p, a, b),
-        lambda a, b, p: P.packed_multiply(p, a, b, plain=True)))
+    cases.append(int64_case(plan))
+    cases.append(int32_case(("int4", "bf16"), 4, P.solve_lane_plan(
+        "int4", "bf16", max_parallelism=4), "random", VDSP_RAGGED))
+    cases.append(int64_case(plan, VDSP_RAGGED))
     return cases
 
 
@@ -895,7 +911,8 @@ def main() -> None:
                 "decode_attention_bf16": dict(kv="bf16", h=32, dh=128),
                 "decode_attention_quant": dict(kv="int8", h=32, dh=128),
                 "virtual_dsp_multiply": dict(pair="int4xbf16", cap=4,
-                                             draw="random", dtype="int32")}
+                                             draw="random", dtype="int32",
+                                             ragged=False)}
     summary = []
     for name, (source, replaces) in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]

@@ -10,21 +10,22 @@
 // codes little-endian along K, plus f32 scales [K/group, N] ([1, N] per
 // channel).  Each code is decoded arithmetically (two's complement int;
 // e2m1 / e4m3 with a zero exponent read as 0 and the e4m3 NaN code read as
-// 0) and accumulated in f32.  K1 multiplies each code by its group scale
-// before the sum (the reference's fused-dequant association); K2 sums
-// x * code per scale group and then multiplies the group's f32 partial by
-// its scale.  Both differ from the reference only in the order and
-// association of f32 operations.
+// 0) into bf16, where it is exact, and the tensor cores sum x * code in
+// f32.  Both kernels sum x * code per scale group and then multiply the
+// group's f32 partial by its scale; they differ from the reference (which
+// scales each code before the sum) only in the order and association of
+// f32 operations.
 //
 // What bounds them on the H100:
 //  * GEMV (M <= 8, K1): the bytes of the packed words and scales (3.35
-//    TB/s); there are at most 16 flops per weight byte.  Each thread
-//    streams four neighbouring columns with one 16-byte load per word row
-//    (a warp reads 512 contiguous bytes), decodes in registers and keeps
-//    M x 4 f32 sums.  K is split across blocks so that a narrow N still
-//    fills the 132 SMs; the split-K partials go to an f32 scratch and a
-//    second kernel sums them in a fixed order, so results are
-//    deterministic run to run.
+//    TB/s; at most 16 flops per weight byte) -- in practice, at these
+//    sizes, each block's latency chain and the decode's instructions.
+//    The math runs on the bf16 tensor cores (the <= 8 rows of x are the
+//    mma's B operand), the decode makes two codes per integer op, the
+//    words stream through a 3-stage ring of Tensor Memory Accelerator bulk
+//    copies (one 512-byte row a copy), K is split until the grid holds up
+//    to four blocks per SM, and the splits are summed in the same launch
+//    (the last block of a column tile, in fixed order).
 //  * matmul (K2): at a 64-row prefill chunk, still the bytes (2 * 64 flops
 //    per 4-bit weight, ~256 per byte, below the ~295 at which bf16 tensor
 //    cores become the limit); in practice x, which every column tile reads
@@ -32,9 +33,9 @@
 //    tensor cores (mma.sync m16n8k16), decoding each packed word once per
 //    block into bf16 registers, with x and the words staged through a
 //    3-stage cp.async ring.  Tiles of 64 columns (128 for 4-bit codes,
-//    half the x traffic) fill the SMs at N = 14336; K is split (same
-//    fixed-order reduction as the GEMV) only where the grid would hold
-//    fewer than two blocks per SM, as at N = 4096 and 1024.
+//    half the x traffic) fill the SMs at N = 14336; K is split (partials
+//    summed in a fixed order by a second kernel) only where the grid would
+//    hold fewer than two blocks per SM, as at N = 4096 and 1024.
 //
 // C interface: every entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError().
@@ -50,116 +51,7 @@ enum Format { INT4 = 0, FP4_E2M1 = 1, FP8_E4M3 = 2 };
 template <int FMT> struct FormatBits { static constexpr int value = 4; };
 template <> struct FormatBits<FP8_E4M3> { static constexpr int value = 8; };
 
-template <int FMT>
-__device__ __forceinline__ float decode_code(uint32_t c) {
-  if (FMT == INT4) {
-    return static_cast<float>(static_cast<int32_t>(c << 28) >> 28);
-  } else if (FMT == FP4_E2M1) {
-    const uint32_t e = (c >> 1) & 3u, m = c & 1u;
-    // (2 + m) * 2^(e - 2) == (1 + m/2) * 2^(e - 1); e == 0 reads as 0 (DAZ)
-    const float mag =
-        e == 0 ? 0.f : __uint_as_float(((e + 126u) << 23) | (m << 22));
-    return (c >> 3) & 1u ? -mag : mag;
-  } else {
-    const uint32_t e = (c >> 3) & 15u, m = c & 7u;
-    // (8 + m) * 2^(e - 10) == (1 + m/8) * 2^(e - 7); DAZ, NaN code reads 0
-    const bool zero = e == 0 || (e == 15 && m == 7);
-    const float mag =
-        zero ? 0.f : __uint_as_float(((e + 120u) << 23) | (m << 20));
-    return (c >> 7) & 1u ? -mag : mag;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// GEMV: grid (ceil(N / 128), splits), 256 threads = 8 warps.  Lane l owns
-// columns [col, col + 4) of the block's 128; warp w takes word rows
-// w0 + w, w0 + w + 8, ... of the block's split.  Shared memory holds the
-// split's x slice as f32, then (reused) the per-warp sums.
-// ---------------------------------------------------------------------------
-constexpr int kGemvThreads = 256;
-constexpr int kGemvWarps = kGemvThreads / 32;
-constexpr int kGemvCols = 128;
-
-template <int FMT, int M>
-__global__ void __launch_bounds__(kGemvThreads)
-packed_gemv_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int32_t* __restrict__ w,
-                   const float* __restrict__ scales,
-                   float* __restrict__ partial, int K, int N, int group,
-                   int words_per_split) {
-  constexpr int BITS = FormatBits<FMT>::value;
-  constexpr int PER = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  extern __shared__ float smem[];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * kGemvCols + lane * 4;
-  const int w0 = blockIdx.y * words_per_split;
-  const int w1 = min(w0 + words_per_split, K / PER);
-  const int span = words_per_split * PER;       // x row stride in smem
-  const int used = (w1 - w0) * PER;
-
-  for (int i = threadIdx.x; i < M * used; i += kGemvThreads) {
-    const int m = i / used, kk = i - m * used;
-    smem[m * span + kk] =
-        __bfloat162float(x[static_cast<size_t>(m) * K + w0 * PER + kk]);
-  }
-  __syncthreads();
-
-  float acc[M][4];
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-  if (col < N) {
-    for (int wi = w0 + warp; wi < w1; wi += kGemvWarps) {
-      const int4 wv =
-          *reinterpret_cast<const int4*>(w + static_cast<size_t>(wi) * N + col);
-      const float4 sv = *reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>((wi * PER) / group) * N + col);
-      const uint32_t words[4] = {static_cast<uint32_t>(wv.x),
-                                 static_cast<uint32_t>(wv.y),
-                                 static_cast<uint32_t>(wv.z),
-                                 static_cast<uint32_t>(wv.w)};
-      const float sc[4] = {sv.x, sv.y, sv.z, sv.w};
-      const float* xr = smem + (wi - w0) * PER;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        float wd[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          wd[c] = decode_code<FMT>((words[c] >> (i * BITS)) & MASK) * sc[c];
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const float xv = xr[m * span + i];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, wd[c], acc[m][c]);
-        }
-      }
-    }
-  }
-
-  // fixed-order reduction of the 8 warps' sums (smem reused)
-  __syncthreads();
-  float* red = smem;                               // [warps][M][128]
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      red[(warp * M + m) * kGemvCols + lane * 4 + c] = acc[m][c];
-  __syncthreads();
-  for (int i = threadIdx.x; i < M * kGemvCols; i += kGemvThreads) {
-    const int m = i / kGemvCols, c = i - m * kGemvCols;
-    float s = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kGemvWarps; ++wp) s += red[(wp * M + m) * kGemvCols + c];
-    const int gc = blockIdx.x * kGemvCols + c;
-    if (gc < N)
-      partial[(static_cast<size_t>(blockIdx.y) * M + m) * N + gc] = s;
-  }
-}
-
+// The fixed-order sum of K2's split-K partials: out = p[0] + p[1] + ...
 __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
                                      float* __restrict__ out, int mn,
                                      int splits) {
@@ -168,44 +60,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
   float s = 0.f;
   for (int p = 0; p < splits; ++p) s += partial[static_cast<size_t>(p) * mn + i];
   out[i] = s;
-}
-
-template <int FMT, int M>
-cudaError_t launch_gemv_m(const __nv_bfloat16* x, const int32_t* w,
-                          const float* scales, float* partial, int K, int N,
-                          int group, int words_per_split, int splits,
-                          cudaStream_t stream) {
-  constexpr int PER = 32 / FormatBits<FMT>::value;
-  const size_t xs = sizeof(float) * M * words_per_split * PER;
-  const size_t rs = sizeof(float) * kGemvWarps * M * kGemvCols;
-  const size_t smem = xs > rs ? xs : rs;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        packed_gemv_kernel<FMT, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid((N + kGemvCols - 1) / kGemvCols, splits);
-  packed_gemv_kernel<FMT, M><<<grid, kGemvThreads, smem, stream>>>(
-      x, w, scales, partial, K, N, group, words_per_split);
-  return cudaGetLastError();
-}
-
-template <int FMT>
-cudaError_t launch_gemv(const __nv_bfloat16* x, const int32_t* w,
-                        const float* scales, float* partial, int M, int K,
-                        int N, int group, int words_per_split, int splits,
-                        cudaStream_t stream) {
-#define GEMV_CASE(MM)                                                        \
-  case MM:                                                                   \
-    return launch_gemv_m<FMT, MM>(x, w, scales, partial, K, N, group,        \
-                                  words_per_split, splits, stream);
-  switch (M) {
-    GEMV_CASE(1) GEMV_CASE(2) GEMV_CASE(3) GEMV_CASE(4)
-    GEMV_CASE(5) GEMV_CASE(6) GEMV_CASE(7) GEMV_CASE(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef GEMV_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -609,6 +463,365 @@ cudaError_t launch_mma_fmt(const __nv_bfloat16* x, int ldx, const int32_t* w,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// GEMV (K1) on the bf16 tensor cores, 1 <= M <= 8: mma.sync.m16n8k16 with
+// the decoded weights as A (16 output columns) and x as B (its <= 8 rows
+// fill the mma's 8-wide operand; rows past M are zero).
+//
+// Grid (ceil(N / 128), splits); 128 threads, warp w owns the 32 columns
+// [c0 + 32 w, c0 + 32 w + 32) of the block's 128 and the split's whole K.
+// A stage is 16 word rows (128 K for 4-bit codes, 64 for fp8) of the
+// block's 128 columns plus the scale rows of the groups that end in it.
+// Thread 0 copies each stage with the Tensor Memory Accelerator's bulk
+// copies (one 512-byte row each, cp.async.bulk) into a 3-stage ring that
+// completes on one mbarrier per stage, so the words move in few large
+// requests and no thread spends registers or instructions on them; x's
+// slice of the split (M rows) arrives once per block the same way.  At
+// most ~56 KB of shared memory a block, so four blocks share an SM and a
+// grid of up to 528 blocks is resident at once: what bounds a decode leaf
+// is the latency chain of each block (copy, compute, partial, counter),
+// so the plan fills one such wave.
+//
+// A unit is 4 word rows (32 K; 16 for fp8): thread (g = lane / 4, t = lane
+// % 4) reads word row t of its warp's columns 4g .. 4g + 3 (16 bytes; rows
+// padded to 544 bytes so the warp's reads hit all 32 banks once).  The
+// mma's A rows g and g + 8 are the thread's columns 4g + 2j and 4g + 2j + 1
+// (j = 0, 1: two 16-column mma tiles per warp), so one 16-byte read feeds
+// both tiles and the f32 sums of x rows 2t, 2t + 1 leave as 16-byte
+// stores of 4 columns.  The decode makes pair p of a word from codes p and
+// p + PER / 2 (nibbles p, p + 4 of a 4-bit word; bytes p, p + 2 of an fp8
+// word) in one or two integer ops; the x pair beside it is permuted to the
+// same two K as it is read.  Decoded codes are exact in bf16, so the
+// tensor cores sum exact products in f32.  The group scale multiplies the
+// f32 partial of its group after the group's last unit (a per-channel
+// scale multiplies the split's sum once), never the bf16 operand: K2's
+// association.
+//
+// With splits > 1 each block writes its f32 partial [M, 128] to a scratch;
+// the last block of a column tile to finish (a counter per tile, reset by
+// that block) sums the tile's partials in split order 0, 1, ... and
+// writes the output, so one launch does all and results do not depend on
+// which block finishes last.  kernels/packed_matmul.py:packed_gemv_grouped
+// is its plain twin in that association and order.
+// ---------------------------------------------------------------------------
+constexpr int kGvThreads = 128;
+constexpr int kGvWarps = kGvThreads / 32;
+constexpr int kGvCols = 32 * kGvWarps;
+constexpr int kGvUnits = 4;                  // units per ring stage
+constexpr int kGvRows = 4 * kGvUnits;        // word rows per stage
+constexpr int kGvStages = 3;
+constexpr int kGvRowBytes = kGvCols * 4 + 32;   // 544: 136 words, 8 mod 32
+constexpr int kGvWordBytes = kGvStages * kGvRows * kGvRowBytes;
+constexpr int kGvScaleBytes = kGvStages * kGvUnits * kGvCols * 4;
+constexpr int kGvXElems = 11776;             // M x K of x a block stages
+constexpr int kGvMaxSmem =
+    kGvWordBytes + kGvScaleBytes + 2 * (kGvXElems + 8 * 32);
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "GV_WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra GV_WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The codes of one word as bf16 pairs, pair p holding codes p (low half)
+// and p + PER / 2 (high half), bit for bit decode_pairs' values.
+template <int FMT>
+__device__ __forceinline__ void decode_split_pairs(
+    uint32_t w, uint32_t (&out)[MmFmt<FMT>::PER / 2]) {
+  if constexpr (FMT == INT4) {
+    w ^= 0x88888888u;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t r = ((w >> (4 * p)) & 0x000F000Fu) | 0x43004300u;
+      uint32_t v;
+      asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+          : "=r"(v)
+          : "r"(r), "r"(0x3F803F80u), "r"(0xC308C308u));
+      out[p] = v;
+    }
+  } else if constexpr (FMT == FP4_E2M1) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t r = (w >> (4 * p)) & 0x000F000Fu;
+      const uint32_t keep = __vcmpne2(r & 0x00060006u, 0u);
+      out[p] = ((((r & 0x00070007u) << 6) + 0x3F003F00u) & keep) |
+               ((r & 0x00080008u) << 12);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const uint32_t r = (w >> (8 * p)) & 0x00FF00FFu;
+      const uint32_t mag = r & 0x007F007Fu;
+      const uint32_t keep =
+          __vcmpne2(r & 0x00780078u, 0u) & __vcmpne2(mag, 0x007F007Fu);
+      out[p] = (((mag << 4) + 0x3C003C00u) & keep) | ((r & 0x00800080u) << 8);
+    }
+  }
+}
+
+// x rows are ldx apart (ldx % 8 == 0, zero in columns K..ldx); split z sums
+// K rows [z * k_per_split, min(K, (z + 1) * k_per_split)); k_per_split is a
+// multiple of the stage's K and, unless group == K, of group, which is a
+// multiple of the unit's K (a group spans group_units units).
+template <int FMT>
+__global__ void __launch_bounds__(kGvThreads)
+packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
+                   const int32_t* __restrict__ w,
+                   const float* __restrict__ scales,
+                   float* __restrict__ partial, float* __restrict__ out,
+                   int* __restrict__ counters, int M, int K, int N, int group,
+                   int k_per_split) {
+  constexpr int PER = MmFmt<FMT>::PER, UNIT = 4 * PER;
+  constexpr int STAGE_K = kGvUnits * UNIT;
+  extern __shared__ __align__(128) unsigned char gv_smem[];
+  __shared__ __align__(8) uint64_t full[kGvStages];
+  __shared__ __align__(8) uint64_t xbar;
+  __shared__ int last_block;
+  unsigned char* wring = gv_smem;
+  auto* sring = reinterpret_cast<float*>(gv_smem + kGvWordBytes);
+  auto* xs = reinterpret_cast<__nv_bfloat16*>(gv_smem + kGvWordBytes +
+                                              kGvScaleBytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * kGvCols;
+  const int col = c0 + warp * 32 + 4 * g;
+  const bool colok = col < N;
+  const unsigned col_bytes = 4u * min(kGvCols, N - c0);
+  const int splits = gridDim.y, z = blockIdx.y;
+  const int kbeg = z * k_per_split;
+  const int kend = min(K, kbeg + k_per_split);
+  const int kwend = kend / PER;
+  const int nst = (kend - kbeg + STAGE_K - 1) / STAGE_K;
+  const int xld = k_per_split + MmFmt<FMT>::XPAD;
+  const bool fold_end = group == K;
+  const int group_units = fold_end ? 0 : group / UNIT;
+
+  // thread 0: stage s's word rows and the scale rows of the groups that end
+  // in it (units past the split's K are neither copied nor folded)
+  auto copy_stage = [&](int s) {
+    const int slot = s % kGvStages, k0 = kbeg + s * STAGE_K;
+    const int row0 = k0 / PER, rows = min(kGvRows, kwend - row0);
+    unsigned bytes = rows * col_bytes;
+    int srow[kGvUnits];
+#pragma unroll
+    for (int u = 0; u < kGvUnits; ++u) {
+      const int uk0 = k0 + u * UNIT;
+      srow[u] = !fold_end && uk0 < kend &&
+                        ((uk0 - kbeg) / UNIT + 1) % group_units == 0
+                    ? uk0 / group
+                    : -1;
+      if (srow[u] >= 0) bytes += col_bytes;
+    }
+    mbar_expect_tx(&full[slot], bytes);
+    unsigned char* dst = wring + slot * kGvRows * kGvRowBytes;
+    for (int r = 0; r < rows; ++r)
+      bulk_copy(dst + r * kGvRowBytes, w + static_cast<size_t>(row0 + r) * N + c0,
+                col_bytes, &full[slot]);
+#pragma unroll
+    for (int u = 0; u < kGvUnits; ++u)
+      if (srow[u] >= 0)
+        bulk_copy(sring + (slot * kGvUnits + u) * kGvCols,
+                  scales + static_cast<size_t>(srow[u]) * N + c0, col_bytes,
+                  &full[slot]);
+  };
+
+  // x's slice [kbeg, kbeg + k_per_split): copied up to ldx, zero past it
+  const int xcopy = min(kbeg + k_per_split, ldx) - kbeg;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kGvStages; ++s) mbar_init(&full[s], 1);
+    mbar_init(&xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&xbar, 2u * M * xcopy);
+    for (int m = 0; m < M; ++m)
+      bulk_copy(xs + m * xld, x + static_cast<size_t>(m) * ldx + kbeg,
+                2u * xcopy, &xbar);
+    for (int s = 0; s < kGvStages - 1 && s < nst; ++s) copy_stage(s);
+  }
+  for (int i = tid; i < M * (k_per_split - xcopy); i += kGvThreads) {
+    const int m = i / (k_per_split - xcopy);
+    xs[m * xld + xcopy + (i - m * (k_per_split - xcopy))] =
+        __float2bfloat16(0.f);
+  }
+  mbar_wait(&xbar, 0);
+  __syncthreads();
+
+  float acc[2][4], part[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = part[j][r] = 0.f;
+
+  // acc += s[column] * part, then part = 0 (A row g: column 4g + 2j, r 0-1;
+  // row g + 8: column 4g + 2j + 1, r 2-3)
+  auto fold = [&](float4 s) {
+    const float sc[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[j][r] = fmaf(sc[2 * j + (r >> 1)], part[j][r], acc[j][r]);
+        part[j][r] = 0.f;
+      }
+  };
+
+  const __nv_bfloat16* xrow = xs + g * xld + PER * t;
+  const int wofs = t * kGvRowBytes + (warp * 32 + 4 * g) * 4;
+  int units_in_group = 0;
+  for (int it = 0; it < nst; ++it) {
+    if (it > 0) __syncthreads();       // slot (it - 1) % stages consumed
+    if (tid == 0 && it + kGvStages - 1 < nst) copy_stage(it + kGvStages - 1);
+    const int slot = it % kGvStages, k0 = kbeg + it * STAGE_K;
+    mbar_wait(&full[slot], (it / kGvStages) & 1);
+
+    const unsigned char* ws = wring + slot * kGvRows * kGvRowBytes + wofs;
+#pragma unroll
+    for (int u = 0; u < kGvUnits; ++u) {
+      const uint4 wv = *reinterpret_cast<const uint4*>(ws + 4 * u * kGvRowBytes);
+      uint32_t xb[PER / 2];
+      const __nv_bfloat16* xr = xrow + (k0 - kbeg) + u * UNIT;
+      if constexpr (PER == 8) {
+        const uint4 v = g < M ? *reinterpret_cast<const uint4*>(xr)
+                              : make_uint4(0u, 0u, 0u, 0u);
+        xb[0] = __byte_perm(v.x, v.z, 0x5410);
+        xb[1] = __byte_perm(v.x, v.z, 0x7632);
+        xb[2] = __byte_perm(v.y, v.w, 0x5410);
+        xb[3] = __byte_perm(v.y, v.w, 0x7632);
+      } else {
+        const uint2 v = g < M ? *reinterpret_cast<const uint2*>(xr)
+                              : make_uint2(0u, 0u);
+        xb[0] = __byte_perm(v.x, v.y, 0x5410);
+        xb[1] = __byte_perm(v.x, v.y, 0x7632);
+      }
+      uint32_t d[4][PER / 2];
+      decode_split_pairs<FMT>(static_cast<uint32_t>(wv.x), d[0]);
+      decode_split_pairs<FMT>(static_cast<uint32_t>(wv.y), d[1]);
+      decode_split_pairs<FMT>(static_cast<uint32_t>(wv.z), d[2]);
+      decode_split_pairs<FMT>(static_cast<uint32_t>(wv.w), d[3]);
+#pragma unroll
+      for (int jj = 0; jj < PER / 4; ++jj)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          mma_bf16(part[j], d[2 * j][2 * jj], d[2 * j + 1][2 * jj],
+                   d[2 * j][2 * jj + 1], d[2 * j + 1][2 * jj + 1],
+                   xb[2 * jj], xb[2 * jj + 1]);
+      if (!fold_end && k0 + u * UNIT < kend &&
+          ++units_in_group == group_units) {
+        units_in_group = 0;
+        fold(*reinterpret_cast<const float4*>(
+            sring + (slot * kGvUnits + u) * kGvCols + warp * 32 + 4 * g));
+      }
+    }
+  }
+  if (fold_end)     // one group: the per-channel scale, once per split
+    fold(colok ? *reinterpret_cast<const float4*>(scales + col)
+               : make_float4(0.f, 0.f, 0.f, 0.f));
+
+  // rows 2t and 2t + 1 of columns col .. col + 3
+  const float4 r0 = make_float4(acc[0][0], acc[0][2], acc[1][0], acc[1][2]);
+  const float4 r1 = make_float4(acc[0][1], acc[0][3], acc[1][1], acc[1][3]);
+  float* dst = splits == 1 ? out : partial + static_cast<size_t>(z) * M * N;
+  if (colok) {
+    if (2 * t < M)
+      *reinterpret_cast<float4*>(dst + static_cast<size_t>(2 * t) * N + col) = r0;
+    if (2 * t + 1 < M)
+      *reinterpret_cast<float4*>(dst + static_cast<size_t>(2 * t + 1) * N + col) = r1;
+  }
+  if (splits == 1) return;
+
+  // the last block of this column tile sums its splits in order: after
+  // the barrier, thread 0's acquire-release add publishes the block's
+  // partial and, for the last block, makes every other split's visible
+  __syncthreads();
+  if (tid == 0) {
+    int before;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(before)
+                 : "l"(counters + blockIdx.x)
+                 : "memory");
+    last_block = before == splits - 1;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  if (colok) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 2 * t + h;
+      if (row >= M) continue;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int zz = 0; zz < splits; ++zz) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+            partial + (static_cast<size_t>(zz) * M + row) * N + col));
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      }
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * N + col) = s;
+    }
+  }
+  if (tid == 0) counters[blockIdx.x] = 0;
+}
+
+template <int FMT>
+cudaError_t launch_gemv(const __nv_bfloat16* x, int ldx, const int32_t* w,
+                        const float* scales, float* partial, float* out,
+                        int* counters, int M, int K, int N, int group,
+                        int k_per_split, int splits, cudaStream_t stream) {
+  constexpr int UNIT = MmFmt<FMT>::UNIT;
+  const int smem = kGvWordBytes + kGvScaleBytes +
+                   2 * M * (k_per_split + MmFmt<FMT>::XPAD);
+  if (M < 1 || M > 8 || N % 4 != 0 || k_per_split % (kGvUnits * UNIT) != 0 ||
+      (group != K && (group % UNIT != 0 || k_per_split % group != 0)) ||
+      smem > kGvMaxSmem || (K + k_per_split - 1) / k_per_split != splits)
+    return cudaErrorInvalidValue;
+  static bool ready[kMaxDevices] = {};
+  cudaError_t e =
+      set_smem_attributes(packed_gemv_kernel<FMT>, kGvMaxSmem, ready);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + kGvCols - 1) / kGvCols, splits);
+  packed_gemv_kernel<FMT><<<grid, kGvThreads, smem, stream>>>(
+      x, ldx, w, scales, partial, out, counters, M, K, N, group, k_per_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -617,39 +830,38 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x bf16 [M, K]; w int32 [K/per, N]; scales f32 [ceil(K/group), N];
-// partial f32 [splits, M, N] scratch; out f32 [M, N].  1 <= M <= 8,
-// N % 4 == 0, 16-byte aligned w / scales; fmt: 0 int4, 1 fp4, 2 fp8.
-int packed_gemv(const void* x, const void* w, const void* scales,
-                void* partial, void* out, int M, int K, int N, int fmt,
-                int group, int words_per_split, int splits, void* stream) {
+// x bf16 [M, ldx] (ldx % 8 == 0, 16-byte aligned, zero in columns
+// K..ldx); w int32 [K/per, N]; scales f32 [ceil(K/group), N]; partial f32
+// [splits, M, N] scratch (unused for one split); out f32 [M, N]; counters
+// int32 [ceil(N / 128)], zero (the last block of each column tile resets
+// its counter), for launches on one stream at a time.  1 <= M <= 8,
+// N % 4 == 0, 16-byte aligned w and scales; group K or a multiple of 32
+// (4-bit codes) / 16 (fp8) dividing k_per_split, a multiple of 128 / 64;
+// fmt: 0 int4, 1 fp4, 2 fp8.
+int packed_gemv(const void* x, int ldx, const void* w, const void* scales,
+                void* partial, void* out, void* counters, int M, int K, int N,
+                int fmt, int group, int k_per_split, int splits,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const int32_t*>(w);
   const auto* sp = static_cast<const float*>(scales);
   auto* pp = static_cast<float*>(partial);
-  cudaError_t e;
+  auto* op = static_cast<float*>(out);
+  auto* cp = static_cast<int*>(counters);
   switch (fmt) {
     case INT4:
-      e = launch_gemv<INT4>(xb, wp, sp, pp, M, K, N, group, words_per_split,
-                            splits, s);
-      break;
+      return launch_gemv<INT4>(xb, ldx, wp, sp, pp, op, cp, M, K, N, group,
+                               k_per_split, splits, s);
     case FP4_E2M1:
-      e = launch_gemv<FP4_E2M1>(xb, wp, sp, pp, M, K, N, group,
-                                words_per_split, splits, s);
-      break;
+      return launch_gemv<FP4_E2M1>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
+                                   group, k_per_split, splits, s);
     case FP8_E4M3:
-      e = launch_gemv<FP8_E4M3>(xb, wp, sp, pp, M, K, N, group,
-                                words_per_split, splits, s);
-      break;
+      return launch_gemv<FP8_E4M3>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
+                                   group, k_per_split, splits, s);
     default:
       return cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess) return e;
-  const int mn = M * N;
-  splitk_reduce_kernel<<<(mn + 255) / 256, 256, 0, s>>>(
-      pp, static_cast<float*>(out), mn, splits);
-  return cudaGetLastError();
 }
 
 // x bf16 [M, ldx] (ldx % 8 == 0, 16-byte aligned, zero in columns

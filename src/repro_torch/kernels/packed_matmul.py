@@ -5,16 +5,17 @@ Torch side of ``csrc/packed_matmul.cu`` (which replaces the Pallas kernel
 compute x [M, K] (bf16) @ W [K, N] -> f32 [M, N] with W given as packed
 int32 words [K/per, N] and f32 group scales.
 
-  * ``packed_gemv``   — decode shapes, 1 <= M <= 8 (split-K GEMV kernel,
-    K1); takes N % 4 == 0 and 16-byte aligned words and scales
-    (``gemv_takes``);
+  * ``packed_gemv``   — decode shapes, 1 <= M <= 8 (tensor-core GEMV
+    kernel, K1, split-K summed in the same launch); takes N % 4 == 0 and
+    16-byte aligned words and scales (``gemv_takes``);
   * ``packed_matmul`` — any M >= 1, any N (tensor-core matmul kernel, K2):
     prefill chunks and the decode shapes K1 does not take;
   * ``packed_matmul_plain`` — the same math in plain torch: dequantize to
     f32, then one f32 matmul;
-  * ``packed_matmul_grouped`` — plain torch in K2's association and order:
-    per scale group, x @ codes (the codes as K2's bf16 operand) in f32,
-    times the group's scale, summed in the order K2 sums the groups.
+  * ``packed_matmul_grouped`` / ``packed_gemv_grouped`` — plain torch in
+    K2's / K1's association and order: per scale group, x @ codes (the
+    codes as the kernels' bf16 operand) in f32, times the group's scale,
+    summed in the order the kernel sums the groups and its K splits.
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
 it launches its kernel (or raises).  ``launches`` counts kernel launches
@@ -23,6 +24,8 @@ per wrapper; plain calls do not count.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -37,16 +40,25 @@ launches: Dict[str, int] = {"packed_gemv": 0, "packed_matmul": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "packed_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_gemv": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "packed_matmul": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
 }
 GEMV_MAX_M = 8
-_GEMV_COLS = 128          # columns per GEMV block (32 lanes x 4)
-_GEMV_WARPS = 8
-_GEMV_X_SMEM = 32 * 1024  # bytes of staged x per GEMV block
+_GV_COLS = 128            # columns per GEMV block (4 warps x 32)
+_GV_STAGE_WORDS = 16      # word rows per GEMV ring stage (4 units of 4)
+# the words' ring (3 stages of 16 rows of 544 bytes) and the scales' (4
+# rows of 512 bytes a stage)
+_GV_RING_BYTES = 3 * 16 * 544 + 3 * 4 * 512
+_GV_X_ELEMS = 11776       # M x K of x a GEMV block stages (23 KB of bf16)
+_GV_BLOCKS = 4 * 132      # four GEMV blocks share an SM: one resident wave
+_GV_MAX_SPLITS = 32       # partials the last block of a column tile sums
+# K1's dynamic shared memory, at most (csrc: kGvMaxSmem)
+_GV_MAX_SMEM = _GV_RING_BYTES + 2 * (_GV_X_ELEMS + GEMV_MAX_M * 32)
 _MM_BK = 128              # matmul K per pipeline stage
 _MM_MIN_STEPS = 4         # stages per split, at least
 _TARGET_BLOCKS = 264      # two waves over the H100's 132 SMs
+# per (device, stream): K1's column-tile counters (zero between launches)
+_GEMV_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def packed_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -132,19 +144,64 @@ def packed_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def gemv_split_plan(m: int, k: int, n: int, scheme: QuantScheme) -> Tuple[int, int]:
-    """(words_per_split, splits) for the GEMV: split K until the grid holds
-    about two waves of blocks, keeping each block's staged x slice within
-    its shared-memory budget and at least one word row per warp."""
+@functools.lru_cache(maxsize=None)
+def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme) -> Tuple[int, int]:
+    """(k_per_split, splits) for K1: K cut into splits of whole ring stages
+    (128 K for 4-bit codes, 64 for fp8) and whole scale groups, as many as
+    keep the grid of 128-column tiles within one resident wave of four
+    blocks per SM (528) and at most 32 splits (their ordered sum is the
+    last block's tail), with each block's staged slice of x (M x
+    k_per_split bf16) within 23 KB so that four blocks fit an SM's shared
+    memory.  The splits are summed in order 0, 1, ...
+    (``packed_gemv_grouped``)."""
     per = codes_per_word(scheme.weight_bits)
-    kw = k // per
-    tiles = -(-n // _GEMV_COLS)
-    want = max(1, -(-_TARGET_BLOCKS // tiles))
-    wps = -(-kw // want)
-    wps = -(-wps // _GEMV_WARPS) * _GEMV_WARPS
-    cap = max(_GEMV_WARPS, _GEMV_X_SMEM // (4 * m * per))
-    wps = max(_GEMV_WARPS, min(wps, cap, kw))
-    return wps, -(-kw // wps)
+    group = effective_group(scheme.group_size, k)
+    q = _GV_STAGE_WORDS * per
+    if group != k:
+        q = q * group // math.gcd(q, group)
+    steps = -(-k // q)
+    want = max(1, _GV_BLOCKS // -(-n // _GV_COLS))
+    per_split = max(1, min(max(-(-steps // want), -(-steps // _GV_MAX_SPLITS)),
+                           _GV_X_ELEMS // (m * q)))
+    kps = per_split * q
+    return kps, -(-k // kps)
+
+
+def gemv_smem_bytes(m: int, k_per_split: int, scheme: QuantScheme) -> int:
+    """Dynamic shared memory of one K1 block: the rings and x's slice (rows
+    padded by 64 or 32 bytes, as ``packed_gemv_kernel`` lays them out)."""
+    xpad = 32 if codes_per_word(scheme.weight_bits) == 8 else 16
+    return _GV_RING_BYTES + 2 * m * (k_per_split + xpad)
+
+
+def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
+                        scales: torch.Tensor,
+                        scheme: QuantScheme) -> torch.Tensor:
+    """Plain torch in K1's association and order: each split of
+    ``gemv_plan`` sums, group by group in K order, the group's scale times
+    x @ codes in f32 (the codes as K1 decodes them to bf16, exact; a
+    per-channel scale multiplies the split's whole sum once); the splits'
+    sums are then added in split order to zero.  Only the order inside one
+    group's x @ codes (the tensor cores') is not replayed."""
+    per = codes_per_word(scheme.weight_bits)
+    k, n = packed.shape[0] * per, packed.shape[1]
+    vals = bf16_from_bits(kernel_decode_bf16(
+        scheme, unpack_codes(packed, scheme.weight_bits))).to(torch.float32)
+    group = effective_group(scheme.group_size, k)
+    xf = x.to(torch.float32)
+    kps, splits = gemv_plan(x.shape[0], k, n, scheme)
+    out = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    for z in range(splits):
+        k0, k1 = z * kps, min(k, (z + 1) * kps)
+        if group == k:
+            out += scales[0] * (xf[:, k0:k1] @ vals[k0:k1])
+            continue
+        acc = torch.zeros_like(out)
+        for g0 in range(k0, k1, group):
+            acc += scales[g0 // group] * (xf[:, g0:g0 + group]
+                                          @ vals[g0:g0 + group])
+        out += acc
+    return out
 
 
 def matmul_plan(m: int, k: int, n: int,
@@ -222,20 +279,55 @@ def packed_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if not gemv_takes(m, n, packed.data_ptr(), scales.data_ptr()):
         raise ValueError("packed_gemv needs N % 4 == 0 and 16-byte aligned "
                          "packed / scales (packed_matmul takes any)")
-    wps, splits = gemv_split_plan(m, k, n, scheme)
+    kps, splits = _gemv_launch_plan(m, k, n, scheme)
+    xk = matmul_x_operand(x)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    partial = torch.empty((splits, m, n), dtype=torch.float32,
-                          device=x.device)
+    partial = out if splits == 1 else torch.empty(
+        (splits, m, n), dtype=torch.float32, device=x.device)
     lib = build.load("packed_matmul", _SIGNATURES)
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        counters = _gemv_counters(x.device, stream, -(-n // _GV_COLS))
         err = lib.packed_gemv(
-            x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), m, k, n,
-            PACKED_FORMAT_IDS[scheme.weight_format], group, wps, splits,
-            torch.cuda.current_stream().cuda_stream)
+            xk.data_ptr(), xk.shape[1], packed.data_ptr(), scales.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), counters.data_ptr(), m, k, n,
+            PACKED_FORMAT_IDS[scheme.weight_format], group, kps, splits,
+            stream)
     build.check(lib, "packed_gemv", err)
     launches["packed_gemv"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_launch_plan(m: int, k: int, n: int,
+                      scheme: QuantScheme) -> Tuple[int, int]:
+    """``gemv_plan``, after checking that K1 takes the leaf's scale groups
+    and that the plan's x slice fits a block."""
+    per = codes_per_word(scheme.weight_bits)
+    group = effective_group(scheme.group_size, k)
+    if group != k and group % (4 * per):
+        raise ValueError(f"packed_gemv: scale group {group} is neither K nor "
+                         f"a multiple of {4 * per}")
+    kps, splits = gemv_plan(m, k, n, scheme)
+    if gemv_smem_bytes(m, kps, scheme) > _GV_MAX_SMEM:
+        raise ValueError(f"packed_gemv: scale group {group} needs a split of "
+                         f"{kps} rows of K, more x than a block stages")
+    return kps, splits
+
+
+def _gemv_counters(device: torch.device, stream: int,
+                   tiles: int) -> torch.Tensor:
+    """K1's per-column-tile counters for launches on ``stream`` of
+    ``device``: zero before each launch (the kernel's last block per tile
+    resets its own), so launches in stream order share one buffer; a
+    larger one is made (zeroed) where a launch has more tiles."""
+    key = (device.index, stream)
+    counters = _GEMV_COUNTERS.get(key)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                               device=device)
+        _GEMV_COUNTERS[key] = counters
+    return counters
 
 
 def matmul_x_operand(x: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,9 @@ magnitudes are OR-ed into two port words at the ``LanePlan`` offsets
     multiply, shift and mask).
 
 The two kernel wrappers launch the kernel on CUDA tensors, return the plain
-version on CPU tensors and raise for any other device.  ``launches`` counts
+version on CPU tensors and raise for any other device.  ``kernel_variant``
+picks the kernel's body: one specialised on (n_a, n_b) for every plan that
+runs (``SPECIALISED``), the generic one for any other plan.  ``launches`` counts
 kernel launches of both; plain calls do not count.  ``plan`` is any object
 with ``offsets_a``, ``offsets_b``, ``stride`` and ``lane_positions`` (the
 port's ``core.packing.LanePlan``).
@@ -51,7 +53,13 @@ class _Plan(ctypes.Structure):
 
 
 _P = ctypes.c_void_p
-_SIGNATURE = [_P, _P, _P, ctypes.c_longlong, ctypes.POINTER(_Plan), _P]
+_SIGNATURE = [_P, _P, _P, ctypes.c_longlong, ctypes.POINTER(_Plan),
+              ctypes.c_int, _P]
+# (n_a, n_b) of the kernel's specialised bodies: every plan that runs — the
+# paper pairs capped at 4 lanes (2 x 1, 3 x 1, 2 x 2, 1 x 4), the
+# beyond-paper plans (2 x 4) and fp32 x int16 (1 x 1).  Its C twin is
+# kVariantNa / kVariantNb in csrc/xtramac_mac.cu.
+SPECIALISED = ((1, 1), (2, 1), (3, 1), (2, 2), (1, 4), (2, 4))
 _SIGNATURES = {"vdsp_multiply_i32": _SIGNATURE,
                "vdsp_multiply_i64": _SIGNATURE}
 
@@ -94,6 +102,15 @@ def _kernel_plan(plan) -> _Plan:
                  (ctypes.c_int * MAX_LANES)(*pos))
 
 
+def kernel_variant(n_a: int, n_b: int, n_lanes: int) -> int:
+    """The body K6 runs for a plan: 1 + the index of (n_a, n_b) in
+    ``SPECIALISED`` where every (i, j) pair is a lane, else 0 (the generic
+    body, which takes any plan within the plan struct)."""
+    if (n_a, n_b) in SPECIALISED and n_lanes == n_a * n_b:
+        return 1 + SPECIALISED.index((n_a, n_b))
+    return 0
+
+
 def _launch(a_mags: torch.Tensor, b_mags: torch.Tensor, plan,
             dtype: torch.dtype) -> torch.Tensor:
     """K6 over [..., n_a] x [..., n_b] -> [..., P] in ``dtype`` (int32 or
@@ -124,7 +141,9 @@ def _launch(a_mags: torch.Tensor, b_mags: torch.Tensor, plan,
         lib.vdsp_multiply_i64
     with torch.cuda.device(a_mags.device):
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows,
-                 ctypes.byref(kplan), torch.cuda.current_stream().cuda_stream)
+                 ctypes.byref(kplan),
+                 kernel_variant(kplan.n_a, kplan.n_b, kplan.n_lanes),
+                 torch.cuda.current_stream().cuda_stream)
     build.check(lib, "virtual_dsp_multiply", err)
     launches["virtual_dsp_multiply"] += 1
     return out

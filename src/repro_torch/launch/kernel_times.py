@@ -1,5 +1,6 @@
-"""Device time of the packed-matmul and decode-attention wrappers at the
-shapes of ``chip_smoke.py``'s kernel phase, for an A/B of two trees.
+"""Device time of the packed-matmul, decode-attention and virtual-DSP
+wrappers at the shapes of ``chip_smoke.py``'s kernel phase, for an A/B of
+two trees.
 
 Imports ``repro_torch`` from the path, so the same file times another
 checkout's kernels (their wrappers take the same arguments):
@@ -8,10 +9,13 @@ checkout's kernels (their wrappers take the same arguments):
   PYTHONPATH=/path/to/other/src python src/repro_torch/launch/kernel_times.py \\
       --label parent
 
-Cases: K1 (``packed_gemv``, M = 8) and K2 (``packed_matmul``, M = 64) for
-the three packed schemes on the four linear shapes of granite-8b; K3 / K4
-(``gqa_decode_attention``) on the bf16, int8 and fp8 slabs of the table
-case (B 8, H 32, Hk 8, Dh 128, Sk 1024, ragged lengths).  Each time is the
+Cases: K1 (``packed_gemv``, M = 1 and 8) and K2 (``packed_matmul``, M =
+64) for the three packed schemes on the four linear shapes of granite-8b;
+K3 / K4 (``gqa_decode_attention``) on the bf16, int8 and fp8 slabs of the
+table case (B 8, H 32, Hk 8, Dh 128, Sk 1024, ragged lengths); K6
+(``virtual_dsp_multiply`` on int4 x bf16, int32, and ``packed_multiply``
+on fp32 x int16, int64, each at the Table VII GEMV's 50,331,648 lane MACs).
+``--kernels`` picks some of ``gemv``, ``matmul``, ``attention``, ``vdsp``.  Each time is the
 median of 20 calls timed with CUDA events, the L2 cache flushed before each
 call, as in ``chip_smoke.py``; ``host_us`` is the host's time per call
 (50 calls, no sync between).  ``--profile`` adds each case's device ms
@@ -28,8 +32,10 @@ import time
 
 import torch
 
+from repro_torch.core import packing as P
 from repro_torch.kernels.decode_attention import gqa_decode_attention
 from repro_torch.kernels.packed_matmul import packed_gemv, packed_matmul
+from repro_torch.kernels.xtramac_mac import virtual_dsp_multiply
 from repro_torch.quant.kv_cache import QuantizedKV
 from repro_torch.quant.schemes import (get_kv_scheme, get_scheme,
                                        kv_quantize, quantize_weights)
@@ -37,6 +43,8 @@ from repro_torch.quant.schemes import (get_kv_scheme, get_scheme,
 LINEAR_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 SCHEMES = ["awq_int4", "mxfp4", "fp8"]
 ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
+LANE_MACS = 50_331_648          # the paper's Table VII GEMV (1, 4096, 12288)
+KERNEL_SETS = ("gemv", "matmul", "attention", "vdsp")
 
 
 def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
@@ -105,7 +113,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--kernels", default=",".join(KERNEL_SETS),
+                    help="comma-separated subset of " + ", ".join(KERNEL_SETS))
     args = ap.parse_args(argv)
+    only = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -119,22 +130,26 @@ def main(argv=None) -> None:
             case["kernels"] = kernel_split(fn)
         print(json.dumps({"label": args.label, **case}), flush=True)
 
-    for scheme_name in SCHEMES:
+    legs = [(name, fn, m) for name, fn, m, kind in (
+        ("packed_gemv", packed_gemv, 1, "gemv"),
+        ("packed_gemv", packed_gemv, 8, "gemv"),
+        ("packed_matmul", packed_matmul, 64, "matmul")) if kind in only]
+    for scheme_name in SCHEMES if legs else ():
         for k, n in LINEAR_SHAPES:
             scheme, packed, scales = weights(scheme_name, k, n, gen, dev)
-            for name, fn, m in (("packed_gemv", packed_gemv, 8),
-                                ("packed_matmul", packed_matmul, 64)):
+            for name, fn, m in legs:
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
                 emit(lambda: fn(x, packed, scales, scheme), name=name,
                      scheme=scheme_name, m=m, k=k, n=n)
 
     b, h, hk, dh, sk = 8, 32, 8, 128, 1024
-    lens = torch.tensor(ATTN_LENS, dtype=torch.int32, device=dev)
-    q = torch.randn((b, 1, h, dh), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
-    v = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
-    for tier in ("bf16", "int8", "fp8"):
+    for tier in ("bf16", "int8", "fp8") if "attention" in only else ():
+        lens = torch.tensor(ATTN_LENS, dtype=torch.int32, device=dev)
+        q = torch.randn((b, 1, h, dh), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
+        v = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
         if tier == "bf16":
             kc, vc = k.to(torch.bfloat16), v.to(torch.bfloat16)
         else:
@@ -143,6 +158,23 @@ def main(argv=None) -> None:
             vc = QuantizedKV(*kv_quantize(scheme, v), tier)
         emit(lambda: gqa_decode_attention(q, kc, vc, lens),
              name="decode_attention", kv=tier, b=b, h=h, hk=hk, dh=dh, sk=sk)
+
+    vdsp = [(("int4", "bf16"), 4, torch.int32, virtual_dsp_multiply),
+            (("fp32", "int16"), None, torch.int64,
+             lambda a, b, p: P.packed_multiply(p, a, b))]
+    for pair, cap, dtype, fn in vdsp if "vdsp" in only else ():
+        plan = P.solve_lane_plan(*pair, max_parallelism=cap)
+        t = LANE_MACS // plan.parallelism
+        a = torch.randint(0, P.max_magnitude(plan.fmt_a) + 1,
+                          (t, len(plan.offsets_a)), generator=gen,
+                          device=dev, dtype=dtype)
+        bm = torch.randint(0, P.max_magnitude(plan.fmt_b) + 1,
+                           (t, len(plan.offsets_b)), generator=gen,
+                           device=dev, dtype=dtype)
+        emit(lambda: fn(a, bm, plan), name="virtual_dsp_multiply",
+             pair="x".join(pair), dtype=str(dtype).split(".")[-1], t=t,
+             p=plan.parallelism)
+        del a, bm
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)

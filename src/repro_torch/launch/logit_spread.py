@@ -15,9 +15,11 @@ Versions (``VARIANTS``), each run with bf16 and with int8 KV:
                 kernel's order (spans of 64 positions; in a span, 4 runs of
                 the online-softmax update over 8 positions of each tile of
                 32, merged in order; then the spans' merge);
-  plain_groupk  plain, but every packed matmul takes K2's association: per
-                scale group, x @ codes in f32, times the group's scale,
-                summed in group order (w8a8 unchanged: exact);
+  plain_groupk  plain, but every packed matmul takes its kernel's
+                association and order (``grouped_matmul``: K1's for the
+                decode leaves it takes, K2's for the rest): per scale group,
+                x @ codes in f32, times the group's scale, summed in the
+                kernel's group and split order (w8a8 unchanged: exact);
   drop_split    plain_splitk leaving out the last slice (a split-K reduce
                 that loses one partial);
   drop_group    plain leaving out the first weight group (its rows of K)
@@ -44,7 +46,9 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
-from repro_torch.kernels.packed_matmul import packed_matmul_grouped
+from repro_torch.kernels.packed_matmul import (GEMV_MAX_M,
+                                               packed_gemv_grouped,
+                                               packed_matmul_grouped)
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
 from repro_torch.quant.kv_cache import cache_read
@@ -147,6 +151,16 @@ def splitk_plain(drop=None):
     return matmul
 
 
+def grouped_matmul(x, packed, scales, scheme):
+    """The plain packed matmul in the association and order of the kernel
+    ``ops.linear_route`` picks on the card (K1 for decode rows where N % 4
+    == 0; the alignment is the card's, and the model's leaves are
+    aligned), K2 otherwise."""
+    if x.shape[0] <= GEMV_MAX_M and packed.shape[1] % 4 == 0:
+        return packed_gemv_grouped(x, packed, scales, scheme)
+    return packed_matmul_grouped(x, packed, scales, scheme)
+
+
 def drop_group_plain(x, packed, scales, scheme):
     """The plain packed matmul without the first weight group's rows."""
     w = _weights(packed, scales, scheme)
@@ -240,7 +254,7 @@ RUNS = {  # variant: (plain, {ops function: the version it runs})
         "w8a8_matmul_plain": _w8a8_rows(_slices)}),
     "plain_splitkv": (True, {
         "decode_attention_plain": splitkv_attention_plain}),
-    "plain_groupk": (True, {"packed_matmul_plain": packed_matmul_grouped}),
+    "plain_groupk": (True, {"packed_matmul_plain": grouped_matmul}),
     "drop_split": (True, {
         "packed_matmul_plain": splitk_plain(drop=SPLITS - 1),
         "w8a8_matmul_plain": _w8a8_rows(

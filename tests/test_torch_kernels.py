@@ -42,6 +42,7 @@ from repro_torch.kernels import w8a8_matmul as W8
 from repro_torch.kernels import xtramac_mac as XM
 from repro_torch.quant import schemes as S
 from repro_torch.quant.kv_cache import QuantizedKV
+from repro_torch.quant.pack import unpack_codes
 
 RNG = np.random.default_rng(31)
 MM_TOL = dict(rtol=2e-3, atol=1e-3)
@@ -107,12 +108,89 @@ def test_quantized_matmul_dispatch_keeps_leading_dims():
                                           (3, 4096, 4096, "mxfp4")])
 def test_gemv_split_plan_covers_k_within_shared_memory(m, k, n, scheme):
     sch = S.get_scheme(scheme)
-    per = 32 // sch.weight_bits
-    wps, splits = PM.gemv_split_plan(m, k, n, sch)
-    assert (splits - 1) * wps < k // per <= splits * wps
-    assert 4 * m * wps * per <= 32 * 1024          # staged x fits its budget
-    tiles = -(-n // 128)
-    assert tiles * splits >= min(132, tiles * (k // per) // 8)
+    kps, splits = PM.gemv_plan(m, k, n, sch)
+    assert (splits - 1) * kps < k <= splits * kps
+    assert m * kps <= 11776                        # staged x fits its budget
+    assert PM.gemv_smem_bytes(m, kps, sch) <= 227 * 1024
+    assert -(-n // 128) * splits >= 132
+
+
+@pytest.mark.parametrize("scheme", ["awq_int4", "mxfp4", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(8, 14336, 4096), (8, 4096, 14336),
+                                   (1, 4096, 1024), (8, 4096, 1024),
+                                   (3, 4096, 4096), (1, 14336, 4096),
+                                   (8, 72, 8)])
+def test_gemv_plan_fills_the_card_in_whole_stages_and_groups(scheme, m, k, n):
+    """K1's launch plan, a plain function of shapes: whole ring stages
+    (128 K for 4-bit codes, 64 for fp8) and whole scale groups per split;
+    four blocks' shared memory fit one SM (228 KB; 1 KB reserved and the
+    barriers per block) at every shape, K = 14336 and M = 8 included, so a
+    grid of up to 528 blocks is resident at once; at most 32 splits for
+    the last block to sum in order; at least 132 blocks wherever K has 33
+    stages (N = 1024 included)."""
+    sch = S.get_scheme(scheme)
+    kps, splits = PM.gemv_plan(m, k, n, sch)
+    stage = 128 if sch.weight_bits == 4 else 64
+    group = S.effective_group(sch.group_size, k)
+    assert kps % stage == 0 and (group == k or kps % group == 0)
+    assert (splits - 1) * kps < k <= splits * kps
+    assert 4 * (PM.gemv_smem_bytes(m, kps, sch) + 1024 + 128) <= 228 * 1024
+    blocks = -(-n // 128) * splits
+    assert blocks <= 528 and splits <= 32
+    if k >= 33 * stage:
+        assert blocks >= 132
+    assert PM.gemv_plan(m, k, n, sch) == (kps, splits)
+
+
+@pytest.mark.parametrize("scheme", ["awq_int4", "mxfp4", "fp8"])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("k,n", [(256, 128), (4096, 128)])
+def test_gemv_grouped_association_vs_reference_kernel(scheme, m, k, n):
+    """K1's association and split order (per scale group x @ codes in f32
+    times the group's scale, groups then splits summed in order) against
+    the reference's interpret-mode GEMV and its jnp oracle."""
+    qw = _weights(scheme, k, n)
+    x = RNG.normal(size=(m, k)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want_kernel = np.asarray(ref_gemv(xj, qw, interpret=True))
+    want_oracle = np.asarray(ref.packed_matmul_ref(xj, qw))
+    got = PM.packed_gemv_grouped(_bf16(x), _t(qw.packed), _t(qw.scales),
+                                 S.get_scheme(scheme)).numpy()
+    np.testing.assert_allclose(got, want_kernel, **MM_TOL)
+    np.testing.assert_allclose(got, want_oracle, **MM_TOL)
+
+
+@pytest.mark.parametrize("scheme", ["awq_int4", "mxfp4", "fp8"])
+def test_gemv_grouped_sums_splits_in_fixed_order(scheme):
+    """The twin's splits are ``gemv_plan``'s: each split's groups summed
+    in K order (scale times x @ codes), the splits' sums added to zero in
+    split order — equal bit for bit to that sum written out, and run to
+    run."""
+    sch = S.get_scheme(scheme)
+    m, k, n = 8, 4096, 128
+    qw = _weights(scheme, k, n)
+    x, packed, scales = (_bf16(RNG.normal(size=(m, k))), _t(qw.packed),
+                         _t(qw.scales))
+    kps, splits = PM.gemv_plan(m, k, n, sch)
+    assert splits > 1
+    group = S.effective_group(sch.group_size, k)
+    vals = PM.bf16_from_bits(PM.kernel_decode_bf16(
+        sch, unpack_codes(packed, sch.weight_bits))).to(torch.float32)
+    xf = x.to(torch.float32)
+    want = torch.zeros((m, n), dtype=torch.float32)
+    for z in range(splits):
+        k0, k1 = z * kps, min(k, (z + 1) * kps)
+        if group == k:
+            want += scales[0] * (xf[:, k0:k1] @ vals[k0:k1])
+            continue
+        part = torch.zeros((m, n), dtype=torch.float32)
+        for g0 in range(k0, k1, group):
+            part += scales[g0 // group] * (xf[:, g0:g0 + group]
+                                           @ vals[g0:g0 + group])
+        want += part
+    got = PM.packed_gemv_grouped(x, packed, scales, sch)
+    assert torch.equal(got, want)
+    assert torch.equal(got, PM.packed_gemv_grouped(x, packed, scales, sch))
 
 
 @pytest.mark.parametrize("fn", [PM.packed_gemv, PM.packed_matmul])
@@ -486,6 +564,34 @@ def test_virtual_dsp_kernel_plan_mirrors_the_lane_plan():
     assert ctypes_sizeof(k) == 4 * (4 + 2 * XM.MAX_PORT_LANES + XM.MAX_LANES)
 
 
+# every plan K6 runs: the paper pairs capped at 4 lanes, the beyond-paper
+# plans uncapped within the reference kernel's domain, and fp32 x int16 (the
+# int64 entry's 40-bit lanes)
+VDSP_RUN_PLANS = (
+    [(pair, 4) for pair in sorted(RP.PAPER_PARALLELISM)]
+    + [(pair, None) for pair in sorted(RP.SOLVER_BEYOND_PAPER)
+       if RP.solve_lane_plan(*pair).stride <= XM.REF_MAX_STRIDE]
+    + [(("fp32", "int16"), None)])
+
+
+@pytest.mark.parametrize("pair,cap", VDSP_RUN_PLANS,
+                         ids=lambda x: "x".join(x) if isinstance(x, tuple)
+                         else str(x))
+def test_virtual_dsp_kernel_variant_specialises_every_plan_that_runs(pair,
+                                                                      cap):
+    plan = P.solve_lane_plan(*pair, max_parallelism=cap)
+    k = XM._kernel_plan(plan)
+    v = XM.kernel_variant(k.n_a, k.n_b, k.n_lanes)
+    assert v > 0 and XM.SPECIALISED[v - 1] == (k.n_a, k.n_b)
+    assert k.n_lanes == k.n_a * k.n_b == plan.parallelism
+
+
+def test_virtual_dsp_kernel_variant_is_generic_elsewhere():
+    assert XM.kernel_variant(3, 2, 6) == 0           # no such body
+    assert XM.kernel_variant(2, 2, 3) == 0           # not every (i, j) a lane
+    assert len(set(XM.SPECIALISED)) == len(XM.SPECIALISED) == 6
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -597,3 +703,76 @@ def test_virtual_dsp_wide_kernel_matches_plain_on_card(cuda_device):
     want = P.packed_multiply(plan, a, b, plain=True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["awq_int4", "mxfp4", "fp8"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_gemv_kernel_matches_plain_on_card_at_every_m(cuda_device, scheme, m):
+    """K1 at every decode row count, on a leaf split many ways (K = 4096,
+    N = 1024): one launch, within the matmul tolerance of the plain
+    version, closer still to its twin in its own association and order,
+    and the same bits run to run."""
+    qw = _weights(scheme, 4096, 1024)
+    x = _bf16(RNG.normal(size=(m, 4096))).to(cuda_device)
+    packed, scales = _t(qw.packed).to(cuda_device), _t(qw.scales).to(cuda_device)
+    sch = S.get_scheme(scheme)
+    before = ops.launch_counts()["packed_gemv"]
+    got = PM.packed_gemv(x, packed, scales, sch)
+    assert ops.launch_counts()["packed_gemv"] == before + 1
+    again = PM.packed_gemv(x, packed, scales, sch)
+    want = PM.packed_matmul_plain(x, packed, scales, sch)
+    twin = PM.packed_gemv_grouped(x, packed, scales, sch)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **MM_TOL)
+    torch.testing.assert_close(got, twin, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair,cap", VDSP_RUN_PLANS,
+                         ids=lambda x: "x".join(x) if isinstance(x, tuple)
+                         else str(x))
+def test_virtual_dsp_kernel_on_a_ragged_tile_on_card(cuda_device, pair, cap):
+    """T = 3 * 1024 + 37 issues: no whole number of any body's row tile
+    (256, 512 or 1024 issues), in both instantiations."""
+    plan = P.solve_lane_plan(*pair, max_parallelism=cap)
+    a, b = _vdsp_inputs(plan, 3 * 1024 + 37, 45)
+    a, b = _t(a).to(cuda_device), _t(b).to(cuda_device)
+    want = XM.virtual_dsp_plain(a, b, plan)
+    wide = XM.virtual_dsp_multiply_wide(a, b, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(wide, want)
+    if plan.stride <= XM.REF_MAX_STRIDE:
+        got = XM.virtual_dsp_multiply(a, b, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got.to(torch.int64), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("view", ["column_slice", "transposed", "unaligned"])
+def test_virtual_dsp_kernel_on_non_contiguous_views_on_card(cuda_device,
+                                                            view, dtype):
+    """Magnitudes as views (fp4 x bf16: 3 x 1 lanes, rows of 12 / 24 and 4
+    / 8 bytes): columns of a wider array (as ``core/packing`` slices
+    per-lane fields), a transposed array, and a contiguous view that
+    starts off a 16-byte boundary (the kernel's element copies)."""
+    plan = P.solve_lane_plan("fp4_e2m1", "bf16", max_parallelism=4)
+    t = 10_001
+    a, b = _vdsp_inputs(plan, t + 1, 46)
+    a, b = _t(a).to(cuda_device, dtype), _t(b).to(cuda_device, dtype)
+    if view == "column_slice":
+        a = torch.cat([a, a], dim=1)[1:, 1:4]
+        b = torch.cat([b, b, b], dim=1)[1:, 1:2]
+    elif view == "transposed":
+        a, b = a[1:].t().contiguous().t(), b[1:].t().contiguous().t()
+    else:
+        a, b = a[1:], b[1:]
+        assert a.is_contiguous() and a.data_ptr() % 16 != 0
+        assert b.is_contiguous() and b.data_ptr() % 16 != 0
+    want = XM.virtual_dsp_plain(a, b, plan)
+    got = (XM.virtual_dsp_multiply(a, b, plan) if dtype == torch.int32
+           else P.packed_multiply(plan, a, b))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got.to(torch.int64), want)
