@@ -18,7 +18,8 @@ non-zero after the last phase; exceptions are not caught):
      (1022) that the dispatch routes to it; decode attention (K3 / K4) in
      three KV tiers on four head layouts (Dh 128, 192, 64, 112), also
      with zero-length rows (equal weights over the slab); the int8 matmul
-     (also at K = 4100, zero-padded) and the virtual-DSP lane multiply
+     (K5, also at M = 3, at K = 4100 and with x at an unaligned address,
+     each taken as it is) and the virtual-DSP lane multiply
      (K6, the counterpart of ``repro/kernels/xtramac_mac.py``) must match
      their plain versions exactly, K6 for every paper datatype pair at the
      Table VII GEMV size (50,331,648 lane MACs: T = 50,331,648 / P issues)
@@ -140,9 +141,12 @@ VDSP_RAGGED = 987
 # N % 4 != 0 that the dispatch sends to K2
 RAGGED_LEAVES = [("awq_int4", 64, 1000), ("awq_int4", 8, 1022),
                  ("fp8", 8, 1022)]
-# K = 4100 (not a multiple of 16): the int8 kernel on zero-padded copies
+# K = 4100 (not a multiple of 16): the int8 kernel's 4-byte copy body
 W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
                (4100, 4096)]
+# (M, K, N, byte offset of x): M = 3, and x as a view 5 bytes past a
+# 16-byte boundary (the kernel's byte-copy body for x)
+W8A8_EXTRA = [(3, 4096, 4096, 0), (8, 4096, 4096, 5)]
 # decode attention: granite / minitron (the table case), nemotron-4-340b
 # (d_head 192, GQA 96 / 8), qwen3-moe (64, 32 / 4), zamba2-7b (112, 32 / 32)
 ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
@@ -312,11 +316,12 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
 
 
 def w8a8_cases(timer: Timer, gen, dev, chunk: int):
-    """The int8 matmul at minitron-8b's four linear shapes, at decode (M =
-    1, 8) and prefill (M = chunk) rows: exactly equal to its plain version
-    (int32 sums are exact), timed beside its bound (bytes; int8 ops at the
-    tensor cores' peak), its plain version and ``torch._int_mm`` with the
-    same epilogue."""
+    """The int8 matmul at minitron-8b's four linear shapes and K = 4100, at
+    decode (M = 1, 8) and prefill (M = chunk) rows, plus M = 3 and an x at
+    a byte offset (W8A8_EXTRA): exactly equal to its plain version (int32
+    sums are exact), timed beside its bound (bytes; int8 ops at the tensor
+    cores' peak), its plain version and ``torch._int_mm`` with the same
+    epilogue."""
     scheme = get_scheme("w8a8")
     cases = []
     for k, n in W8A8_SHAPES:
@@ -324,49 +329,58 @@ def w8a8_cases(timer: Timer, gen, dev, chunk: int):
         codes, scales = quantize_weights(scheme, w)
         wt = codes.t().contiguous()              # the kernel's [N, K] layout
         del w, codes
-        for m in (1, 8, chunk):
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            xc, xs = quantize_activations_int8(x)
-            got = w8a8_matmul(xc, xs, wt, scales)
-            want = w8a8_matmul_plain(xc, xs, wt, scales)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ok = bool(torch.equal(got, want))
-            b, by = bound_ms(nbytes(xc, xs, wt, scales, got), 2.0 * m * k * n,
-                             INT8_OPS)
-            # _int_mm takes more than 16 rows and K % 8 == 0: decode rows
-            # are padded to 32, K with zero codes to a multiple of 16
-            lib_m, lib_k = max(m, 32), -(-k // 16) * 16
-            xl = torch.zeros((lib_m, lib_k), dtype=torch.int8, device=dev)
-            xl[:m, :k] = xc
-            wl = wt
-            if lib_k != k:
-                wl = torch.zeros((n, lib_k), dtype=torch.int8, device=dev)
-                wl[:, :k] = wt
-
-            def library():
-                return torch._int_mm(xl, wl.t()).to(torch.float32) \
-                    * (scales * xs)
-
-            case = {
-                "name": "w8a8_matmul", "m": m, "k": k, "n": n,
-                "max_abs_err": err, "max_abs_out": float(want.abs().max()),
-                "ok": ok,
-                "ms": timer.ms(lambda: w8a8_matmul(xc, xs, wt, scales)),
-                "plain_ms": timer.ms(lambda: w8a8_matmul_plain(
-                    xc, xs, wt, scales)),
-                "library_ms": timer.ms(library),
-                "library": "torch._int_mm(x int8, W int8) + epilogue"
-                           + (f", M padded to {lib_m}" if lib_m != m else "")
-                           + (f", K padded to {lib_k}" if lib_k != k else ""),
-                "bound_ms": b, "bound_by": by}
-            cases.append(case)
-            log(json.dumps(case))
-            require(ok, f"w8a8_matmul M={m} K={k} N={n}: max |err| {err} "
-                        "(must be 0)")
+        rows = [(m, 0) for m in (1, 8, chunk)]
+        rows += [(m, off) for m, kk, nn, off in W8A8_EXTRA
+                 if (kk, nn) == (k, n)]
+        for m, off in rows:
+            cases.append(w8a8_case(timer, gen, dev, m, off, wt, scales))
         del wt, scales
     return cases
+
+
+def w8a8_case(timer: Timer, gen, dev, m: int, x_offset: int, wt, scales):
+    n, k = wt.shape
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    xc, xs = quantize_activations_int8(x)
+    if x_offset:                # the same codes at an unaligned address
+        buf = torch.empty(m * k + 16, dtype=torch.int8, device=dev)
+        xc = buf[x_offset:x_offset + m * k].view(m, k)
+        xc.copy_(quantize_activations_int8(x)[0])
+    got = w8a8_matmul(xc, xs, wt, scales)
+    want = w8a8_matmul_plain(xc, xs, wt, scales)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.equal(got, want))
+    b, by = bound_ms(nbytes(xc, xs, wt, scales, got), 2.0 * m * k * n,
+                     INT8_OPS)
+    # _int_mm takes more than 16 rows and K % 8 == 0: decode rows are
+    # padded to 32, K with zero codes to a multiple of 16
+    lib_m, lib_k = max(m, 32), -(-k // 16) * 16
+    xl = torch.zeros((lib_m, lib_k), dtype=torch.int8, device=dev)
+    xl[:m, :k] = xc
+    wl = wt
+    if lib_k != k:
+        wl = torch.zeros((n, lib_k), dtype=torch.int8, device=dev)
+        wl[:, :k] = wt
+
+    def library():
+        return torch._int_mm(xl, wl.t()).to(torch.float32) * (scales * xs)
+
+    case = {
+        "name": "w8a8_matmul", "m": m, "k": k, "n": n,
+        "x_offset": x_offset, "max_abs_err": err,
+        "max_abs_out": float(want.abs().max()), "ok": ok,
+        "ms": timer.ms(lambda: w8a8_matmul(xc, xs, wt, scales)),
+        "plain_ms": timer.ms(lambda: w8a8_matmul_plain(xc, xs, wt, scales)),
+        "library_ms": timer.ms(library),
+        "library": "torch._int_mm(x int8, W int8) + epilogue"
+                   + (f", M padded to {lib_m}" if lib_m != m else "")
+                   + (f", K padded to {lib_k}" if lib_k != k else ""),
+        "bound_ms": b, "bound_by": by}
+    log(json.dumps(case))
+    require(ok, f"w8a8_matmul M={m} K={k} N={n} x+{x_offset}: max |err| "
+                f"{err} (must be 0)")
+    return case
 
 
 def attention_cases(timer: Timer, gen, dev, b=8, h=32, hk=8, dh=128, sk=1024):
@@ -907,7 +921,7 @@ def main() -> None:
     rep_case = {"packed_gemv": dict(scheme="awq_int4", m=8, k=4096, n=14336),
                 "packed_matmul": dict(scheme="awq_int4", m=chunk, k=4096,
                                       n=14336),
-                "w8a8_matmul": dict(m=8, k=4096, n=16384),
+                "w8a8_matmul": dict(m=8, k=4096, n=16384, x_offset=0),
                 "decode_attention_bf16": dict(kv="bf16", h=32, dh=128),
                 "decode_attention_quant": dict(kv="int8", h=32, dh=128),
                 "virtual_dsp_multiply": dict(pair="int4xbf16", cap=4,

@@ -6,8 +6,7 @@ rows (the reference's ``ops.py:336`` predicate) where that kernel takes
 the leaf, and to the tensor-core matmul kernel otherwise (any M, N and
 alignment), and a w8a8 linear to the int8 matmul kernel after quantizing
 all of its input rows with one per-tensor scale (``ops.py:327``: under
-W8A8 a row's output depends on the other rows of the call, by design),
-zero-padded along K where the kernel needs it (``linear_route``);
+W8A8 a row's output depends on the other rows of the call, by design);
 ``fused_decode_attention`` routes Sq == 1 attention to the
 flash-decode kernel.  Dense bf16 leaves (the ``lm_head``) are not kernels:
 ``models/common.apply_linear`` gives them to ``torch.matmul``.
@@ -30,19 +29,18 @@ from . import xtramac_mac as _xm
 from .decode_attention import decode_attention_plain, gqa_decode_attention
 from .packed_matmul import (gemv_takes, packed_gemv, packed_matmul,
                             packed_matmul_plain)
-from .w8a8_matmul import w8a8_matmul, w8a8_matmul_plain, w8a8_takes
+from .w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
 from .xtramac_mac import (virtual_dsp_multiply,  # noqa: F401  (re-export)
                           virtual_dsp_plain)
 
 
 def linear_route(scheme, m: int, k: int, n: int, packed_ptr: int,
-                 scales_ptr: int, x_ptr: int = 0) -> str:
-    """Which kernel a quantized linear leaf takes on the card: "w8a8", or
-    "w8a8_padded" (operands zero-padded along K first), "gemv" (K1) or
-    "matmul" (K2).  ``*_ptr`` are the operands' device addresses (x's: the
-    int8 activation codes, for w8a8)."""
+                 scales_ptr: int) -> str:
+    """Which kernel a quantized linear leaf takes on the card: "w8a8" (K5,
+    which takes any K and alignment as they are), "gemv" (K1) or "matmul"
+    (K2).  ``*_ptr`` are the operands' device addresses."""
     if scheme.name == "w8a8":
-        return "w8a8" if w8a8_takes(k, x_ptr, packed_ptr) else "w8a8_padded"
+        return "w8a8"
     return "gemv" if gemv_takes(m, n, packed_ptr, scales_ptr) else "matmul"
 
 

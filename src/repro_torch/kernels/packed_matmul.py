@@ -34,7 +34,7 @@ from repro_torch.quant.pack import codes_per_word, unpack_codes
 from repro_torch.quant.schemes import (PACKED_FORMAT_IDS, QuantScheme,
                                        dequantize, effective_group)
 
-from . import build
+from . import build, scratch
 
 launches: Dict[str, int] = {"packed_gemv": 0, "packed_matmul": 0}
 
@@ -57,8 +57,6 @@ _GV_MAX_SMEM = _GV_RING_BYTES + 2 * (_GV_X_ELEMS + GEMV_MAX_M * 32)
 _MM_BK = 128              # matmul K per pipeline stage
 _MM_MIN_STEPS = 4         # stages per split, at least
 _TARGET_BLOCKS = 264      # two waves over the H100's 132 SMs
-# per (device, stream): K1's column-tile counters (zero between launches)
-_GEMV_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def packed_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -287,7 +285,8 @@ def packed_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     lib = build.load("packed_matmul", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        counters = _gemv_counters(x.device, stream, -(-n // _GV_COLS))
+        counters = scratch.zeroed("packed_gemv.counters", x.device, stream,
+                                  -(-n // _GV_COLS))
         err = lib.packed_gemv(
             xk.data_ptr(), xk.shape[1], packed.data_ptr(), scales.data_ptr(),
             partial.data_ptr(), out.data_ptr(), counters.data_ptr(), m, k, n,
@@ -313,21 +312,6 @@ def _gemv_launch_plan(m: int, k: int, n: int,
         raise ValueError(f"packed_gemv: scale group {group} needs a split of "
                          f"{kps} rows of K, more x than a block stages")
     return kps, splits
-
-
-def _gemv_counters(device: torch.device, stream: int,
-                   tiles: int) -> torch.Tensor:
-    """K1's per-column-tile counters for launches on ``stream`` of
-    ``device``: zero before each launch (the kernel's last block per tile
-    resets its own), so launches in stream order share one buffer; a
-    larger one is made (zeroed) where a launch has more tiles."""
-    key = (device.index, stream)
-    counters = _GEMV_COUNTERS.get(key)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
-                               device=device)
-        _GEMV_COUNTERS[key] = counters
-    return counters
 
 
 def matmul_x_operand(x: torch.Tensor) -> torch.Tensor:

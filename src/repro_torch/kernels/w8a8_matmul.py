@@ -11,11 +11,9 @@ the weight codes int8 given **transposed**, ``w_codes_t`` [N, K], and
 per-channel f32 ``w_scales`` [1, N].  The int32 sum is exact, so kernel,
 plain version and the reference's ``w8a8_matmul_ref`` agree bit for bit.
 
-  * ``w8a8_matmul``       — launches the kernel on CUDA tensors (zero-padding
-    both operands along K to a multiple of 16 where K or an address does
-    not suit the kernel's 16-byte loads: zero codes add exactly 0 to the
-    int32 sums), returns the plain version on CPU tensors, raises for any
-    other device;
+  * ``w8a8_matmul``       — launches the kernel on CUDA tensors (one launch;
+    any K and any alignment of either operand, taken as they are),
+    returns the plain version on CPU tensors, raises for any other device;
   * ``w8a8_matmul_plain`` — plain torch on any device.
 
 ``launches`` counts kernel launches; plain calls do not count.
@@ -23,20 +21,21 @@ plain version and the reference's ``w8a8_matmul_ref`` agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
 
-from . import build
+from . import build, scratch
 
 launches: Dict[str, int] = {"w8a8_matmul": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"w8a8_matmul": [_P] * 6 + [_I] * 6 + [_P]}
-_COLS = 128               # output columns per block (4 warps x 32)
-_K_STEP = 64              # K per loop step of the kernel
-_MIN_K_PER_SPLIT = 256
-_TARGET_BLOCKS = 264      # two waves over the H100's 132 SMs
+_SIGNATURES = {"w8a8_matmul": [_P] * 7 + [_I] * 8 + [_P],
+               "w8a8_blocks_per_sm": [_I, ctypes.POINTER(ctypes.c_int)]}
+COLS = 64                 # output columns a block (csrc: kCols)
+BK = 512                  # K a ring stage (csrc: kBK)
+MAX_K = 131071            # |int32 sum| <= K * 2^14 <= 2^31 - 2^14
 
 
 def w8a8_matmul_plain(x_codes: torch.Tensor, x_scale: torch.Tensor,
@@ -50,34 +49,33 @@ def w8a8_matmul_plain(x_codes: torch.Tensor, x_scale: torch.Tensor,
     return acc.to(torch.float32) * (w_scales * x_scale)
 
 
-def m_tiles(m: int) -> int:
-    """16-row m-tiles per warp: 1 for decode rows, 4 for prefill chunks."""
-    return 1 if m <= 16 else 2 if m <= 32 else 4
+def x_groups(m: int) -> int:
+    """8-row groups of x a block takes: 1 for decode rows, up to 8 (64
+    rows) for prefill chunks; larger M runs in blocks of 64 rows."""
+    return 1 if m <= 8 else 2 if m <= 16 else 4 if m <= 32 else 8
 
 
-def w8a8_takes(k: int, x_ptr: int, w_ptr: int) -> bool:
-    """Whether the kernel takes the code operands as they are: K % 16 == 0
-    and both 16-byte aligned (its 16-byte loads).  Otherwise the wrapper
-    runs it on copies zero-padded along K to a multiple of 16."""
-    return k % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
+def copy_width(k: int, addr: int) -> int:
+    """Bytes per copy the kernel uses for an operand [*, K] at ``addr``: 16
+    where K and the address allow it, else 4, else 1."""
+    for width in (16, 4):
+        if k % width == 0 and addr % width == 0:
+            return width
+    return 1
 
 
-def _pad_k(codes: torch.Tensor, k: int) -> torch.Tensor:
-    out = torch.zeros((codes.shape[0], k), dtype=codes.dtype,
-                      device=codes.device)
-    out[:, :codes.shape[1]] = codes
-    return out
-
-
-def split_plan(m: int, k: int, n: int) -> Tuple[int, int]:
-    """(k_per_split, splits): split K in steps of 64 (at least 256 per
-    split) until the grid of 128-column, 16 x m_tiles-row blocks holds
-    about two waves."""
-    blocks = -(-n // _COLS) * -(-m // (16 * m_tiles(m)))
-    want = max(1, -(-_TARGET_BLOCKS // blocks))
-    kps = -(-(-(-k // want)) // _K_STEP) * _K_STEP
-    kps = max(kps, _MIN_K_PER_SPLIT)
-    return kps, -(-k // kps)
+def split_plan(m: int, k: int, n: int, wave: int) -> Tuple[int, int]:
+    """(k_per_split, splits): K cut into whole ring stages of BK, as many
+    splits as keep the grid of COLS-column, 8 * x_groups(m)-row tiles
+    within ``wave`` blocks (what the SMs hold at once), at most one a stage;
+    prefill rows (over 16) take at least two stages a split, where one
+    stage's copy no longer covers the epilogue's atomic adds."""
+    groups = x_groups(m)
+    tiles = -(-n // COLS) * -(-m // (8 * groups))
+    steps = -(-k // BK)
+    per = -(-steps // max(1, min(steps, wave // tiles)))
+    per = min(steps, max(per, 2 if groups >= 4 else 1))
+    return per * BK, -(-steps // per)
 
 
 def _check(x_codes, x_scale, w_codes_t, w_scales):
@@ -111,6 +109,9 @@ def w8a8_matmul(x_codes: torch.Tensor, x_scale: torch.Tensor,
                 w_scales: torch.Tensor) -> torch.Tensor:
     """x_codes int8 [M, K] (scale: f32 0-d), w_codes_t int8 [N, K],
     w_scales f32 [1, N] -> f32 [M, N]."""
+    if x_codes.shape[-1] > MAX_K:
+        raise ValueError(f"w8a8_matmul: K={x_codes.shape[-1]} could overflow "
+                         f"the int32 sums (K <= {MAX_K})")
     if x_codes.device.type == "cpu":
         if w_codes_t.device.type != "cpu":
             raise ValueError(f"w8a8_matmul: x on the CPU, weights on "
@@ -119,19 +120,36 @@ def w8a8_matmul(x_codes: torch.Tensor, x_scale: torch.Tensor,
     if x_codes.device.type != "cuda":
         raise ValueError(f"w8a8_matmul: no kernel for device {x_codes.device}")
     m, k, n = _check(x_codes, x_scale, w_codes_t, w_scales)
-    if not w8a8_takes(k, x_codes.data_ptr(), w_codes_t.data_ptr()):
-        k = -(-k // 16) * 16
-        x_codes, w_codes_t = _pad_k(x_codes, k), _pad_k(w_codes_t, k)
-    kps, splits = split_plan(m, k, n)
-    out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
-    partial = torch.empty((splits, m, n) if splits > 1 else (0,),
-                          dtype=torch.int32, device=x_codes.device)
+    groups = x_groups(m)
     lib = build.load("w8a8_matmul", _SIGNATURES)
-    with torch.cuda.device(x_codes.device):
+    dev = x_codes.device
+    kps, splits = split_plan(m, k, n, _wave(lib, dev, groups))
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        accum, counters = out, out
+        if splits > 1:
+            tiles = -(-n // COLS) * -(-m // (8 * groups))
+            accum = scratch.zeroed("w8a8_matmul.accum", dev, stream, m * n)
+            counters = scratch.zeroed("w8a8_matmul.counters", dev, stream,
+                                      tiles)
         err = lib.w8a8_matmul(
             x_codes.data_ptr(), w_codes_t.data_ptr(), w_scales.data_ptr(),
-            x_scale.data_ptr(), partial.data_ptr(), out.data_ptr(), m, k, n,
-            m_tiles(m), kps, splits, torch.cuda.current_stream().cuda_stream)
+            x_scale.data_ptr(), accum.data_ptr(), counters.data_ptr(),
+            out.data_ptr(), m, k, n, groups, kps, splits,
+            copy_width(k, w_codes_t.data_ptr()),
+            copy_width(k, x_codes.data_ptr()), stream)
     build.check(lib, "w8a8_matmul", err)
     launches["w8a8_matmul"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _wave(lib: ctypes.CDLL, device: torch.device, groups: int) -> int:
+    """Blocks of the ``groups`` body the card holds at once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        build.check(lib, "w8a8_blocks_per_sm",
+                    lib.w8a8_blocks_per_sm(groups, ctypes.byref(per_sm)))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, per_sm.value) * sms

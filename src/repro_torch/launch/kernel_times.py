@@ -1,6 +1,6 @@
-"""Device time of the packed-matmul, decode-attention and virtual-DSP
-wrappers at the shapes of ``chip_smoke.py``'s kernel phase, for an A/B of
-two trees.
+"""Device time of the packed-matmul, int8-matmul, decode-attention and
+virtual-DSP wrappers at the shapes of ``chip_smoke.py``'s kernel phase,
+for an A/B of two trees.
 
 Imports ``repro_torch`` from the path, so the same file times another
 checkout's kernels (their wrappers take the same arguments):
@@ -11,11 +11,15 @@ checkout's kernels (their wrappers take the same arguments):
 
 Cases: K1 (``packed_gemv``, M = 1 and 8) and K2 (``packed_matmul``, M =
 64) for the three packed schemes on the four linear shapes of granite-8b;
-K3 / K4 (``gqa_decode_attention``) on the bf16, int8 and fp8 slabs of the
+K5 (``w8a8_matmul``, M = 1, 8 and 64) on minitron-8b's four linear shapes
+and at K = 4100, each beside ``torch._int_mm`` with the same epilogue
+(``library_ms``: M padded to 32 rows, K with zero codes to a multiple of
+16, as that call needs); K3 / K4 (``gqa_decode_attention``) on the bf16, int8 and fp8 slabs of the
 table case (B 8, H 32, Hk 8, Dh 128, Sk 1024, ragged lengths); K6
 (``virtual_dsp_multiply`` on int4 x bf16, int32, and ``packed_multiply``
 on fp32 x int16, int64, each at the Table VII GEMV's 50,331,648 lane MACs).
-``--kernels`` picks some of ``gemv``, ``matmul``, ``attention``, ``vdsp``.  Each time is the
+``--kernels`` picks some of ``gemv``, ``matmul``, ``w8a8``, ``attention``,
+``vdsp``.  Each time is the
 median of 20 calls timed with CUDA events, the L2 cache flushed before each
 call, as in ``chip_smoke.py``; ``host_us`` is the host's time per call
 (50 calls, no sync between).  ``--profile`` adds each case's device ms
@@ -35,16 +39,20 @@ import torch
 from repro_torch.core import packing as P
 from repro_torch.kernels.decode_attention import gqa_decode_attention
 from repro_torch.kernels.packed_matmul import packed_gemv, packed_matmul
+from repro_torch.kernels.w8a8_matmul import w8a8_matmul
 from repro_torch.kernels.xtramac_mac import virtual_dsp_multiply
 from repro_torch.quant.kv_cache import QuantizedKV
 from repro_torch.quant.schemes import (get_kv_scheme, get_scheme,
-                                       kv_quantize, quantize_weights)
+                                       kv_quantize, quantize_activations_int8,
+                                       quantize_weights)
 
 LINEAR_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
+               (4100, 4096)]
 SCHEMES = ["awq_int4", "mxfp4", "fp8"]
 ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
 LANE_MACS = 50_331_648          # the paper's Table VII GEMV (1, 4096, 12288)
-KERNEL_SETS = ("gemv", "matmul", "attention", "vdsp")
+KERNEL_SETS = ("gemv", "matmul", "w8a8", "attention", "vdsp")
 
 
 def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
@@ -123,8 +131,10 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
-    def emit(fn, **case):
+    def emit(fn, library=None, **case):
         case["ms"] = time_ms(fn, flush)
+        if library is not None:
+            case["library_ms"] = time_ms(library, flush)
         case["host_us"] = host_us(fn)
         if args.profile:
             case["kernels"] = kernel_split(fn)
@@ -142,6 +152,27 @@ def main(argv=None) -> None:
                     torch.bfloat16)
                 emit(lambda: fn(x, packed, scales, scheme), name=name,
                      scheme=scheme_name, m=m, k=k, n=n)
+
+    for k, n in W8A8_SHAPES if "w8a8" in only else ():
+        w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
+        codes, scales = quantize_weights(get_scheme("w8a8"), w)
+        wt = codes.t().contiguous()
+        del w, codes
+        lib_k = -(-k // 16) * 16
+        wl = torch.zeros((n, lib_k), dtype=torch.int8, device=dev)
+        wl[:, :k] = wt
+        for m in (1, 8, 64):
+            xc, xs = quantize_activations_int8(
+                torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16))
+            xl = torch.zeros((max(m, 32), lib_k), dtype=torch.int8,
+                             device=dev)
+            xl[:m, :k] = xc
+            emit(lambda: w8a8_matmul(xc, xs, wt, scales),
+                 library=lambda: torch._int_mm(xl, wl.t()).to(
+                     torch.float32) * (scales * xs),
+                 name="w8a8_matmul", m=m, k=k, n=n)
+        del wt, wl, scales
 
     b, h, hk, dh, sk = 8, 32, 8, 128, 1024
     for tier in ("bf16", "int8", "fp8") if "attention" in only else ():

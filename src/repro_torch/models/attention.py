@@ -115,7 +115,7 @@ def _attend_chunked(q, k, v, *, q_offset, kv_chunk, kv_valid_len):
         m_new = torch.maximum(m, s.amax(dim=-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
-        l = l * corr + p.sum(dim=-1)
+        l = l * corr + torch.sum(p, dim=-1)
         pg = p.reshape(b, hk, rep, sq, kv_chunk).to(v.dtype)
         pv = _bf16_einsum("bhrqk,bkhd->bhrqd", pg, v[:, sl]).to(torch.float32)
         acc = acc * corr[..., None] + pv.reshape(b, h, sq, dv)

@@ -274,19 +274,26 @@ def test_linear_route_sends_what_k1_refuses_to_k2(scheme, m, n, packed_off,
     (4096, 0, 0, True), (16384, 0, 0, True), (4100, 0, 0, False),
     (200, 0, 0, False), (4096, 8, 0, False), (4096, 0, 4, False)])
 def test_w8a8_pads_k_where_the_kernel_needs_it(k, x_off, w_off, takes):
-    """K % 16 != 0 or an operand not 16-byte aligned: the leaf runs on
-    copies zero-padded along K to a multiple of 16, and the padded product
-    is the unpadded one bit for bit (zero codes add exactly 0)."""
+    """Nothing is padded any more: every W8A8 leaf takes the one route, K5
+    on the operands as they are.  A K or an address that does not suit
+    16-byte copies (``takes`` False) only narrows that operand's copies in
+    the kernel, to the widest of 4 or 1 bytes that divides both; and the
+    product of an x view at that offset is the reference's bit for bit."""
     sch = S.get_scheme("w8a8")
-    assert W8.w8a8_takes(k, 4096 + x_off, 8192 + w_off) is takes
-    route = ops.linear_route(sch, 8, k, 64, 8192 + w_off, 0, 4096 + x_off)
-    assert route == ("w8a8" if takes else "w8a8_padded")
+    assert ops.linear_route(sch, 8, k, 64, 8192 + w_off, 0) == "w8a8"
+    widths = [W8.copy_width(k, addr) for addr in (4096 + x_off, 8192 + w_off)]
+    assert (widths == [16, 16]) is takes
+    for width, addr in zip(widths, (4096 + x_off, 8192 + w_off)):
+        assert k % width == 0 and addr % width == 0
+        assert width == 16 or k % (4 * width) or addr % (4 * width)
     kk = min(k, 200)
-    _, (xc, xs, wt, ws) = _w8a8_operands(3, kk, 40)
-    kp = -(-kk // 16) * 16
-    padded_out = W8.w8a8_matmul_plain(W8._pad_k(xc, kp), xs,
-                                      W8._pad_k(wt, kp), ws)
-    assert torch.equal(padded_out, W8.w8a8_matmul_plain(xc, xs, wt, ws))
+    (rxc, rxs, qw), (xc, xs, wt, ws) = _w8a8_operands(3, kk, 40)
+    buf = torch.zeros(3 * kk + 16, dtype=torch.int8)
+    xv = buf[x_off:x_off + 3 * kk].view(3, kk)
+    xv.copy_(xc)
+    np.testing.assert_array_equal(
+        W8.w8a8_matmul(xv, xs, wt, ws).numpy(),
+        np.asarray(ref.w8a8_matmul_ref(rxc, rxs, qw.packed, qw.scales)))
 
 
 # ---------------------------------------------------------------------------
@@ -344,15 +351,30 @@ def test_quantized_matmul_w8a8_matches_reference_dispatch(lead):
     assert sum(ops.launch_counts().values()) == 0   # plain calls never count
 
 
+@pytest.mark.parametrize("wave", [264, 132])
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 1024),
                                    (8, 4096, 16384), (64, 16384, 4096),
                                    (3, 96, 40)])
-def test_w8a8_split_plan_covers_k_in_steps_of_64(m, k, n):
-    kps, splits = W8.split_plan(m, k, n)
-    assert kps % 64 == 0 and kps >= 256
+def test_w8a8_split_plan_covers_k_in_steps_of_64(m, k, n, wave):
+    """Splits of whole 512-K ring stages (so of 64-K mma steps) that cover
+    K, as many as fit the grid in one wave of resident blocks, at most one
+    a stage."""
+    kps, splits = W8.split_plan(m, k, n, wave)
+    assert kps % W8.BK == 0 and kps % 64 == 0
     assert (splits - 1) * kps < k <= splits * kps
-    blocks = -(-n // 128) * -(-m // (16 * W8.m_tiles(m)))
-    assert blocks * splits >= min(132, blocks * -(-k // 256))
+    tiles = -(-n // W8.COLS) * -(-m // (8 * W8.x_groups(m)))
+    assert tiles * splits <= max(wave, tiles)
+    assert 2 * splits > min(-(-k // W8.BK), max(1, wave // tiles))
+
+
+@pytest.mark.parametrize("m,groups", [(1, 1), (8, 1), (9, 2), (16, 2),
+                                      (17, 4), (32, 4), (33, 8), (64, 8),
+                                      (100, 8)])
+def test_w8a8_x_groups_cover_the_rows(m, groups):
+    """x rows a block takes: the smallest of 8, 16, 32, 64 that holds M;
+    larger M runs in blocks of 64 rows."""
+    assert W8.x_groups(m) == groups
+    assert 8 * groups >= min(m, 64)
 
 
 def test_w8a8_wrapper_raises_on_devices_without_a_kernel():
@@ -362,6 +384,22 @@ def test_w8a8_wrapper_raises_on_devices_without_a_kernel():
     ws = torch.empty((1, 32), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         W8.w8a8_matmul(xc, xs, wt, ws)
+
+
+@pytest.mark.parametrize("k,fits", [(W8.MAX_K, True), (W8.MAX_K + 1, False)])
+def test_w8a8_refuses_k_that_could_overflow_the_int32_sum(k, fits):
+    """Every product (-128) * (-128) is the largest int32 sum: K * 2^14,
+    which fits at K = MAX_K and is 2^31 one K later, on any device."""
+    xc = torch.full((1, k), -128, dtype=torch.int8)
+    xs = torch.ones((), dtype=torch.float32)
+    wt = torch.full((1, k), -128, dtype=torch.int8)
+    ws = torch.ones((1, 1), dtype=torch.float32)
+    if not fits:
+        assert k * 2 ** 14 == 2 ** 31
+        with pytest.raises(ValueError, match="overflow"):
+            W8.w8a8_matmul(xc, xs, wt, ws)
+        return
+    assert W8.w8a8_matmul(xc, xs, wt, ws).item() == k * 2 ** 14 < 2 ** 31
 
 
 # ---------------------------------------------------------------------------
@@ -646,9 +684,57 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda_device, tier, h,
                                    (33, 1040, 250), (100, 512, 384),
                                    (8, 4100, 256), (64, 200, 40)])
 def test_w8a8_kernel_matches_plain_on_card_bitwise(cuda_device, m, k, n):
-    """K % 16 != 0 (the last two) runs zero-padded along K."""
+    """K % 16 != 0 (the last two) runs the kernel's 4-byte copy body."""
     _, (xc, xs, wt, ws) = _w8a8_operands(m, k, n)
     xc, xs, wt, ws = (t.to(cuda_device) for t in (xc, xs, wt, ws))
+    before = W8.launches["w8a8_matmul"]
+    got = W8.w8a8_matmul(xc, xs, wt, ws)
+    assert W8.launches["w8a8_matmul"] == before + 1
+    want = W8.w8a8_matmul_plain(xc, xs, wt, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _w8a8_card_operands(m, k, n, device, x_offset=0):
+    """Uniform int8 codes (x as a view ``x_offset`` bytes past an aligned
+    buffer) and positive scales, made on the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(m * 100003 + k * 7 + n)
+    buf = torch.randint(-128, 128, (m * k + 16,), generator=gen,
+                        device=device, dtype=torch.int32).to(torch.int8)
+    xc = buf[x_offset:x_offset + m * k].view(m, k)
+    wt = torch.randint(-128, 128, (n, k), generator=gen, device=device,
+                       dtype=torch.int32).to(torch.int8)
+    ws = torch.rand((1, n), generator=gen, device=device) * 1e-3 + 1e-4
+    xs = torch.rand((), generator=gen, device=device) * 1e-2 + 1e-3
+    return xc, xs, wt, ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(4096, 1024), (16384, 256), (4100, 250),
+                                 (208, 40), (200, 136)])
+@pytest.mark.parametrize("m", list(range(1, 10)) + [16, 17, 33, 64, 100])
+def test_w8a8_kernel_every_row_count_on_card_bitwise(cuda_device, m, k, n):
+    """Every decode row count, the edges of each x-group body and row
+    blocks past 64, at aligned and unaligned K and ragged N: one launch,
+    the plain version's bits."""
+    xc, xs, wt, ws = _w8a8_card_operands(m, k, n, cuda_device)
+    before = W8.launches["w8a8_matmul"]
+    got = W8.w8a8_matmul(xc, xs, wt, ws)
+    assert W8.launches["w8a8_matmul"] == before + 1
+    want = W8.w8a8_matmul_plain(xc, xs, wt, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (33, 200, 136)])
+@pytest.mark.parametrize("x_offset", range(1, 16))
+def test_w8a8_kernel_takes_x_at_any_byte_offset_on_card(cuda_device, m, k,
+                                                        n, x_offset):
+    """x as a view at byte offsets 1-15 (narrower copies), no copy made:
+    the plain version's bits."""
+    xc, xs, wt, ws = _w8a8_card_operands(m, k, n, cuda_device, x_offset)
+    assert xc.data_ptr() % 16 == x_offset % 16
     got = W8.w8a8_matmul(xc, xs, wt, ws)
     want = W8.w8a8_matmul_plain(xc, xs, wt, ws)
     torch.cuda.synchronize()

@@ -23,8 +23,29 @@ from repro_torch.models import common as C
 from repro_torch.models import transformer as T
 from repro_torch.quant.policy import leaf_info
 
-RNG = np.random.default_rng(41)
 LOGIT_TOL = dict(rtol=5e-2, atol=5e-2)   # tests/test_kv_quant.py:247
+# token draws of the W8A8 forward test (ROADMAP P3): 0-7, and 17 and 23,
+# where R9's ops move more than one logit at this size
+W8A8_DRAWS = (*range(8), 17, 23)
+# ROADMAP R9: the prefill logits that the port's own ops move off the op-by-op
+# reference's, by (token draw, KV tier, row): at most how many, each by at
+# most how much ("ulp": one bf16 ulp of the reference's value).  Every draw
+# and row not listed is the reference's bit for bit.
+R9_MOVED = {
+    # the lm_head's dense dot sums K in another order: single logits
+    (0, "int8", 1): (1, "ulp"), (4, "int8", 1): (1, "ulp"),
+    (6, "int8", 1): (1, "ulp"), (17, "int8", 1): (2, "ulp"),
+    # the final norm's rsqrt moves one position's normalized row
+    (17, "bf16", 0): (198, 0.016),
+    # layer 1's norm rsqrt moves 62 int8 activation codes and 10 KV codes
+    # by one step each, then the lm_head's dot
+    (23, "int8", 0): (1651, 0.036),
+}
+# ROADMAP R9: XLA's CPU ops that the port does not reproduce, by the name
+# of the torch function the port calls for each
+R9_OPS = {"rsqrt": jax.lax.rsqrt, "sin": jnp.sin, "cos": jnp.cos,
+          "matmul": jnp.dot, "exp": jnp.exp, "softmax": jax.nn.softmax,
+          "mean": jnp.mean, "sum": jnp.sum}
 
 
 def _bf16(a) -> torch.Tensor:
@@ -34,6 +55,45 @@ def _bf16(a) -> torch.Tensor:
 def _f32(t) -> np.ndarray:
     return np.asarray(t.to(torch.float32) if torch.is_tensor(t) else t,
                       np.float32)
+
+
+@contextlib.contextmanager
+def _reference_r9_ops():
+    """Inside this context the port's float CPU tensors take XLA's own
+    rsqrt, sin, cos, dense dot, exp, softmax, mean and sum, run op by op
+    (ROADMAP R9: which bits each gives depends on the CPU model and on the
+    shape), so that every other op of the port is held bit for bit."""
+    saved = {name: getattr(torch, name) for name in R9_OPS}
+    floats = (torch.float32, torch.bfloat16)
+
+    def via_jax(name):
+        def op(*args, dim=None, keepdim=False, **kw):
+            tensors = [a for a in args if torch.is_tensor(a)]
+            if kw or any(a.device.type != "cpu" or a.dtype not in floats
+                         for a in tensors):
+                more = {} if dim is None else {"dim": dim}
+                if keepdim:
+                    more["keepdim"] = keepdim
+                return saved[name](*args, **more, **kw)
+            ins = [jnp.asarray(a.to(torch.float32).numpy()).astype(
+                jnp.bfloat16 if a.dtype == torch.bfloat16 else jnp.float32)
+                for a in args]
+            more = {} if dim is None else {"axis": dim}
+            if keepdim:
+                more["keepdims"] = keepdim
+            with jax.disable_jit():
+                out = R9_OPS[name](*ins, **more)
+            out = np.array(out.astype(jnp.float32))
+            return torch.from_numpy(out).to(args[0].dtype)
+        return op
+
+    try:
+        for name in R9_OPS:
+            setattr(torch, name, via_jax(name))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch, name, fn)
 
 
 def _smoke_models(arch):
@@ -97,8 +157,9 @@ def test_port_quantmaker_builds_the_reference_leaf_set():
 
 
 def test_rms_norm_and_rope_match_reference():
-    x = RNG.normal(size=(2, 5, 4, 16)).astype(np.float32)
-    g = RNG.normal(size=(16,)).astype(np.float32)
+    rng = np.random.default_rng(41)
+    x = rng.normal(size=(2, 5, 4, 16)).astype(np.float32)
+    g = rng.normal(size=(16,)).astype(np.float32)
     pos = np.array([[3, 4, 5, 6, 7], [0, 1, 2, 3, 4]], np.int32)
     want = RC.rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(g))
     got = C.rms_norm(_bf16(x), torch.from_numpy(g))
@@ -112,10 +173,11 @@ def test_rms_norm_and_rope_match_reference():
 def test_prefill_attend_matches_reference(sk, kv_chunk):
     """Dense (one score block) and chunked online softmax, causal with a
     chunk offset and a valid length, at bf16 tolerance."""
+    rng = np.random.default_rng(42)
     b, sq, h, hk, dh, off = 1, 8, 4, 2, 16, 16
-    q = RNG.normal(size=(b, sq, h, dh))
-    k = RNG.normal(size=(b, sk, hk, dh))
-    v = RNG.normal(size=(b, sk, hk, dh))
+    q = rng.normal(size=(b, sq, h, dh))
+    k = rng.normal(size=(b, sk, hk, dh))
+    v = rng.normal(size=(b, sk, hk, dh))
     valid = np.array([off + sq], np.int32)
     want = RA.attend(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
                      jnp.asarray(v, jnp.bfloat16), causal=True, q_offset=off,
@@ -125,23 +187,75 @@ def test_prefill_attend_matches_reference(sk, kv_chunk):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("sk,kv_chunk", [(64, 128), (128, 32)])
+def test_prefill_attend_matches_reference_bitwise_op_by_op(sk, kv_chunk):
+    """Prefill attention (dense and chunked) on bf16 inputs is the
+    reference's op-by-op result bit for bit once the port takes XLA's
+    softmax, exp and sum (ROADMAP R9): masks, scaling, the einsums and the
+    online-softmax carries are the reference's to the bit."""
+    rng = np.random.default_rng(48)
+    b, sq, h, hk, dh, off = 4, 16, 8, 2, 16, 16
+    q = rng.normal(size=(b, sq, h, dh)) * 2
+    k = rng.normal(size=(b, sk, hk, dh)) * 2
+    v = rng.normal(size=(b, sk, hk, dh))
+    valid = np.array([off + sq, off + sq - 3, off + 1, off + sq], np.int32)
+    with jax.disable_jit():
+        want = RA.attend(jnp.asarray(q, jnp.bfloat16),
+                         jnp.asarray(k, jnp.bfloat16),
+                         jnp.asarray(v, jnp.bfloat16), causal=True,
+                         q_offset=off, kv_chunk=kv_chunk,
+                         kv_valid_len=jnp.asarray(valid))
+    with _reference_r9_ops():
+        got = A.attend(_bf16(q), _bf16(k), _bf16(v), q_offset=off,
+                       kv_chunk=kv_chunk, kv_valid_len=torch.from_numpy(valid))
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+@pytest.mark.parametrize("name", list(R9_OPS))
+def test_reference_r9_ops_part_from_torchs_on_the_cpu(name):
+    """Why the bitwise checks hand the port XLA's ops (ROADMAP R9): op by
+    op on the CPU each of torch's differs from XLA's in the last bit for
+    some inputs, and inside ``_reference_r9_ops`` it is XLA's."""
+    rng = np.random.default_rng(49)
+    v = (np.abs(rng.normal(size=(1000, 100))) * 10 + 1e-3).astype(np.float32)
+    args = (v,)
+    kw = {"dim": -1} if name in ("softmax", "mean", "sum") else {}
+    if name == "exp":
+        args = (v - 20,)
+    if name == "matmul":
+        args = (v[:8, :64], rng.normal(size=(64, 1024)).astype(np.float32))
+    ins = [torch.from_numpy(a) for a in args]
+    with jax.disable_jit():
+        want = np.asarray(R9_OPS[name](*map(jnp.asarray, args),
+                                       **({"axis": -1} if kw else {})))
+    assert (getattr(torch, name)(*ins, **kw).numpy() != want).any()
+    with _reference_r9_ops():
+        np.testing.assert_array_equal(
+            getattr(torch, name)(*ins, **kw).numpy(), want)
+
+
 @pytest.mark.parametrize("tier", ["bf16", "int8"])
 def test_forward_prefill_chunk_and_decode_match_reference(smoke, tier):
     """One 8-token prefill chunk into a 2-row cache, then 2 decode steps
     (per-row cache index), against the reference forward with its Pallas
     kernels (interpret mode, meshless)."""
-    _forward_vs_reference(smoke, tier)
+    _forward_vs_reference(smoke, tier, seed=43)
 
 
+@pytest.mark.parametrize("seed", W8A8_DRAWS)
 @pytest.mark.parametrize("tier", ["bf16", "int8"])
-def test_forward_matches_reference_on_the_w8a8_model(minitron, tier):
+def test_forward_matches_reference_on_the_w8a8_model(minitron, tier, seed):
     """The same on minitron-smoke (W8A8 linears, squared-ReLU FFN), against
-    the reference run op by op (``jax.disable_jit``): the prefill logits
-    are then bit for bit the reference's.  Under ``jit`` XLA keeps some
-    bf16 intermediates in f32 (excess precision), which moves W8A8
-    activation codes: the jitted reference parts from its own op-by-op
-    run by up to ~0.1 in the logits at this size (ROADMAP R6)."""
-    _forward_vs_reference(minitron, tier, eager=True)
+    the reference run op by op (``jax.disable_jit``), for several token
+    draws.  The prefill logits are the reference's bit for bit except
+    where R9_MOVED says, and bit for bit everywhere once the port takes
+    XLA's R9 ops: norms, RoPE, attention, the int8 quantizers, the KV
+    quantize and the W8A8 matmul are the reference's to the bit.  Under
+    ``jit`` XLA keeps some bf16 intermediates in f32 (excess precision),
+    which moves W8A8 activation codes: the jitted reference parts from its
+    own op-by-op run by up to ~0.1 in the logits at this size (ROADMAP
+    R6)."""
+    _forward_vs_reference(minitron, tier, seed=seed, eager=True)
 
 
 def test_jitted_reference_parts_from_its_op_by_op_run_under_w8a8(minitron):
@@ -168,13 +282,16 @@ def test_jitted_reference_parts_from_its_op_by_op_run_under_w8a8(minitron):
     np.testing.assert_array_equal(_f32(got), eager)
 
 
-def _forward_vs_reference(models, tier, eager=False):
+def _forward_vs_reference(models, tier, seed, eager=False):
     """Prefill then decode, port against reference; ``eager`` runs the
-    reference op by op and holds the prefill logits bit for bit."""
+    reference op by op and holds the prefill logits bit for bit: the
+    port's own except where R9_MOVED says, and the port's on XLA's R9 ops
+    everywhere."""
     cfg, params, _, pcfg, port = models
     declare_execution(kernel="pallas")
     ref_ctx = jax.disable_jit if eager else contextlib.nullcontext
-    tokens = RNG.integers(1, cfg.vocab, (2, 8)).astype(np.int32)
+    tokens = np.random.default_rng(seed).integers(
+        1, cfg.vocab, (2, 8)).astype(np.int32)
     rcache = RT.init_cache(cfg, 2, 32, kv_dtype=tier)
     pcache = T.init_cache(pcfg, 2, 32, kv_dtype=tier, device="cpu")
     for r in range(2):
@@ -191,7 +308,15 @@ def _forward_vs_reference(models, tier, eager=False):
                         cache_index=0, mode="prefill_chunk")
         np.testing.assert_allclose(_f32(got), _f32(want), **LOGIT_TOL)
         if eager:
-            np.testing.assert_array_equal(_f32(got), _f32(want))
+            _assert_moved_only_by_r9(_f32(got), _f32(want),
+                                     *R9_MOVED.get((seed, tier, r), (0, 0)))
+            with _reference_r9_ops():
+                exact = T.forward(
+                    pcfg, port, torch.from_numpy(tokens[r:r + 1]).long(),
+                    cache=T.init_cache(pcfg, 1, 32, kv_dtype=tier,
+                                       device="cpu"),
+                    cache_index=0, mode="prefill_chunk")
+            np.testing.assert_array_equal(_f32(exact), _f32(want))
     lengths = np.array([8, 8], np.int32)
     toks = np.asarray(want[0, -1:]).argmax(-1).repeat(2).astype(np.int32)
     for _ in range(2):
@@ -208,6 +333,17 @@ def _forward_vs_reference(models, tier, eager=False):
         np.testing.assert_allclose(_f32(got), _f32(want), **LOGIT_TOL)
         lengths += 1
         toks = np.asarray(want[:, -1]).argmax(-1).astype(np.int32)
+
+
+def _assert_moved_only_by_r9(got, want, count, bound):
+    """At most ``count`` elements differ, each by at most ``bound`` (one
+    bf16 ulp of ``want`` for "ulp"); all others are equal bit for bit."""
+    moved = got != want
+    assert moved.sum() <= count, (moved.sum(), count)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    lim = ulp if bound == "ulp" else np.full_like(want, bound)
+    assert (np.abs(got - want)[moved] <= lim[moved]).all()
 
 
 def test_bridge_round_trip_keeps_w8a8_int8_codes(minitron):
@@ -252,7 +388,8 @@ def test_port_quantmaker_builds_the_w8a8_leaf_set():
 
 
 def test_relu2_matches_reference_bitwise():
-    x = RNG.normal(size=(3, 7, 64)).astype(np.float32) * 4
+    x = np.random.default_rng(44).normal(size=(3, 7, 64)).astype(
+        np.float32) * 4
     want = RC.activate("relu2", jnp.asarray(x, jnp.bfloat16))
     got = C.activate("relu2", _bf16(x))
     assert got.dtype == torch.bfloat16
@@ -265,7 +402,8 @@ def test_non_gated_ffn_block_matches_reference_bitwise(minitron, rows):
     activation scale per call), bit for bit in bf16."""
     cfg, params, _, pcfg, port = minitron
     layer = jax.tree_util.tree_map(lambda a: a[0], params["layers"]["ffn"])
-    x = RNG.normal(size=(rows, 5, cfg.d_model)).astype(np.float32)
+    x = np.random.default_rng(45).normal(
+        size=(rows, 5, cfg.d_model)).astype(np.float32)
     want = RT._ffn_apply(cfg, layer, jnp.asarray(x, jnp.bfloat16))
     got = T._ffn(pcfg, port.layers[0].ffn, _bf16(x), plain=False)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
@@ -295,7 +433,8 @@ def test_logit_check_passes_a_reordered_sum_and_fails_planted_faults(
 
 def _logit_check_variant(models, variant, passes):
     _, _, _, pcfg, port = models
-    prompts = torch.as_tensor(RNG.integers(1, pcfg.vocab, (3, 8)))
+    prompts = torch.as_tensor(
+        np.random.default_rng(46).integers(1, pcfg.vocab, (3, 8)))
     want_layers, got_layers = [], []
     want, ids = LS.teacher_forced(pcfg, port, prompts, 2, kv="bf16",
                                   plain=True, max_len=16,
