@@ -24,7 +24,15 @@ non-zero after the last phase; exceptions are not caught):
      their plain versions exactly, K6 for every paper datatype pair at the
      Table VII GEMV size (50,331,648 lane MACs: T = 50,331,648 / P issues)
      and, in both instantiations, at a T that is no whole number of its
-     row tiles;
+     row tiles; K1 / K2 also on mxfp4 at starcoder2-15b's four linear
+     shapes and on fp8 at its two attention shapes, K1 at M = 8 on
+     nemotron-4-340b's 73728 x 18432 leaf (53 splits), and decode
+     attention on starcoder2's 48 / 4 heads (Dh 128);
+  2b. the weight quantizer: ``quantize_weights`` (mxfp4, fp8) on the card
+     against the same function on the CPU, words and scales bit for bit,
+     on starcoder2's widest leaf (6144 x 24576) and on a leaf whose every
+     32-group's absmax / 6 lies on, just below or just above a power of
+     two (where the scale takes the reference's f32 log2 rounding);
   3. the MAC datapath (``repro_torch.core``, the counterpart of
      ``repro/core``): ``xtramac_packed`` for six Fig. 6 datatype
      combinations, 50,331,648 lane MACs each from random bit patterns
@@ -35,14 +43,15 @@ non-zero after the last phase; exceptions are not caught):
      ``XtraMACPipeline`` over 64 issues that switch datatype every cycle
      (latency 4, II 1, every result checked); K6 must launch exactly once
      per ``xtramac_packed`` call and once per pipeline issue;
-  then, for granite-8b (AWQ-int4, 36 layers) and minitron-8b (W8A8,
-  squared-ReLU FFN, 32 layers), each at full width with random weights
-  from a seed, one model after the other:
+  then, for granite-8b (AWQ-int4, 36 layers), minitron-8b (W8A8,
+  squared-ReLU FFN, 32 layers) and starcoder2-15b (MXFP4, non-gated GELU
+  FFN, 40 layers), each at full width with random weights from a seed
+  quantized on the card, one model after the other:
   4. the model: one prefill chunk and 4 decode steps through the kernels
      and through the plain versions, bf16 and int8 KV, logits within 5 %
-     of the logit scale (``launch/logit_spread.logit_check``); minitron
-     also runs the plain path with decode attention summed in the kernel's
-     split-KV order, the witness that decides where the kernels miss 5 %
+     of the logit scale (``launch/logit_spread.logit_check``); where the
+     kernels miss 5 %, the plain path with decode attention summed in the
+     kernel's split-KV order is the witness that decides
      (``logit_spread.witness_check``; PERF.md);
   5. serving: ServingEngine + Scheduler (8 slots, max_len 512, prefill
      chunk 64, bursts of up to 8) serve 6 seeded requests with staggered
@@ -51,13 +60,21 @@ non-zero after the last phase; exceptions are not caught):
      tokens are checked against each request served alone; minitron's
      against a repeat of the same run (under W8A8 a row's activations are
      quantized with one scale per call, over its batch-mates too, so a
-     request served alone may differ).
+     request served alone may differ); starcoder2's against each request
+     served alone, with K1 / K2 launched on its mxfp4 leaves;
+  6. model phases only, at full width and cut depth: starcoder2-15b at 4
+     layers under fp8 attention / mxfp4 FFN weights with fp8 KV (K1 / K2
+     must launch on both formats, K4 on fp8 KV), and nemotron-4-340b at 2
+     of its 96 layers (d_model 18432, d_ff 73728, vocab 256000), bf16 and
+     int8 KV; each path's launch counts set to 0 just before its model
+     phase and read just after.
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.  Every case is also written to
 ``chiprun_out/chip_smoke.json``.  The script imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -83,7 +100,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, gqa_decode_attention)
 from repro_torch.kernels.packed_matmul import (  # noqa: E402
-    packed_gemv, packed_matmul, packed_matmul_plain)
+    gemv_plan, packed_gemv, packed_matmul, packed_matmul_plain)
 from repro_torch.kernels.w8a8_matmul import (  # noqa: E402
     w8a8_matmul, w8a8_matmul_plain)
 from repro_torch.kernels.xtramac_mac import (  # noqa: E402
@@ -97,7 +114,7 @@ from repro_torch.models.common import QuantMaker  # noqa: E402
 from repro_torch.quant.kv_cache import QuantizedKV, cache_read  # noqa: E402
 from repro_torch.quant.policy import PrecisionPolicy  # noqa: E402
 from repro_torch.quant.schemes import (  # noqa: E402
-    dequantize, get_kv_scheme, get_scheme, kv_quantize,
+    dequantize, get_kv_scheme, get_scheme, kv_quantize, pow2_scale,
     quantize_activations_int8, quantize_weights)
 from repro_torch.serve import (Request, SamplingParams, Scheduler,  # noqa: E402
                                ServeConfig, ServingEngine)
@@ -131,8 +148,41 @@ PATH_KERNELS = {
                    "decode_attention_quant"),
     "minitron-8b": ("w8a8_matmul", "decode_attention_bf16",
                     "decode_attention_quant"),
+    "starcoder2-15b": ("packed_gemv", "packed_matmul",
+                       "decode_attention_bf16", "decode_attention_quant"),
+    "starcoder2-15b-mixed": ("packed_gemv", "packed_matmul",
+                             "decode_attention_quant"),
+    "nemotron-4-340b": ("packed_gemv", "packed_matmul",
+                        "decode_attention_bf16", "decode_attention_quant"),
 }
+# the launches by format (``ops.format_launch_counts``) each path must make
+PATH_FORMATS = {
+    "starcoder2-15b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
+    "starcoder2-15b-mixed": (
+        "packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1",
+        "packed_gemv:fp8_e4m3", "packed_matmul:fp8_e4m3",
+        "decode_attention_quant:fp8"),
+    "nemotron-4-340b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
+}
+# the model runs: (path, arch, layers (None: all), policy weights, KV
+# tiers of the model phase, witness variant, serve phase)
+MODEL_RUNS = [
+    ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True),
+    ("minitron-8b", "minitron-8b", None, (), ("bf16", "int8"),
+     "plain_splitkv", True),
+    ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
+     "plain_splitkv", True),
+    ("starcoder2-15b-mixed", "starcoder2-15b", 4,
+     (("attn.*", "fp8"), ("ffn.*", "mxfp4")), ("fp8",), "plain_splitkv",
+     False),
+    ("nemotron-4-340b", "nemotron-4-340b", 2, (), ("bf16", "int8"),
+     "plain_splitkv", False),
+]
 LINEAR_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+# starcoder2-15b: q / o, k / v, FFN in, FFN out (mxfp4; fp8 on the first
+# two under the mixed plan); nemotron-4-340b's FFN out at M = 8
+STARCODER2_SHAPES = [(6144, 6144), (6144, 512), (6144, 24576), (24576, 6144)]
+NEMOTRON_DOWN = (73728, 18432)
 GEMV_ROWS = (1, 3, 8)               # K1: decode rows
 MATMUL_ROWS = (9, 64, 100)          # K2: the prefill chunk (64) and beside
 # K6 at a T that is no whole number of any body's row tile (256, 512, 1024)
@@ -148,10 +198,12 @@ W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
 # 16-byte boundary (the kernel's byte-copy body for x)
 W8A8_EXTRA = [(3, 4096, 4096, 0), (8, 4096, 4096, 5)]
 # decode attention: granite / minitron (the table case), nemotron-4-340b
-# (d_head 192, GQA 96 / 8), qwen3-moe (64, 32 / 4), zamba2-7b (112, 32 / 32)
+# (d_head 192, GQA 96 / 8), qwen3-moe (64, 32 / 4), zamba2-7b (112, 32 / 32),
+# starcoder2-15b (128, 48 / 4)
 ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
 ATTN_LAYOUTS = [dict(h=32, hk=8, dh=128), dict(h=96, hk=8, dh=192),
-                dict(h=32, hk=4, dh=64), dict(h=32, hk=32, dh=112)]
+                dict(h=32, hk=4, dh=64), dict(h=32, hk=32, dh=112),
+                dict(h=48, hk=4, dh=128)]
 SCHEMES = ["awq_int4", "mxfp4", "fp8"]
 # matmul tolerance of the reference's kernel tests; decode attention to one
 # bf16 ulp (outputs are rounded to bf16; the sums differ only in order);
@@ -268,6 +320,8 @@ def packed_case(timer: Timer, name, fn, scheme, packed, scales, w_bf16, m,
         "library_ms": timer.ms(lambda: x @ w_bf16),
         "library": "torch.matmul(x bf16, dequantized W bf16)",
         "bound_ms": b, "bound_by": by}
+    if launch_name == "packed_gemv":
+        case["splits"] = gemv_plan(m, k, n, scheme)[1]
     log(json.dumps(case))
     require(ok, f"{name} {scheme.name} M={m} K={k} N={n}: max |err| {err}")
     require(launched == 1, f"{name} {scheme.name} M={m} K={k} N={n}: "
@@ -281,22 +335,34 @@ def leaf_matmul(x, packed, scales, scheme):
                                 out_dtype=torch.float32)
 
 
+def packed_leaf_cases(timer: Timer, gen, dev, scheme_name, k, n,
+                      gemv_rows=GEMV_ROWS, matmul_rows=MATMUL_ROWS):
+    """K1 at ``gemv_rows`` and K2 at ``matmul_rows`` on one leaf."""
+    scheme, packed, scales = make_packed_weights(scheme_name, k, n, gen, dev)
+    w_bf16 = dequantize(scheme, packed, scales, (k, n)).to(torch.bfloat16)
+    cases = []
+    for kind, fn, ms_list in (("packed_gemv", packed_gemv, gemv_rows),
+                              ("packed_matmul", packed_matmul, matmul_rows)):
+        for m in ms_list:
+            cases.append(packed_case(timer, kind, fn, scheme, packed, scales,
+                                     w_bf16, m, gen, dev, kind))
+    del packed, scales, w_bf16
+    torch.cuda.empty_cache()
+    return cases
+
+
 def kernel_phase(timer: Timer, gen, dev, chunk: int):
     cases = []
     for scheme_name in SCHEMES:
         for k, n in LINEAR_SHAPES:
-            scheme, packed, scales = make_packed_weights(
-                scheme_name, k, n, gen, dev)
-            w_bf16 = dequantize(scheme, packed, scales, (k, n)).to(
-                torch.bfloat16)
-            for kind, fn, ms_list in (
-                    ("packed_gemv", packed_gemv, GEMV_ROWS),
-                    ("packed_matmul", packed_matmul, MATMUL_ROWS)):
-                for m in ms_list:
-                    cases.append(packed_case(timer, kind, fn, scheme, packed,
-                                             scales, w_bf16, m, gen, dev,
-                                             kind))
-            del packed, scales, w_bf16
+            cases += packed_leaf_cases(timer, gen, dev, scheme_name, k, n)
+    for k, n in STARCODER2_SHAPES:
+        cases += packed_leaf_cases(timer, gen, dev, "mxfp4", k, n)
+    for k, n in STARCODER2_SHAPES[:2]:
+        cases += packed_leaf_cases(timer, gen, dev, "fp8", k, n)
+    # past 32 splits: the x-slice cap of a K1 block at K = 73728
+    cases += packed_leaf_cases(timer, gen, dev, "mxfp4", *NEMOTRON_DOWN,
+                               gemv_rows=(8,), matmul_rows=())
     # K2 beyond the served shapes: a ragged N edge, and decode leaves the
     # GEMV does not take (N % 4 != 0), which the dispatch routes to K2
     for scheme_name, m, n in RAGGED_LEAVES:
@@ -572,6 +638,80 @@ def vdsp_cases(timer, gen, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the weight quantizer on the card against the CPU
+# ---------------------------------------------------------------------------
+def near_pow2_leaf(k: int, gen, dev, reach: int = 16):
+    """f32 weights [K, n] whose every 32-group of column c has absmax
+    a_c (one entry +-a_c, the rest inside), the a_c every f32 within
+    ``reach`` ulps of 3 * 2^m for each m that keeps a_c finite and above
+    the 1e-12 floor: a_c / 6 lies on, just below or just above 2^(m-1)."""
+    m = torch.arange(-41, 127, dtype=torch.float64)
+    centre = (3.0 * torch.exp2(m)).to(torch.float32).view(torch.int32)
+    bits = (centre[:, None] + torch.arange(-reach, reach + 1)[None, :]).to(
+        torch.int32)
+    a = bits.flatten().view(torch.float32)
+    a = a[torch.isfinite(a) & (a >= 1e-12)].to(dev)
+    n, groups = a.numel(), k // 32
+    w = (torch.rand((k, n), generator=gen, device=dev) * 2 - 1) * 0.999 * a
+    rows = torch.randint(0, 32, (groups, 1, n), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (groups, 1, n), generator=gen,
+                         device=dev) * 2 - 1
+    w.view(groups, 32, n).scatter_(1, rows, (a * sign).expand(groups, 1, n))
+    return w
+
+
+def quantizer_phase(gen, dev):
+    """``quantize_weights`` for mxfp4 and fp8 on the card and on the CPU
+    from the same f32 weights: int32 words and f32 scales bit for bit."""
+    k, n = STARCODER2_SHAPES[2]
+    leaves = {"starcoder2_w_in": torch.randn((k, n), generator=gen,
+                                             device=dev) / k ** 0.5,
+              "near_pow2_absmax": near_pow2_leaf(k, gen, dev)}
+    cases = []
+    for leaf, w in leaves.items():
+        w_cpu = w.cpu()
+        for scheme_name in ("mxfp4", "fp8"):
+            scheme = get_scheme(scheme_name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packed, scales = quantize_weights(scheme, w)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want_p, want_s = quantize_weights(scheme, w_cpu)
+            cpu_s = time.perf_counter() - t0
+            got_p, got_s = packed.cpu(), scales.cpu()
+            case = {"quantizer": scheme_name, "leaf": leaf,
+                    "k": w.shape[0], "n": w.shape[1],
+                    "words_equal": bool(torch.equal(got_p, want_p)),
+                    "scales_equal": bool(torch.equal(got_s, want_s)),
+                    "words_differing": int((got_p != want_p).sum()),
+                    "scales_differing": int((got_s != want_s).sum()),
+                    "card_s": card_s, "cpu_s": cpu_s}
+            if scheme.scale_pow2:
+                # groups whose scale the f32 log2 keeps one exponent below
+                # the exact ceil(log2(absmax / 6))
+                q = w_cpu.abs().reshape(k // 32, 32, -1).amax(1).clamp(
+                    min=1e-12) / torch.tensor(6.0)
+                exact = torch.exp2(torch.ceil(torch.log2(q.double())))
+                case["groups_below_exact_exponent"] = int(
+                    (pow2_scale(q).double() != exact).sum())
+            log(json.dumps(case))
+            require(case["words_equal"] and case["scales_equal"],
+                    f"quantize_weights {scheme_name} on {leaf}: "
+                    f"{case['words_differing']} words and "
+                    f"{case['scales_differing']} scales differ from the CPU")
+            cases.append(case)
+            del packed, scales
+    require(any(c.get("groups_below_exact_exponent", 0) > 0 for c in cases),
+            "the near-power-of-two leaf has no group whose f32 log2 rounds "
+            "below the exact exponent")
+    del leaves
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the MAC datapath through K6
 # ---------------------------------------------------------------------------
 def special_codes(fmt, bits):
@@ -698,40 +838,40 @@ def datapath_phase(gen, dev, seed=3):
 # ---------------------------------------------------------------------------
 # Phase 4: the model through the kernels and through the plain versions
 # ---------------------------------------------------------------------------
-def model_phase(cfg, params, dev, chunk: int, rows=8, steps=4, seed=1,
-                witness=None):
+def model_phase(path, cfg, params, dev, chunk: int, tiers=("bf16", "int8"),
+                rows=8, steps=4, seed=1, witness=None):
     """Teacher-forced through the kernels, then through the plain versions
     fed the kernel run's ids; held to ``logit_check`` (why that bound:
-    ``launch/logit_spread.py`` and PERF.md).  ``witness`` names a
+    ``launch/logit_spread.py`` and PERF.md), at each KV tier of ``tiers``.
+    Where the kernels miss the bound, ``witness`` names the
     ``logit_spread`` variant (plain math in the kernels' summation order,
     no kernel) whose spread from the plain run is recorded beside the
-    kernels'; where the kernels miss the bound, ``witness_check`` decides."""
+    kernels', and ``witness_check`` decides."""
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(1, cfg.vocab, (rows, chunk)),
                               device=dev)
     out = {}
-    for tier in ("bf16", "int8"):
+    for tier in tiers:
         got, ids = LS.teacher_forced(cfg, params, prompts, steps, kv=tier,
                                      plain=False)
         want, _ = LS.teacher_forced(cfg, params, prompts, steps, kv=tier,
                                     plain=True, feed=ids)
         out[tier] = res = LS.logit_check(got, want)
-        if witness is not None:
+        ok = res["logits_ok"]
+        if not ok and witness is not None:
             plain, replace = LS.RUNS[witness]
             with LS.plain_ops(replace):
                 wit, _ = LS.teacher_forced(cfg, params, prompts, steps,
                                            kv=tier, plain=plain, feed=ids)
             res["witness"] = {"variant": witness, **LS.logit_check(wit, want)}
-        log(json.dumps({"model_phase": cfg.name, "kv": tier, **res}))
-        require(res["finite"], f"{cfg.name}: non-finite logits ({tier})")
-        ok = res["logits_ok"]
-        if not ok and witness is not None:
             ok = res["witness_rule_ok"] = LS.witness_check(res,
                                                            res["witness"])
-        require(ok, f"{cfg.name}: model logits kernel vs plain ({tier}): "
+        log(json.dumps({"model_phase": path, "kv": tier, **res}))
+        require(res["finite"], f"{path}: non-finite logits ({tier})")
+        require(ok, f"{path}: model logits kernel vs plain ({tier}): "
                     f"max diff {res['max_abs_logit_diff']}")
         require(res["greedy_agree"],
-                f"{cfg.name}: greedy tokens disagree ({tier})")
+                f"{path}: greedy tokens disagree ({tier})")
     return out
 
 
@@ -787,6 +927,7 @@ def serve_phase(cfg, params, chunk, dev):
     runs = [serve_tier(cfg, params, tier, prompts, new_tokens, chunk, dev)
             for tier in ("bf16", "int8")]
     launches = ops.launch_counts()
+    formats = ops.format_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     plan = PrecisionPolicy().resolved_plan(cfg)
     n_w8a8 = sum(s == "w8a8" for s in plan.values())
@@ -819,25 +960,29 @@ def serve_phase(cfg, params, chunk, dev):
                         f"request {r.id} ({rep['kv']}) differs from its "
                         "solo run")
         reports.append(rep)
-    log(json.dumps({"serve_launches": launches, "arch": cfg.name}))
-    check_path_launches(cfg.name, launches)
+    log(json.dumps({"serve_launches": launches, "by_format": formats,
+                    "arch": cfg.name}))
+    check_path_launches(cfg.name, launches, formats)
     # every W8A8 leaf call of every forward (prefill chunk or decode step)
     # went through the int8 kernel
     want = n_w8a8 * cfg.n_layers * forwards
     require(launches["w8a8_matmul"] == want,
             f"{cfg.name}: {launches['w8a8_matmul']} int8 kernel launches, "
             f"{want} W8A8 leaf calls")
-    return reports, launches
+    return reports, launches, formats
 
 
-def check_path_launches(path: str, launches) -> None:
-    """Every kernel of ``path`` launched in its run, and no other."""
+def check_path_launches(path: str, launches, formats=None) -> None:
+    """Every kernel of ``path`` launched in its run, and no other; and on
+    every weight / KV format ``PATH_FORMATS`` names for it."""
     for name in KERNELS:
         if name in PATH_KERNELS[path]:
             require(launches[name] > 0, f"{path}: {name} was not launched")
         else:
             require(launches[name] == 0,
                     f"{path}: {name} ran on a path it is not on")
+    for key in PATH_FORMATS.get(path, ()):
+        require(formats.get(key, 0) > 0, f"{path}: no {key} launch")
 
 
 # ---------------------------------------------------------------------------
@@ -867,6 +1012,9 @@ def main() -> None:
     log(json.dumps({"kernel_phase_s": time.perf_counter() - t0}))
     del timer
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result["quantizer"] = quantizer_phase(gen, dev)
+    log(json.dumps({"quantizer_phase_s": time.perf_counter() - t0}))
 
     # the MAC datapath: launch counts set to 0 just before, read just after
     t0 = time.perf_counter()
@@ -888,25 +1036,43 @@ def main() -> None:
     got = launches_by_path["xtramac-datapath"]["virtual_dsp_multiply"]
     require(got == want, f"datapath: {got} K6 launches, {want} xtramac_packed "
                          "calls and pipeline issues")
-    for arch, witness in (("granite-8b", None),
-                          ("minitron-8b", "plain_splitkv")):
+    for path, arch, layers, weights, tiers, witness, serves in MODEL_RUNS:
         cfg = get_config(arch)
+        if layers is not None:      # full width, cut depth
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        plan = PrecisionPolicy(weights=weights).validate_for(cfg) \
+            .resolved_plan(cfg)
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
-            params = T.build_params(cfg, QuantMaker(0, device=dev))
+            params = T.build_params(cfg, QuantMaker(0, device=dev, plan=plan))
         torch.cuda.synchronize()
-        log(json.dumps({"arch": arch,
+        log(json.dumps({"path": path, "layers": cfg.n_layers,
                         "build_params_s": time.perf_counter() - t0,
                         "param_bytes": sum(nbytes(b)
-                                           for b in params.buffers())}))
+                                           for b in params.buffers()),
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated()}))
         t0 = time.perf_counter()
-        model = model_phase(cfg, params, dev, chunk, witness=witness)
-        serve, launches_by_path[arch] = serve_phase(cfg, params, chunk, dev)
-        result[arch] = {"model": model, "serve": serve,
-                        "launches": launches_by_path[arch],
-                        "model_and_serve_s": time.perf_counter() - t0}
-        log(json.dumps({"arch": arch, "model_and_serve_s":
-                        result[arch]["model_and_serve_s"]}))
+        if not serves:              # this path's run is its model phase
+            ops.reset_launch_counts()
+        model = model_phase(path, cfg, params, dev, chunk, tiers=tiers,
+                            witness=witness)
+        result[path] = {"layers": cfg.n_layers, "policy_weights": weights,
+                        "model": model}
+        if serves:
+            serve, launches, formats = serve_phase(cfg, params, chunk, dev)
+            result[path]["serve"] = serve
+        else:
+            launches = ops.launch_counts()
+            formats = ops.format_launch_counts()
+            log(json.dumps({"model_launches": launches, "by_format": formats,
+                            "path": path}))
+            check_path_launches(path, launches, formats)
+        launches_by_path[path] = launches
+        result[path].update(launches=launches, launches_by_format=formats,
+                            seconds=time.perf_counter() - t0)
+        log(json.dumps({"path": path, "model_and_serve_s":
+                        result[path]["seconds"]}))
         del params                  # free the card for the next model
         torch.cuda.empty_cache()
 

@@ -40,6 +40,8 @@ class ModelConfig:
 _ARCH_MODULES: Dict[str, str] = {
     "granite-8b": "granite_8b",
     "minitron-8b": "minitron_8b",
+    "starcoder2-15b": "starcoder2_15b",
+    "nemotron-4-340b": "nemotron_4_340b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

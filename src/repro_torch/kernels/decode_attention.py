@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Dict
 
 import torch
@@ -33,6 +34,8 @@ from . import build
 
 launches: Dict[str, int] = {"decode_attention_bf16": 0,
                             "decode_attention_quant": 0}
+# the same launches by (wrapper, KV format)
+format_launches: Counter = Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"decode_attention": [_P] * 10 + [_I] * 7
@@ -160,5 +163,7 @@ def gqa_decode_attention(q: torch.Tensor, k_cache, v_cache,
             chunk, query_scale(dh),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, "decode_attention", err)
-    launches["decode_attention_quant" if quant else "decode_attention_bf16"] += 1
+    name = "decode_attention_quant" if quant else "decode_attention_bf16"
+    launches[name] += 1
+    format_launches[name, k_cache.scheme_name if quant else "bf16"] += 1
     return out

@@ -82,7 +82,17 @@ def launch_counts() -> Dict[str, int]:
     return {**_pm.launches, **_w8.launches, **_da.launches, **_xm.launches}
 
 
+def format_launch_counts() -> Dict[str, int]:
+    """K1 / K2 launches by weight format and K3 / K4 launches by KV format
+    since the last reset, keyed "wrapper:format"."""
+    return {f"{name}:{fmt}": n for counts in (_pm.format_launches,
+                                             _da.format_launches)
+            for (name, fmt), n in counts.items()}
+
+
 def reset_launch_counts() -> None:
     for counts in (_pm.launches, _w8.launches, _da.launches, _xm.launches):
         for name in counts:
             counts[name] = 0
+    _pm.format_launches.clear()
+    _da.format_launches.clear()

@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections import Counter
 from typing import Dict, Tuple
 
 import torch
@@ -37,6 +38,8 @@ from repro_torch.quant.schemes import (PACKED_FORMAT_IDS, QuantScheme,
 from . import build, scratch
 
 launches: Dict[str, int] = {"packed_gemv": 0, "packed_matmul": 0}
+# the same launches by (wrapper, weight format): which leaves a path ran on
+format_launches: Counter = Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -51,7 +54,9 @@ _GV_STAGE_WORDS = 16      # word rows per GEMV ring stage (4 units of 4)
 _GV_RING_BYTES = 3 * 16 * 544 + 3 * 4 * 512
 _GV_X_ELEMS = 11776       # M x K of x a GEMV block stages (23 KB of bf16)
 _GV_BLOCKS = 4 * 132      # four GEMV blocks share an SM: one resident wave
-_GV_MAX_SPLITS = 32       # partials the last block of a column tile sums
+_GV_MAX_SPLITS = 32       # splits the plan aims at most for (the x-slice
+                          # cap may force more; the last block's tail sums
+                          # any number in order)
 # K1's dynamic shared memory, at most (csrc: kGvMaxSmem)
 _GV_MAX_SMEM = _GV_RING_BYTES + 2 * (_GV_X_ELEMS + GEMV_MAX_M * 32)
 _MM_BK = 128              # matmul K per pipeline stage
@@ -147,10 +152,12 @@ def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme) -> Tuple[int, int]:
     """(k_per_split, splits) for K1: K cut into splits of whole ring stages
     (128 K for 4-bit codes, 64 for fp8) and whole scale groups, as many as
     keep the grid of 128-column tiles within one resident wave of four
-    blocks per SM (528) and at most 32 splits (their ordered sum is the
-    last block's tail), with each block's staged slice of x (M x
-    k_per_split bf16) within 23 KB so that four blocks fit an SM's shared
-    memory.  The splits are summed in order 0, 1, ...
+    blocks per SM (528) and at most 32 splits, with each block's staged
+    slice of x (M x k_per_split bf16) within 23 KB so that four blocks fit
+    an SM's shared memory.  Where that x-slice cap leaves more than 32
+    splits, it wins: nemotron-4-340b's 73728 x 18432 leaf at M = 8 runs 53
+    splits (more than one wave of blocks).  The last block of a column
+    tile sums however many splits there are, in order 0, 1, ...
     (``packed_gemv_grouped``)."""
     per = codes_per_word(scheme.weight_bits)
     group = effective_group(scheme.group_size, k)
@@ -294,6 +301,7 @@ def packed_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
             stream)
     build.check(lib, "packed_gemv", err)
     launches["packed_gemv"] += 1
+    format_launches["packed_gemv", scheme.weight_format] += 1
     return out
 
 
@@ -355,4 +363,5 @@ def packed_matmul(x: torch.Tensor, packed: torch.Tensor,
             splits, vec, torch.cuda.current_stream().cuda_stream)
     build.check(lib, "packed_matmul", err)
     launches["packed_matmul"] += 1
+    format_launches["packed_matmul", scheme.weight_format] += 1
     return out

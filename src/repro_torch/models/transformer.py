@@ -37,11 +37,12 @@ def attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
 def check_supported(cfg: ModelConfig) -> None:
     ffn = (cfg.gated_ffn, cfg.activation)
     if (cfg.family != "dense" or cfg.norm != "rms" or cfg.tie_embeddings
-            or ffn not in ((True, "silu"), (False, "relu2"))):
+            or ffn not in ((True, "silu"), (False, "relu2"),
+                           (False, "gelu"))):
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family with RMS norm, a "
-            "gated SiLU or non-gated squared-ReLU FFN and an untied lm_head "
-            "so far")
+            "gated SiLU or non-gated squared-ReLU / GELU FFN and an untied "
+            "lm_head so far")
 
 
 class Block(nn.Module):

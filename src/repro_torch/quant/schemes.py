@@ -9,8 +9,8 @@ the E4M3 NaN code read as 0 — the same values as the reference's
 ``decode_codes_arith``.  w8a8 keeps raw int8 codes ``[K, N]`` (not packed
 into words) with per-channel scales ``[1, N]``, and quantizes activations
 per tensor (``quantize_activations_int8``).  ``quantize_weights`` covers
-the int schemes in torch, so full-width weights are quantized on the
-device.
+every quantized scheme (the float codes through ``core.formats``, as the
+reference builds them), so full-width weights are quantized on the device.
 
 KV cache: ``kv_quantize`` packs one absmax-scaled 8-bit code per channel, 4
 codes per int32 word along ``d_head``, with one f32 scale per (position,
@@ -24,6 +24,8 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+
+from repro_torch.core import formats as F
 
 from .pack import codes_per_word, pack_codes, to_int32_words, unpack_codes
 
@@ -129,8 +131,14 @@ def dequantize(scheme: QuantScheme, packed: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Weight and activation quantization (int schemes; runs on any device)
+# Weight and activation quantization (runs on any device)
 # ---------------------------------------------------------------------------
+# elements of one column block the weight quantizer works on at a time: the
+# float formats pass through float64 (``core.formats.quantize_f64``), so
+# each of its temporaries stays within 512 MB whatever the leaf's size
+QUANT_BLOCK_ELEMS = 1 << 26
+
+
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d as an f32 division on x's device.  (A Python-number divisor
     would make CUDA multiply by its rounded reciprocal instead, which can
@@ -138,32 +146,66 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / x.new_full((), d)
 
 
-def quantize_weights(scheme: QuantScheme, w: torch.Tensor):
-    """Float weights [K, N] -> (codes, scales f32 [K/G, N]).
+def pow2_scale(q: torch.Tensor) -> torch.Tensor:
+    """UE8M0 scales 2^ceil(log2(q)) of f32 ``q`` > 0, with the exponent as
+    the reference's f32 ``log2`` gives it: log2 in f64 rounded once to f32,
+    so that just above a power of two 2^k it rounds to k and the scale
+    stays 2^k (an exact exponent would give 2^(k+1)); then the power of two
+    from its bits, exact on every device."""
+    e = torch.ceil(torch.log2(q.to(torch.float64)).to(torch.float32))
+    return F.exp2i(e).to(torch.float32)
 
-    Symmetric absmax per (group, column): scale = absmax / qmax, codes =
-    clip(round_half_even(w / scale)) in two's complement — the same f32
-    arithmetic as the reference's numpy quantizer.  The packed int schemes
-    return int32 words [K/per, N]; w8a8 returns raw int8 codes [K, N] with
-    per-channel scales [1, N]."""
-    if not scheme.weight_format.startswith("int"):
-        raise NotImplementedError(
-            f"torch quantize_weights covers the int schemes, not "
-            f"{scheme.name!r}")
+
+def _quantize_block(scheme: QuantScheme, w: torch.Tensor, g: int):
+    """f32 weights [K, n] (a column block) -> (codes int64 [K, n], f32
+    scales [K/G, n])."""
+    k, n = w.shape
+    wg = w.reshape(k // g, g, n)
+    absmax = torch.clamp(wg.abs().amax(dim=1), min=1e-12)     # [K/G, n]
+    if scheme.weight_format.startswith("int"):
+        qmax = (1 << (scheme.weight_bits - 1)) - 1
+        scales = _div(absmax, qmax)
+        q = torch.round(wg / scales[:, None, :]).clamp(-qmax - 1, qmax)
+        return q.reshape(k, n).to(torch.int64), scales
+    fmt = F.get_format(scheme.weight_format)
+    scales = _div(absmax, fmt.max_finite)
+    if scheme.scale_pow2:
+        scales = pow2_scale(scales)
+    scaled = (wg / scales[:, None, :]).reshape(k, n).to(torch.float64)
+    return F.quantize_f64(fmt, scaled), scales
+
+
+def quantize_weights(scheme: QuantScheme, w: torch.Tensor):
+    """Float weights [K, N] -> (codes, scales f32 [K/G, N]), bit for bit the
+    reference's numpy quantizer, on w's device.
+
+    Scales per (group, column) from absmax = max(|w| over the group,
+    1e-12), in f32: int schemes absmax / qmax, codes = clip(round_half_even(
+    w / scale)) in two's complement; fp8 absmax / 448 per channel; mxfp4
+    2^ceil(log2(absmax / 6)) per 32-group (``pow2_scale``).  Float codes
+    are ``core.formats.quantize_f64`` of the f32 quotient w / scale (RN-even,
+    FTZ, saturating).  The packed schemes return int32 words [K/per, N];
+    w8a8 returns raw int8 codes [K, N] with per-channel scales [1, N].
+    Columns are quantized in blocks of at most ``QUANT_BLOCK_ELEMS``."""
+    if scheme.name == "bf16":
+        raise ValueError("bf16 weights are not quantized")
     w = w.to(torch.float32)
     k, n = w.shape
     g = effective_group(scheme.group_size, k)
     if k % g or (scheme.packed and k % codes_per_word(scheme.weight_bits)):
         raise ValueError(f"K={k} does not tile scheme {scheme.name!r}")
-    wg = w.reshape(k // g, g, n)
-    absmax = torch.clamp(wg.abs().amax(dim=1), min=1e-12)     # [K/G, N]
-    qmax = (1 << (scheme.weight_bits - 1)) - 1
-    scales = _div(absmax, qmax)
-    q = torch.round(wg / scales[:, None, :]).clamp(-qmax - 1, qmax)
-    if not scheme.packed:                   # w8a8: raw int8 codes [K, N]
-        return q.reshape(k, n).to(torch.int8), scales
-    codes = (q.to(torch.int64) & ((1 << scheme.weight_bits) - 1)).reshape(k, n)
-    return pack_codes(codes, scheme.weight_bits), scales
+    rows = k // codes_per_word(scheme.weight_bits) if scheme.packed else k
+    codes = torch.empty((rows, n), device=w.device,
+                        dtype=torch.int32 if scheme.packed else torch.int8)
+    scales = torch.empty((k // g, n), dtype=torch.float32, device=w.device)
+    step = max(1, QUANT_BLOCK_ELEMS // k)
+    for c0 in range(0, n, step):
+        c1 = min(n, c0 + step)
+        q, scales[:, c0:c1] = _quantize_block(scheme, w[:, c0:c1], g)
+        codes[:, c0:c1] = (pack_codes(q & ((1 << scheme.weight_bits) - 1),
+                                      scheme.weight_bits)
+                           if scheme.packed else q)
+    return codes, scales
 
 
 def quantize_activations_int8(x: torch.Tensor):

@@ -193,6 +193,34 @@ def test_gemv_grouped_sums_splits_in_fixed_order(scheme):
     assert torch.equal(got, PM.packed_gemv_grouped(x, packed, scales, sch))
 
 
+@pytest.mark.parametrize("scheme,splits", [("mxfp4", 53), ("fp8", 51)])
+@pytest.mark.parametrize("n", [128, 18432])
+def test_gemv_plan_lets_the_x_slice_cap_pass_32_splits(scheme, splits, n):
+    """nemotron-4-340b's down projection (K = 73728) at M = 8: the 23 KB
+    x slice of a block caps a split at 1408 (fp8: 1472) rows of K, so the
+    plan runs more than 32 splits, still whole stages and groups that
+    cover K, with four blocks' shared memory within an SM."""
+    sch = S.get_scheme(scheme)
+    kps, got = PM.gemv_plan(8, 73728, n, sch)
+    assert got == splits > 32
+    assert 8 * kps <= 11776 and (splits - 1) * kps < 73728 <= splits * kps
+    assert kps % (128 if sch.weight_bits == 4 else 64) == 0
+    assert 4 * (PM.gemv_smem_bytes(8, kps, sch) + 1024 + 128) <= 228 * 1024
+
+
+@pytest.mark.parametrize("scheme", ["mxfp4", "fp8"])
+def test_gemv_grouped_sums_53_splits_like_the_reference(scheme):
+    """K1's association and order over the 53 (fp8: 51) splits of
+    K = 73728 against the reference's jnp oracle, at N = 128."""
+    m, k, n = 8, 73728, 128
+    qw = _weights(scheme, k, n)
+    x = RNG.normal(size=(m, k)).astype(np.float32)
+    want = np.asarray(ref.packed_matmul_ref(jnp.asarray(x, jnp.bfloat16), qw))
+    got = PM.packed_gemv_grouped(_bf16(x), _t(qw.packed), _t(qw.scales),
+                                 S.get_scheme(scheme)).numpy()
+    np.testing.assert_allclose(got, want, **MM_TOL)
+
+
 @pytest.mark.parametrize("fn", [PM.packed_gemv, PM.packed_matmul])
 def test_packed_wrappers_raise_on_devices_without_a_kernel(fn):
     scheme = S.get_scheme("awq_int4")
@@ -813,6 +841,28 @@ def test_gemv_kernel_matches_plain_on_card_at_every_m(cuda_device, scheme, m):
     torch.testing.assert_close(got, want, **MM_TOL)
     torch.testing.assert_close(got, twin, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["mxfp4", "fp8"])
+@pytest.mark.parametrize("n", [128, 1024])
+def test_gemv_kernel_past_32_splits_on_card(cuda_device, scheme, n):
+    """K1 at K = 73728, M = 8 (53 splits, fp8 51, more than one wave of
+    blocks for N = 1024): one launch, within the matmul tolerance of the
+    plain version and close to its twin."""
+    qw = _weights(scheme, 73728, n)
+    x = _bf16(RNG.normal(size=(8, 73728))).to(cuda_device)
+    packed, scales = _t(qw.packed).to(cuda_device), _t(qw.scales).to(cuda_device)
+    sch = S.get_scheme(scheme)
+    assert PM.gemv_plan(8, 73728, n, sch)[1] > 32
+    before = ops.launch_counts()["packed_gemv"]
+    got = PM.packed_gemv(x, packed, scales, sch)
+    assert ops.launch_counts()["packed_gemv"] == before + 1
+    want = PM.packed_matmul_plain(x, packed, scales, sch)
+    twin = PM.packed_gemv_grouped(x, packed, scales, sch)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **MM_TOL)
+    torch.testing.assert_close(got, twin, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

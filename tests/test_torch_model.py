@@ -15,6 +15,7 @@ from repro.kernels.ops import declare_execution
 from repro.models import attention as RA
 from repro.models import common as RC
 from repro.models import transformer as RT
+from repro.quant.policy import PrecisionPolicy as RPolicy
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.configs import get_config as port_config
 from repro_torch.launch import logit_spread as LS
@@ -96,9 +97,12 @@ def _reference_r9_ops():
             setattr(torch, name, fn)
 
 
-def _smoke_models(arch):
+def _smoke_models(arch, weights=()):
     cfg = get_config(arch, smoke=True)
-    params = RT.build_params(cfg, RC.QuantMaker(jax.random.PRNGKey(0)))
+    plan = RPolicy(weights=weights).validate_for(cfg).resolved_plan(cfg) \
+        if weights else None
+    params = RT.build_params(cfg, RC.QuantMaker(jax.random.PRNGKey(0),
+                                                plan=plan))
     tree = jax.tree_util.tree_map(np.asarray, params)
     pcfg = port_config(arch, smoke=True)
     return cfg, params, tree, pcfg, params_from_numpy(pcfg, tree,
@@ -113,6 +117,7 @@ def smoke():
 @pytest.fixture(scope="module")
 def minitron():
     return _smoke_models("minitron-8b")
+
 
 
 def test_bridge_round_trip_keeps_words_and_bits(smoke):
@@ -282,10 +287,10 @@ def test_jitted_reference_parts_from_its_op_by_op_run_under_w8a8(minitron):
     np.testing.assert_array_equal(_f32(got), eager)
 
 
-def _forward_vs_reference(models, tier, seed, eager=False):
+def _forward_vs_reference(models, tier, seed, eager=False, moved=R9_MOVED):
     """Prefill then decode, port against reference; ``eager`` runs the
     reference op by op and holds the prefill logits bit for bit: the
-    port's own except where R9_MOVED says, and the port's on XLA's R9 ops
+    port's own except where ``moved`` says, and the port's on XLA's R9 ops
     everywhere."""
     cfg, params, _, pcfg, port = models
     declare_execution(kernel="pallas")
@@ -309,7 +314,7 @@ def _forward_vs_reference(models, tier, seed, eager=False):
         np.testing.assert_allclose(_f32(got), _f32(want), **LOGIT_TOL)
         if eager:
             _assert_moved_only_by_r9(_f32(got), _f32(want),
-                                     *R9_MOVED.get((seed, tier, r), (0, 0)))
+                                     *moved.get((seed, tier, r), (0, 0)))
             with _reference_r9_ops():
                 exact = T.forward(
                     pcfg, port, torch.from_numpy(tokens[r:r + 1]).long(),

@@ -258,7 +258,8 @@ def test_quantize_activations_int8_exact(kind, dtype):
         assert codes.min() == -127
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "minitron-8b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "minitron-8b",
+                                  "starcoder2-15b", "nemotron-4-340b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_port_config_copies_the_reference_field_for_field(arch, smoke):
     ref, port = get_config(arch, smoke=smoke), port_config(arch, smoke=smoke)
@@ -279,3 +280,143 @@ def test_policy_resolves_like_reference_on_the_non_gated_ffn():
     got = PrecisionPolicy(weights=weights, kv="int8").validate_for(pcfg)
     assert got.resolved_plan(pcfg) == want.resolved_plan(cfg)
     assert got.resolved_plan(pcfg)["ffn.w_in"] == "w8a8"
+
+
+# ---------------------------------------------------------------------------
+# mxfp4 / fp8: float codes with power-of-two or per-channel scales
+# ---------------------------------------------------------------------------
+def _float_weights(k, n, seed):
+    """Normal weights with an all-zero column (the 1e-12 absmax floor) and a
+    column of tiny values next to one large one (codes that flush to 0)."""
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    w[:, 0] = 0.0
+    w[:, 1] = rng.normal(size=k).astype(np.float32) * 1e-9
+    w[0, 1] = 3.0
+    return w
+
+
+def _near_pow2_absmax(reach=512):
+    """Every f32 within ``reach`` ulps of 3 * 2^m for each m that keeps
+    absmax at or above the 1e-12 floor and finite: absmax / 6 then lies
+    just below, on, or just above each power of two 2^(m-1) it can reach."""
+    m = np.arange(-41, 127)
+    centre = (3.0 * np.ldexp(1.0, m)).astype(np.float32).view(np.int32)
+    bits = centre[:, None] + np.arange(-reach, reach + 1)[None, :]
+    a = bits.astype(np.int32).view(np.float32).ravel()
+    return a[np.isfinite(a) & (a >= np.float32(1e-12))]
+
+
+def _near_pow2_leaf(k, absmax, seed):
+    """[K, len(absmax)] f32 weights whose every 32-group of column c has
+    absmax exactly ``absmax[c]`` (one entry +-absmax, the rest inside)."""
+    rng = np.random.default_rng(seed)
+    n = absmax.size
+    w = (rng.uniform(-0.999, 0.999, size=(k, n)) * absmax).astype(np.float32)
+    for g0 in range(0, k, 32):
+        rows = g0 + rng.integers(0, min(32, k - g0), n)
+        w[rows, np.arange(n)] = absmax * rng.choice([-1, 1], n)
+    return w
+
+
+def _assert_quantized_like_reference(name, w):
+    want = RS.quantize_weights(RS.get_scheme(name), w)
+    packed, scales = S.quantize_weights(S.get_scheme(name), _t(w))
+    assert packed.dtype == torch.int32 and scales.dtype == torch.float32
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(want.packed))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want.scales))
+    return packed, scales
+
+
+@pytest.mark.parametrize("scheme", ["mxfp4", "fp8"])
+@pytest.mark.parametrize("k,n", [(64, 32), (256, 48), (512, 16), (8, 12),
+                                 (16, 5), (96, 7)])
+def test_quantize_weights_float_schemes_exact(scheme, k, n):
+    """Words and scales bit for bit, K a multiple of 32 and K < 32 (one
+    group of K), with an all-zero column and tiny values beside a large one."""
+    w = _float_weights(k, n, seed=k + n)
+    packed, scales = _assert_quantized_like_reference(scheme, w)
+    g = S.effective_group(S.get_scheme(scheme).group_size, k)
+    assert tuple(scales.shape) == (k // g, n)
+    assert not S.unpack_codes(packed, S.get_scheme(scheme).weight_bits)[
+        :, 0].any()
+
+
+@pytest.mark.parametrize("scheme", ["mxfp4", "fp8"])
+def test_quantize_weights_absmax_near_powers_of_two_exact(scheme):
+    """Columns whose absmax / 6 lies on every f32 of a band around each
+    power of two it can reach (and absmax / 448 beside them): mxfp4's
+    exponent takes the reference's f32 log2 rounding there."""
+    a = _near_pow2_absmax()
+    _assert_quantized_like_reference(scheme, _near_pow2_leaf(64, a, seed=61))
+
+
+def test_pow2_scale_takes_the_reference_f32_log2_rounding():
+    """The exponent probe: x = 2^k (1 + j 2^-23), k in -30..9, j in 0..7.
+    The reference's f32 log2 rounds 98 of these 320 down to k, so their
+    scale stays 2^k where the exact ceil(log2) gives 2^(k+1); the port
+    gives the reference's scale on all 320, and on every f32 within 1024
+    ulps of each power of two from 2^-44 to 2^125."""
+    k, j = np.arange(-30, 10), np.arange(8)
+    x = (np.ldexp(1.0, k)[:, None] * (1 + j[None] * 2.0 ** -23)).astype(
+        np.float32).ravel()
+    want = np.exp2(np.ceil(np.log2(x)))
+    exact = np.exp2(np.ceil(np.log2(x.astype(np.float64))))
+    assert x.size == 320 and (want != exact).sum() == 98
+    np.testing.assert_array_equal(S.pow2_scale(_t(x)).numpy(), want)
+    centre = np.ldexp(1.0, np.arange(-44, 126)).astype(np.float32).view(
+        np.int32)
+    band = (centre[:, None] + np.arange(-1024, 1025)[None]).astype(
+        np.int32).view(np.float32).ravel()
+    np.testing.assert_array_equal(S.pow2_scale(_t(band)).numpy(),
+                                  np.exp2(np.ceil(np.log2(band))))
+
+
+@pytest.mark.parametrize("scheme", ["mxfp4", "fp8", "awq_int4", "w8a8"])
+def test_quantize_weights_in_column_blocks_equals_one_block(scheme,
+                                                            monkeypatch):
+    """Column blocks (here 3 columns of K = 256, the last one short) give
+    the words and scales of the whole leaf quantized at once."""
+    w = _float_weights(256, 11, seed=62)
+    whole = S.quantize_weights(S.get_scheme(scheme), _t(w))
+    monkeypatch.setattr(S, "QUANT_BLOCK_ELEMS", 3 * 256)
+    blocks = S.quantize_weights(S.get_scheme(scheme), _t(w))
+    for a, b in zip(whole, blocks):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["mxfp4", "fp8"])
+@pytest.mark.parametrize("k,n", [(6144, 6144), (6144, 512), (6144, 24576),
+                                 (24576, 6144)])
+def test_quantize_weights_on_card_equals_cpu(scheme, k, n):
+    """starcoder2-15b's leaf shapes quantized on the card, the first
+    columns with absmax near 3 * 2^m in every group: words and scales bit
+    for bit the CPU's (which the tests above hold to the reference)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w = torch.from_numpy(_float_weights(k, n, seed=k + n))
+    near = _near_pow2_absmax(reach=8)
+    near = near[::-(-near.size // min(n, 2048))]
+    w[:, :near.size] = _t(_near_pow2_leaf(k, near, seed=n))
+    got = S.quantize_weights(S.get_scheme(scheme), w.cuda())
+    want = S.quantize_weights(S.get_scheme(scheme), w)
+    for g, c in zip(got, want):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_policy_resolves_the_mixed_plan_like_reference_on_starcoder2():
+    """fp8 attention and mxfp4 FFN on starcoder2 (GELU, non-gated): every
+    leaf name resolves as in the reference, and the plan validates (K of
+    every leaf packs whole words and 32-groups)."""
+    cfg, pcfg = get_config("starcoder2-15b"), port_config("starcoder2-15b")
+    assert leaf_info(pcfg) == ref_leaf_info(cfg)
+    weights = (("attn.*", "fp8"), ("ffn.*", "mxfp4"))
+    want = RPolicy(weights=weights, kv="fp8").validate_for(cfg)
+    got = PrecisionPolicy(weights=weights, kv="fp8").validate_for(pcfg)
+    plan = got.resolved_plan(pcfg)
+    assert plan == want.resolved_plan(cfg)
+    assert {plan[n] for n in ("attn.wq", "attn.wk", "attn.wv", "attn.wo")} \
+        == {"fp8"}
+    assert plan["ffn.w_in"] == plan["ffn.w_out"] == "mxfp4"
+    assert plan["lm_head"] == "bf16"

@@ -15,6 +15,7 @@ All on the CPU (the kernels' plain versions); weights from the reference's
 seeded QuantMaker through the bridge.
 """
 import contextlib
+import functools
 import json
 
 import jax
@@ -40,9 +41,12 @@ TOL = 5e-2
 DECIDED_GAP = 0.1
 
 
-def _smoke_weights(arch):
+def _smoke_weights(arch, policy_weights=()):
     cfg = get_config(arch, smoke=True)
-    params = RT.build_params(cfg, RefQuantMaker(jax.random.PRNGKey(0)))
+    plan = RefPolicy(weights=policy_weights).validate_for(cfg) \
+        .resolved_plan(cfg) if policy_weights else None
+    params = RT.build_params(cfg, RefQuantMaker(jax.random.PRNGKey(0),
+                                                plan=plan))
     pcfg = port_config(arch, smoke=True)
     port = params_from_numpy(pcfg, jax.tree_util.tree_map(np.asarray, params),
                              device="cpu")
@@ -59,13 +63,14 @@ def minitron_weights():
     return _smoke_weights("minitron-8b")
 
 
-def _engine(weights, tier="bf16", **kw):
+def _engine(weights, tier="bf16", policy_weights=(), **kw):
     _, _, pcfg, port = weights
     kw.setdefault("max_len", 48)
     kw.setdefault("n_slots", 4)
     kw.setdefault("prefill_chunk", 8)
     return ServingEngine(pcfg, port, ServeConfig(
-        policy=PrecisionPolicy(kv=tier), device="cpu", **kw))
+        policy=PrecisionPolicy(weights=policy_weights, kv=tier),
+        device="cpu", **kw))
 
 
 def _prompts(vocab, lens, seed):
@@ -73,13 +78,64 @@ def _prompts(vocab, lens, seed):
     return [rng.integers(1, vocab, (n,)).astype(np.int32) for n in lens]
 
 
-def _ref_engine(weights, tier, **kw):
+def _ref_engine(weights, tier, policy_weights=(), **kw):
     cfg, params, _, _ = weights
     kw.setdefault("max_len", 32)
     kw.setdefault("n_slots", 4)
     kw.setdefault("prefill_chunk", 8)
     return RefEngine(cfg, params, RefServeConfig(
-        policy=RefPolicy(kv=tier, kernel="pallas"), **kw))
+        policy=RefPolicy(weights=policy_weights, kv=tier, kernel="pallas"),
+        **kw))
+
+
+# the smoke models of the float packed schemes, by test id: (arch, policy
+# weights); "mixed" is starcoder2 with fp8 attention and mxfp4 FFN
+FLOAT_PACKED = {"starcoder2-15b": ("starcoder2-15b", ()),
+                "nemotron-4-340b": ("nemotron-4-340b", ()),
+                "mixed": ("starcoder2-15b", (("attn.*", "fp8"),
+                                             ("ffn.*", "mxfp4")))}
+
+
+@functools.lru_cache(maxsize=None)
+def _float_packed_weights(case):
+    return _smoke_weights(*FLOAT_PACKED[case])
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("case", list(FLOAT_PACKED))
+def test_teacher_forced_logits_match_reference_engine_on_float_packed(
+        case, tier):
+    """starcoder2-smoke (mxfp4, GELU), nemotron-smoke (mxfp4, squared
+    ReLU) and starcoder2-smoke under fp8 attention / mxfp4 FFN, against
+    the reference engine; with fp8 KV run op by op (``jax.disable_jit``):
+    under ``jit`` XLA keeps some bf16 intermediates in f32, which moves
+    fp8 KV codes (``test_torch_model.py``)."""
+    _teacher_forced_vs_reference(_float_packed_weights(case), tier,
+                                 eager=tier == "fp8",
+                                 policy_weights=FLOAT_PACKED[case][1])
+
+
+def test_scheduler_serves_starcoder2_with_the_reference_tokens():
+    """starcoder2-smoke through the port's Scheduler (staggered admission,
+    int8 KV, bursts): each request's greedy tokens equal the reference
+    engine's for that request."""
+    weights = _float_packed_weights("starcoder2-15b")
+    eng = _engine(weights, "int8")
+    ref = _ref_engine(weights, "int8", max_len=48)
+    prompts = _prompts(eng.cfg.vocab, (8, 6, 10, 13), seed=9)
+    sched = Scheduler(eng)
+    reqs = [sched.submit(Request(prompt=p, sampling=SamplingParams(
+        max_new_tokens=6))) for p in prompts[:2]]
+    while sched.n_decode_steps < 2:
+        sched.step()
+    reqs += [sched.submit(Request(prompt=p, sampling=SamplingParams(
+        max_new_tokens=6))) for p in prompts[2:]]
+    sched.run(max_steps=200)
+    for req, p in zip(reqs, prompts):
+        want = ref.generate({"tokens": p[None]}, max_new_tokens=6)
+        assert req.is_finished and req.n_generated == 6
+        np.testing.assert_array_equal(np.asarray(req.output_tokens),
+                                      want["generated"][0])
 
 
 @pytest.mark.parametrize("tier", ["bf16", "int8"])
@@ -97,11 +153,12 @@ def test_teacher_forced_logits_match_reference_engine_on_w8a8(
     _teacher_forced_vs_reference(minitron_weights, tier, eager=True)
 
 
-def _teacher_forced_vs_reference(weights, tier, eager=False):
+def _teacher_forced_vs_reference(weights, tier, eager=False,
+                                 policy_weights=()):
     cfg = weights[0]
     ref_ctx = jax.disable_jit if eager else contextlib.nullcontext
-    ref = _ref_engine(weights, tier)
-    port = _engine(weights, tier, max_len=32)
+    ref = _ref_engine(weights, tier, policy_weights)
+    port = _engine(weights, tier, policy_weights, max_len=32)
     prompts = _prompts(cfg.vocab, (11, 8, 5), seed=5)
     rpool, ppool = ref.new_pool(), port.new_pool()
     slots = [rpool.alloc() for _ in prompts]
