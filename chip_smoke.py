@@ -13,11 +13,14 @@ non-zero after the last phase; exceptions are not caught):
      full-width shapes, timed with CUDA events (L2 flushed before each
      launch) beside its bound, its plain version and one library call:
      the packed GEMV (K1, M = 1, 3, 8) and the tensor-core packed matmul (K2,
-     M = 9, 64, 100) for three schemes on granite's four linear shapes,
-     plus K2 on a ragged N (1000) and on decode leaves with N % 4 != 0
+     M = 9, 64, 100) for three schemes on granite's four linear shapes
+     (on its awq_int4 leaves also M = 15, the width of the mixed-tier
+     path's int8 / fp8 decode cohorts), plus K2 on a ragged N (1000) and on decode leaves with N % 4 != 0
      (1022) that the dispatch routes to it; decode attention (K3 / K4) in
      three KV tiers on four head layouts (Dh 128, 192, 64, 112), also
-     with zero-length rows (equal weights over the slab); the int8 matmul
+     with zero-length rows (equal weights over the slab), and at the
+     mixed-tier path's cohorts (int8 / fp8 at B = 15, bf16 at B = 8, over
+     slabs of capacity 512); the int8 matmul
      (K5, also at M = 3, at K = 4100 and with x at an unaligned address,
      each taken as it is) and the virtual-DSP lane multiply
      (K6, the counterpart of ``repro/kernels/xtramac_mac.py``) must match
@@ -62,6 +65,22 @@ non-zero after the last phase; exceptions are not caught):
      quantized with one scale per call, over its batch-mates too, so a
      request served alone may differ); starcoder2's against each request
      served alone, with K1 / K2 launched on its mxfp4 leaves;
+  5b. after granite's serve phase, on its parameters: one engine serves
+     bf16, int8 and fp8 KV side by side (``granite-8b-tiers``), each pool
+     sized from 576 MiB (8 / 15 / 15 slots), 22 requests with a third at
+     temperature 0.8 and two high-class bf16 arrivals that preempt two
+     decoders; checks (i) every request's 32 tokens in the vocabulary,
+     (ii) each request equals its single-tier run bit for bit (greedy and
+     temperature rows; the preempted ones by iv), (iii) the int8 run
+     repeats at max_burst=1, (iv) a resumed request parts from its
+     unpreempted run only at a step whose top-2 gap (teacher-forced) is
+     under 5 % of the logit scale, and from its preemption to that step
+     its logits, recomputed on the resume's route, are the unpreempted
+     run's within ``logit_check``'s bound, (v) one decode dispatch per decoding
+     tier a round, (vi) K1 on the 8-row bf16 cohort, K2 on the 15-row
+     int8 / fp8 cohorts, K3 and K4 (int8 and fp8) in the one engine, (vii)
+     the sampler on the card against the CPU: bits and uniforms bit for
+     bit, Gumbel noise within 4 eps x max(|g|, 1), ids but near ties;
   6. model phases only, at full width and cut depth: starcoder2-15b at 4
      layers under fp8 attention / mxfp4 FFN weights with fp8 KV (K1 / K2
      must launch on both formats, K4 on fp8 KV), and nemotron-4-340b at 2
@@ -116,8 +135,12 @@ from repro_torch.quant.policy import PrecisionPolicy  # noqa: E402
 from repro_torch.quant.schemes import (  # noqa: E402
     dequantize, get_kv_scheme, get_scheme, kv_quantize, pow2_scale,
     quantize_activations_int8, quantize_weights)
-from repro_torch.serve import (Request, SamplingParams, Scheduler,  # noqa: E402
-                               ServeConfig, ServingEngine)
+from repro_torch.serve import (Request, RequestState,  # noqa: E402
+                               SamplingParams, Scheduler, ServeConfig,
+                               ServingEngine)
+from repro_torch.serve import threefry  # noqa: E402
+from repro_torch.serve.sampling import (  # noqa: E402
+    batched_step_keys, sample_rows, temperature_scores)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -146,6 +169,8 @@ PATH_KERNELS = {
     "xtramac-datapath": ("virtual_dsp_multiply",),
     "granite-8b": ("packed_gemv", "packed_matmul", "decode_attention_bf16",
                    "decode_attention_quant"),
+    "granite-8b-tiers": ("packed_gemv", "packed_matmul",
+                         "decode_attention_bf16", "decode_attention_quant"),
     "minitron-8b": ("w8a8_matmul", "decode_attention_bf16",
                     "decode_attention_quant"),
     "starcoder2-15b": ("packed_gemv", "packed_matmul",
@@ -157,6 +182,9 @@ PATH_KERNELS = {
 }
 # the launches by format (``ops.format_launch_counts``) each path must make
 PATH_FORMATS = {
+    "granite-8b-tiers": ("decode_attention_bf16:bf16",
+                         "decode_attention_quant:int8",
+                         "decode_attention_quant:fp8"),
     "starcoder2-15b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
     "starcoder2-15b-mixed": (
         "packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1",
@@ -165,19 +193,39 @@ PATH_FORMATS = {
     "nemotron-4-340b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
 }
 # the model runs: (path, arch, layers (None: all), policy weights, KV
-# tiers of the model phase, witness variant, serve phase)
+# tiers of the model phase, witness variant, serve phase, the mixed-tier
+# path run after the serve phase on the same parameters (or None))
 MODEL_RUNS = [
-    ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True),
+    ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True,
+     "granite-8b-tiers"),
     ("minitron-8b", "minitron-8b", None, (), ("bf16", "int8"),
-     "plain_splitkv", True),
+     "plain_splitkv", True, None),
     ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
-     "plain_splitkv", True),
+     "plain_splitkv", True, None),
     ("starcoder2-15b-mixed", "starcoder2-15b", 4,
      (("attn.*", "fp8"), ("ffn.*", "mxfp4")), ("fp8",), "plain_splitkv",
-     False),
+     False, None),
     ("nemotron-4-340b", "nemotron-4-340b", 2, (), ("bf16", "int8"),
-     "plain_splitkv", False),
+     "plain_splitkv", False, None),
 ]
+# the mixed-tier path: one engine, one pool per KV tier, each sized from
+# 576 MiB (36 layers x 8 KV heads x Dh 128 at capacity 512: 8 bf16 slots
+# of 75,497,472 B, 15 int8 / fp8 slots of 38,928,384 B); bf16 requests
+# 0-9 (0-7 at priority 5, 8-9 at priority 0), int8 10-15, fp8 16-21; every
+# third request of a tier (the tier's index % 3 == 1) samples at 0.8
+TIERS = ("bf16", "int8", "fp8")
+TIERS_BUDGET = 603_979_776
+TIERS_SLOTS = {"bf16": 8, "int8": 15, "fp8": 15}
+TIERS_REQUESTS = {"bf16": 10, "int8": 6, "fp8": 6}
+TIERS_LOW_CLASS = 8                 # bf16 requests 0-7: priority 5
+TIERS_TEMPERATURE, TIERS_SEED = 0.8, 7
+# the sampler on the card against the CPU: [rows, vocab] f32 draws;
+# Gumbel noise within GUMBEL_ULPS ulps of max(|g|, 1) (each platform's
+# log is within one ulp of the other's on the same input), ids equal but
+# where the CPU's top-2 perturbed scores lie within NEAR_TIE
+SAMPLER_ROWS = 15
+GUMBEL_ULPS = 4
+NEAR_TIE = 1e-5
 LINEAR_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 # starcoder2-15b: q / o, k / v, FFN in, FFN out (mxfp4; fp8 on the first
 # two under the mixed plan); nemotron-4-340b's FFN out at M = 8
@@ -185,6 +233,9 @@ STARCODER2_SHAPES = [(6144, 6144), (6144, 512), (6144, 24576), (24576, 6144)]
 NEMOTRON_DOWN = (73728, 18432)
 GEMV_ROWS = (1, 3, 8)               # K1: decode rows
 MATMUL_ROWS = (9, 64, 100)          # K2: the prefill chunk (64) and beside
+# K2 at the mixed-tier path's int8 / fp8 decode cohorts (15 slots) on
+# granite's (awq_int4) leaves
+TIERS_MATMUL_ROWS = (TIERS_SLOTS["int8"],)
 # K6 at a T that is no whole number of any body's row tile (256, 512, 1024)
 VDSP_RAGGED = 987
 # (scheme, M, N) at K = 4096: a ragged N edge, and decode leaves with
@@ -201,6 +252,10 @@ W8A8_EXTRA = [(3, 4096, 4096, 0), (8, 4096, 4096, 5)]
 # (d_head 192, GQA 96 / 8), qwen3-moe (64, 32 / 4), zamba2-7b (112, 32 / 32),
 # starcoder2-15b (128, 48 / 4)
 ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
+# the mixed-tier path's decode attention: its cohorts (15 int8 / fp8 rows,
+# 8 bf16 rows) over slabs of capacity 512
+TIERS_ATTN_LENS = [512, 1, 37, 511, 300, 96, 288, 64, 129, 200, 255, 17,
+                   400, 128, 480]
 ATTN_LAYOUTS = [dict(h=32, hk=8, dh=128), dict(h=96, hk=8, dh=192),
                 dict(h=32, hk=4, dh=64), dict(h=32, hk=32, dh=112),
                 dict(h=48, hk=4, dh=128)]
@@ -354,8 +409,11 @@ def packed_leaf_cases(timer: Timer, gen, dev, scheme_name, k, n,
 def kernel_phase(timer: Timer, gen, dev, chunk: int):
     cases = []
     for scheme_name in SCHEMES:
+        rows = MATMUL_ROWS + TIERS_MATMUL_ROWS if scheme_name == "awq_int4" \
+            else MATMUL_ROWS
         for k, n in LINEAR_SHAPES:
-            cases += packed_leaf_cases(timer, gen, dev, scheme_name, k, n)
+            cases += packed_leaf_cases(timer, gen, dev, scheme_name, k, n,
+                                       matmul_rows=rows)
     for k, n in STARCODER2_SHAPES:
         cases += packed_leaf_cases(timer, gen, dev, "mxfp4", k, n)
     for k, n in STARCODER2_SHAPES[:2]:
@@ -376,6 +434,9 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
     cases += w8a8_cases(timer, gen, dev, chunk)
     for layout in ATTN_LAYOUTS:
         cases += attention_cases(timer, gen, dev, **layout)
+    for tier, b in TIERS_SLOTS.items():
+        cases += attention_cases(timer, gen, dev, b=b, sk=512,
+                                 tiers=(tier,), lens=TIERS_ATTN_LENS[:b])
     cases += empty_row_cases(gen, dev)
     cases += vdsp_cases(timer, gen, dev)
     return cases
@@ -449,8 +510,9 @@ def w8a8_case(timer: Timer, gen, dev, m: int, x_offset: int, wt, scales):
     return case
 
 
-def attention_cases(timer: Timer, gen, dev, b=8, h=32, hk=8, dh=128, sk=1024):
-    lens = torch.tensor(ATTN_LENS, dtype=torch.int32, device=dev)[:b]
+def attention_cases(timer: Timer, gen, dev, b=8, h=32, hk=8, dh=128, sk=1024,
+                    tiers=("bf16", "int8", "fp8"), lens=ATTN_LENS):
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)[:b]
     q = torch.randn((b, 1, h, dh), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
     v = torch.randn((b, sk, hk, dh), generator=gen, device=dev)
@@ -466,7 +528,7 @@ def attention_cases(timer: Timer, gen, dev, b=8, h=32, hk=8, dh=128, sk=1024):
 
     valid = int(lens.sum())
     cases = []
-    for tier in ("bf16", "int8", "fp8"):
+    for tier in tiers:
         if tier == "bf16":
             kc, vc, elem = k_bf, v_bf, 2
         else:
@@ -497,7 +559,7 @@ def attention_cases(timer: Timer, gen, dev, b=8, h=32, hk=8, dh=128, sk=1024):
                 "bound_ms": b_ms, "bound_by": by}
         cases.append(case)
         log(json.dumps(case))
-        require(ok, f"{name} kv={tier}: max |err| {err}")
+        require(ok, f"{name} kv={tier} B={b} Sk={sk}: max |err| {err}")
     return cases
 
 
@@ -972,6 +1034,314 @@ def serve_phase(cfg, params, chunk, dev):
     return reports, launches, formats
 
 
+# ---------------------------------------------------------------------------
+# Phase 5b: one engine serves bf16, int8 and fp8 KV side by side
+# ---------------------------------------------------------------------------
+def tier_requests(cfg):
+    """[(id, tier, priority, temperature, prompt)] of the mixed-tier path."""
+    prompts, new_tokens = serve_requests(cfg, n=sum(TIERS_REQUESTS.values()))
+    specs, i = [], 0
+    for tier in TIERS:
+        for j in range(TIERS_REQUESTS[tier]):
+            prio = 5 if tier == "bf16" and j < TIERS_LOW_CLASS else 0
+            temp = TIERS_TEMPERATURE if j % 3 == 1 else 0.0
+            specs.append((i, tier, prio, temp, prompts[i]))
+            i += 1
+    return specs, new_tokens
+
+
+def make_request(spec, new_tokens, priority=None) -> Request:
+    rid, tier, prio, temp, prompt = spec
+    return Request(prompt=prompt, id=rid, kv_policy=tier,
+                   priority=prio if priority is None else priority,
+                   sampling=SamplingParams(temperature=temp,
+                                           max_new_tokens=new_tokens,
+                                           seed=TIERS_SEED))
+
+
+def watch_decode_dispatches(sched):
+    """Record every decode dispatch of ``sched``'s engine: the round, the
+    tier, the tiers with DECODE rows at that moment, and the launches by
+    format the dispatch made."""
+    log = []
+    engine = sched.engine
+    for name in ("decode_slots", "decode_burst"):
+        def watched(pool, *a, _fn=getattr(engine, name), **kw):
+            decoding = sorted({r.tier for r in sched.running.values()
+                               if r.state is RequestState.DECODE})
+            before = ops.format_launch_counts()
+            out = _fn(pool, *a, **kw)
+            after = ops.format_launch_counts()
+            log.append({"round": sched.n_steps, "tier": pool.kv_dtype,
+                        "decoding": decoding,
+                        "launches": {k: n - before.get(k, 0)
+                                     for k, n in after.items()
+                                     if n != before.get(k, 0)}})
+            return out
+        setattr(engine, name, watched)
+    return log
+
+
+def serve_mixed(engine, specs, new_tokens, dev):
+    """The mixed run: the 8 low-class bf16 requests arrive two at once,
+    then one every 2 steps; once all 8 decode, the 2 high-class bf16
+    requests (their pool is full: they preempt); then the int8 / fp8
+    requests one every 4 steps, alternating."""
+    sched = Scheduler(engine, tiers=list(TIERS))
+    log = watch_decode_dispatches(sched)
+    low = [s for s in specs if s[1] == "bf16" and s[2] > 0]
+    high = [s for s in specs if s[1] == "bf16" and s[2] == 0]
+    int8, fp8 = ([s for s in specs if s[1] == t] for t in ("int8", "fp8"))
+    rest = [s for pair in zip(int8, fp8) for s in pair]
+    reqs, preempted_at, mid_flight = [], {}, 0
+
+    def submit(spec):
+        nonlocal mid_flight
+        mid_flight += int(any(r.n_generated > 0 and not r.is_finished
+                              for r in reqs))
+        reqs.append(sched.submit(make_request(spec, new_tokens)))
+
+    sync(dev)
+    t0 = time.perf_counter()
+    while low or high or rest or sched.has_work:
+        if low and (len(reqs) < 2 or sched.n_steps % 2 == 0):
+            submit(low.pop(0))
+        elif not low and high and all(r.n_generated > 0 for r in reqs):
+            while high:
+                submit(high.pop(0))
+        elif not low and not high and rest and sched.n_steps % 4 == 0:
+            submit(rest.pop(0))
+        before = {r.id: r.n_preemptions for r in reqs}
+        sched.step()
+        for r in reqs:
+            if r.n_preemptions > before[r.id]:
+                preempted_at.setdefault(r.id, []).append(r.n_generated)
+    sync(dev)
+    return sched, reqs, log, preempted_at, mid_flight, \
+        time.perf_counter() - t0
+
+
+def serve_single_tier(engine, tier, specs, new_tokens):
+    """The tier's requests (same ids, seeds and prompts) through a
+    one-tier scheduler of the same pool geometry, one class, all at once:
+    {id: tokens}."""
+    sched = Scheduler(engine, tiers=[tier])
+    reqs = [sched.submit(make_request(s, new_tokens, priority=0))
+            for s in specs if s[1] == tier]
+    sched.run()
+    return {r.id: list(r.output_tokens) for r in reqs}
+
+
+def replay_logits(engine, spec, tokens, n_slots, resumes=()):
+    """A run recomputed teacher-forced, the [T, V] f32 logits each of
+    ``tokens`` was sampled from: the prompt prefilled into one slot of a
+    fresh pool of the same width, then ``tokens`` fed one per decode step.
+    At each count of generated tokens in ``resumes`` the slot is first
+    refilled as a resume refills it: one chunked prefill of the prompt and
+    every token but the last (``Scheduler._preempt``)."""
+    _, tier, _, _, prompt = spec
+    pool = engine.new_pool(n_slots=n_slots, kv_dtype=tier)
+    slot = pool.alloc()
+    rows = engine.prefill_into_slots(pool, [slot], [prompt])
+    feed = np.zeros((n_slots,), np.int32)
+    for step in range(1, len(tokens)):
+        if step in resumes:
+            engine.prefill_into_slots(pool, [slot], [np.concatenate(
+                [prompt, np.asarray(tokens[:step - 1], np.int32)])])
+        feed[slot] = tokens[step - 1]
+        rows.append(engine.decode_slots_with_logits(pool, feed)[slot])
+        pool.lengths[slot] += 1
+    return torch.stack(rows)
+
+
+def decision_scores(spec, logits):
+    """(the scores the sampler compared at each token [T, V]: ``logits``,
+    or logits / t + Gumbel noise from the step's key; 5 % of the logit
+    scale at each step, in the scores' units [T]; the ids the sampler
+    picks [T])."""
+    rid, _, _, temp, _ = spec
+    keys = batched_step_keys([TIERS_SEED], [rid], [0], len(logits))[0]
+    temps = np.full((len(logits),), temp, np.float32)
+    ids = sample_rows(logits, keys, temps).cpu().numpy()
+    bound = LS.LOGIT_REL_TOL * logits.abs().amax(-1)
+    if temp <= 0:
+        return logits, bound, ids
+    t = torch.as_tensor(temps, device=logits.device)
+    return temperature_scores(logits, keys, t), bound / temp, ids
+
+
+def sampler_check(dev):
+    """Check vii: the sampler on the card against the same functions on
+    the CPU, at the granite tiers' widest cohort (15 rows, vocab 49152)."""
+    gen = np.random.default_rng(11)
+    v = get_config("granite-8b").vocab
+    logits = torch.as_tensor(gen.normal(0, 3, (SAMPLER_ROWS, v)),
+                             dtype=torch.float32)
+    keys = batched_step_keys(np.full(SAMPLER_ROWS, TIERS_SEED),
+                             np.arange(SAMPLER_ROWS),
+                             gen.integers(0, 32, SAMPLER_ROWS), 1)[:, 0]
+    temps = np.full((SAMPLER_ROWS,), TIERS_TEMPERATURE, np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        k = threefry.keys_tensor(keys, where)
+        out[str(where)] = {
+            "bits": threefry.random_bits(k, v).cpu(),
+            "uniform": threefry.uniform(k, v, threefry.F32_TINY, 1.0).cpu(),
+            "gumbel": threefry.gumbel(k, v).cpu(),
+            "ids": sample_rows(logits.to(where), keys, temps).cpu()}
+    cpu, card = out["cpu"], out[str(dev)]
+    g_cpu, g_card = cpu["gumbel"], card["gumbel"]
+    ulp = torch.finfo(torch.float32).eps * torch.clamp_min(g_cpu.abs(), 1.0)
+    gumbel_ulps = float(((g_card - g_cpu).abs() / ulp).max())
+    scores = temperature_scores(logits, keys, torch.as_tensor(temps))
+    top2 = scores.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= NEAR_TIE
+    differ = cpu["ids"] != card["ids"]
+    res = {"rows": SAMPLER_ROWS, "vocab": v,
+           "bits_equal": bool(torch.equal(cpu["bits"], card["bits"])),
+           "uniform_equal": bool(torch.equal(
+               cpu["uniform"].view(torch.int32),
+               card["uniform"].view(torch.int32))),
+           "gumbel_max_ulps": gumbel_ulps,
+           "gumbel_elements_differ": int((g_cpu != g_card).sum()),
+           "ids_differ": int(differ.sum()), "near_ties": int(near.sum())}
+    log(json.dumps({"sampler_card_vs_cpu": res}))
+    require(res["bits_equal"], "sampler: random bits differ card vs CPU")
+    require(res["uniform_equal"], "sampler: uniforms differ card vs CPU")
+    require(gumbel_ulps <= GUMBEL_ULPS,
+            f"sampler: Gumbel noise {gumbel_ulps} ulps from the CPU's")
+    require(not bool((differ & ~near).any()),
+            "sampler: ids differ card vs CPU off a near tie")
+    return res
+
+
+def tiers_phase(cfg, params, chunk, dev):
+    """One engine, three KV tiers from one budget, mixed priorities and
+    temperatures: checks i-vii of the mixed-tier path.  Launch counts are
+    set to 0 just before the mixed run and read just after."""
+    engine = ServingEngine(cfg, params, ServeConfig(
+        max_len=512, prefill_chunk=chunk, max_burst=8,
+        cache_budget_bytes=TIERS_BUDGET, device=str(dev)))
+    specs, new_tokens = tier_requests(cfg)
+    by_id = {s[0]: s for s in specs}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sched, reqs, dispatches, preempted_at, mid_flight, wall = serve_mixed(
+        engine, specs, new_tokens, dev)
+    launches = ops.launch_counts()
+    formats = ops.format_launch_counts()
+    slots = {t: p.n_slots for t, p in sched.pools.items()}
+    rep = sched.metrics.report()
+    rep.update(admitted_mid_flight=mid_flight, host_wall_s=wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               tier_tokens_per_s={
+                   t: sum(r.n_generated for r in reqs if r.tier == t)
+                   / (max(r.finish_time for r in reqs if r.tier == t)
+                      - min(r.arrival_time for r in reqs if r.tier == t))
+                   for t in TIERS})
+    log(json.dumps({"serve": rep, "path": "granite-8b-tiers"}))
+    log(json.dumps({"serve_launches": launches, "by_format": formats,
+                    "path": "granite-8b-tiers"}))
+    require(slots == TIERS_SLOTS, f"tiers: slots {slots}, not {TIERS_SLOTS}")
+    require(rep.get("preemptions", 0) >= 2,
+            f"tiers: {rep.get('preemptions', 0)} preemptions, not >= 2")
+    require(mid_flight > 0, "tiers: no mid-flight admission")
+    # i. every request finishes with its tokens, all in the vocabulary
+    for r in reqs:
+        require(r.is_finished and r.n_generated == new_tokens,
+                f"tiers: request {r.id} finished with {r.n_generated} tokens")
+        require(all(0 <= t < cfg.vocab for t in r.output_tokens),
+                f"tiers: request {r.id} emitted an id outside the vocabulary")
+    # ii. each request is its single-tier run's, bit for bit (the
+    # preempted ones: iv); iii. the int8 run repeats at max_burst=1
+    single = ServingEngine(cfg, params, engine.scfg)
+    solo = {}
+    for tier in TIERS:
+        solo.update(serve_single_tier(single, tier, specs, new_tokens))
+    for r in reqs:
+        if r.id not in preempted_at:
+            require(r.output_tokens == solo[r.id],
+                    f"tiers: request {r.id} ({r.tier}, t={r.sampling.temperature})"
+                    " differs from its single-tier run")
+    stepwise = serve_single_tier(ServingEngine(cfg, params, dataclasses.replace(
+        engine.scfg, max_burst=1)), "int8", specs, new_tokens)
+    require(all(stepwise[i] == solo[i] for i in stepwise),
+            "tiers: int8 at max_burst=1 differs from its bursts")
+    # iv. a preempted request is its unpreempted run up to a step whose
+    # top-2 gap (teacher-forced) is under 5 % of the logit scale; from its
+    # first preemption to that step, its logits (recomputed teacher-forced
+    # on the resume's route, which must give its tokens) are the
+    # unpreempted run's within logit_check's bound
+    resumes = []
+    for rid, points in sorted(preempted_at.items()):
+        r = next(q for q in reqs if q.id == rid)
+        spec, want, at = by_id[rid], solo[rid], points[0]
+        same = next((i for i, (a, b) in enumerate(zip(r.output_tokens, want))
+                     if a != b), len(want))
+        logits = replay_logits(single, spec, want, slots[r.tier])
+        scores, bound, ids = decision_scores(spec, logits)
+        require(list(ids) == want, f"tiers: request {rid}'s teacher-forced "
+                                   "recompute does not give its tokens")
+        resumed = replay_logits(single, spec, r.output_tokens, slots[r.tier],
+                                resumes=set(points))
+        require(list(decision_scores(spec, resumed)[2]) == r.output_tokens,
+                f"tiers: request {rid}'s resume recomputed teacher-forced "
+                "does not give its tokens")
+        span = slice(min(at, same), min(same + 1, len(want)))
+        held = LS.logit_check(resumed[span], logits[span])
+        entry = {"id": rid, "tier": r.tier,
+                 "temperature": r.sampling.temperature,
+                 "preempted_at_token": points, "tokens_matched": same,
+                 "resumed_logits": {
+                     "tokens": [span.start, span.stop],
+                     "max_abs_logit_diff": held["max_abs_logit_diff"],
+                     "tolerance": held["tolerance"]}}
+        require(held["finite"] and held["logits_ok"],
+                f"tiers: resumed request {rid}'s logits from token {at} "
+                f"are not its unpreempted run's: {entry}")
+        if same < len(want):
+            top2 = scores[same].topk(2).values
+            entry.update(gap=float(top2[0] - top2[1]),
+                         bound=float(bound[same]))
+            require(same >= at and entry["gap"] < entry["bound"],
+                    f"tiers: resumed request {rid} parts from its "
+                    f"unpreempted run at token {same}: {entry}")
+        resumes.append(entry)
+        log(json.dumps({"resume": entry}))
+    # v. one decode dispatch per active tier cohort per round
+    rounds = {}
+    for d in dispatches:
+        rounds.setdefault(d["round"], []).append(d)
+    bad = [n for n, ds in rounds.items()
+           if sorted(d["tier"] for d in ds) != ds[0]["decoding"]]
+    require(not bad, f"tiers: rounds {bad[:5]} did not dispatch once per "
+                     "decoding tier")
+    # vi. K1 on the 8-row bf16 cohort, K2 on the 15-row cohorts, K3 / K4
+    by_tier = {}
+    for d in dispatches:
+        acc = by_tier.setdefault(d["tier"], {})
+        for k, n in d["launches"].items():
+            acc[k] = acc.get(k, 0) + n
+    log(json.dumps({"decode_launches_by_tier": by_tier}))
+    k1 = {t: sum(n for k, n in by_tier.get(t, {}).items()
+                 if k.startswith("packed_gemv:")) for t in TIERS}
+    k2 = {t: sum(n for k, n in by_tier.get(t, {}).items()
+                 if k.startswith("packed_matmul:")) for t in TIERS}
+    require(k1["bf16"] > 0 and k2["bf16"] == 0,
+            f"tiers: bf16 cohort (8 rows) K1 {k1['bf16']}, K2 {k2['bf16']}")
+    for t in ("int8", "fp8"):
+        require(k1[t] == 0 and k2[t] > 0,
+                f"tiers: {t} cohort (15 rows) K1 {k1[t]}, K2 {k2[t]}")
+        require(by_tier.get(t, {}).get(f"decode_attention_quant:{t}", 0) > 0,
+                f"tiers: no K4 launch on the {t} cohort")
+    check_path_launches("granite-8b-tiers", launches, formats)
+    # vii. the sampler on the card against the CPU
+    sampler = sampler_check(dev)
+    return {"slots": slots, "serve": rep, "resumes": resumes,
+            "decode_launches_by_tier": by_tier, "sampler": sampler,
+            "rounds": len(rounds)}, launches, formats
+
+
 def check_path_launches(path: str, launches, formats=None) -> None:
     """Every kernel of ``path`` launched in its run, and no other; and on
     every weight / KV format ``PATH_FORMATS`` names for it."""
@@ -1036,7 +1406,8 @@ def main() -> None:
     got = launches_by_path["xtramac-datapath"]["virtual_dsp_multiply"]
     require(got == want, f"datapath: {got} K6 launches, {want} xtramac_packed "
                          "calls and pipeline issues")
-    for path, arch, layers, weights, tiers, witness, serves in MODEL_RUNS:
+    for path, arch, layers, weights, tiers, witness, serves, mixed \
+            in MODEL_RUNS:
         cfg = get_config(arch)
         if layers is not None:      # full width, cut depth
             cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -1073,6 +1444,16 @@ def main() -> None:
                             seconds=time.perf_counter() - t0)
         log(json.dumps({"path": path, "model_and_serve_s":
                         result[path]["seconds"]}))
+        if mixed is not None:
+            t0 = time.perf_counter()
+            result[mixed], launches, formats = tiers_phase(cfg, params,
+                                                           chunk, dev)
+            launches_by_path[mixed] = launches
+            result[mixed].update(launches=launches,
+                                 launches_by_format=formats,
+                                 seconds=time.perf_counter() - t0)
+            log(json.dumps({"path": mixed, "seconds":
+                            result[mixed]["seconds"]}))
         del params                  # free the card for the next model
         torch.cuda.empty_cache()
 

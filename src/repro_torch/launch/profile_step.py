@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch granite-8b
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch minitron-8b
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --temperature 0.8
 
 Builds the model on the card, fills every slot with one prefill chunk,
 then times (a) prefill chunks and (b) decode steps over all slots: host
@@ -9,8 +10,11 @@ wall per step (ending in a device sync) and, from one ``torch.profiler``
 pass over the same steps, the device time of every kernel.  Prints one
 JSON object: per step kind, the wall ms, the device-busy ms (sum of kernel
 durations), the idle share 1 - busy / wall, and the kernels ranked by
-device time.  Device numbers come only from the profiler's CUDA activity;
-when it reports none they are null.
+device time.  With ``--temperature`` every row also samples at that
+temperature with its own threefry keys: (c) the decode step so, and (d)
+the sampler alone (``sample_rows`` on [n_slots, vocab] f32 logits), so (c)
+minus (b) and (d) are the sampler's cost.  Device numbers come only from
+the profiler's CUDA activity; when it reports none they are null.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.models.common import QuantMaker
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.serve.engine import resolve_device
+from repro_torch.serve.sampling import batched_step_keys, sample_rows
 
 
 def _kernel_times(prof, steps: int):
@@ -72,6 +77,7 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk", type=int, default=64)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -97,11 +103,30 @@ def main(argv=None) -> None:
 
     prefill()
     decode()           # warm-up: kernel build and first launches
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-        "kv": args.kv_dtype, "n_slots": args.n_slots, "chunk": args.chunk,
-        "prefill_chunk": measure(prefill, args.steps, dev),
-        "decode_step": measure(decode, args.steps, dev)}))
+    out = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
+           "kv": args.kv_dtype, "n_slots": args.n_slots, "chunk": args.chunk,
+           "prefill_chunk": measure(prefill, args.steps, dev),
+           "decode_step": measure(decode, args.steps, dev)}
+    if args.temperature > 0:
+        n = args.n_slots
+        keys = batched_step_keys(np.full(n, args.seed), np.arange(n),
+                                 np.zeros(n), 1)[:, 0]
+        temps = np.full((n,), args.temperature, np.float32)
+        logits = torch.randn((n, cfg.vocab), device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+
+        def decode_temperature():
+            engine.decode_slots(pool, tokens, keys, temps)
+
+        def sampler():
+            sample_rows(logits, keys, temps).cpu()
+
+        decode_temperature()
+        out.update(temperature=args.temperature,
+                   decode_step_temperature=measure(decode_temperature,
+                                                   args.steps, dev),
+                   sampler=measure(sampler, args.steps, dev))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

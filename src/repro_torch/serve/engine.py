@@ -5,16 +5,22 @@ slab path of ``repro/serve/engine.py``).
     into its slot; the final chunk returns its [C, V] logits (earlier
     chunks skip the lm-head).
   * ``decode_slots`` — one decode step for every pool slot (row i writes
-    and attends at ``pool.lengths[i]``), greedy sampling on the device:
-    only the [n_slots] int32 ids cross to the host.  Inactive slots ride
-    along; their write lands where the slot's next real write goes.
+    and attends at ``pool.lengths[i]``), sampling on the device (greedy,
+    or seeded temperature rows by their threefry keys): only the
+    [n_slots] int32 ids cross to the host.  Inactive slots ride along;
+    their write lands where the slot's next real write goes.
   * ``decode_burst`` — K decode steps as one device-side loop: tokens,
-    lengths and per-row stop masks stay on the device, and one transfer at
-    the end brings the [K, n_slots] ids and emit mask to the host.
+    lengths and per-row stop masks stay on the device, step t samples
+    with the keys of row t of the [K, n_slots, 2] schedule, and one
+    transfer at the end brings the [K, n_slots] ids and emit mask to the
+    host.
 
-Weights, the pool and all step tensors live on ``ServeConfig.device``
-("cuda" by default; the tests pass "cpu", where the kernels' plain
-versions run).  The pool cache is updated in place.
+``new_pool`` builds a slot pool at any KV tier; one engine's parameters
+serve every tier's pool (the scheduler holds one pool per tier).  With
+``cache_budget_bytes`` the slot count comes from the budget and the tier's
+bytes per slot.  Weights, the pools and all step tensors live on
+``ServeConfig.device`` ("cuda" by default; the tests pass "cpu", where
+the kernels' plain versions run).  The pool cache is updated in place.
 """
 from __future__ import annotations
 
@@ -27,17 +33,21 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QLinear
-from repro_torch.quant.policy import PrecisionPolicy
+from repro_torch.quant.policy import PrecisionPolicy, validate_kv_tier
 
-from .kv_pool import KVCachePool
-from .sampling import sample_rows
+from .kv_pool import KVCachePool, slots_for_budget
+from .sampling import sample_on_device, sampler_inputs
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     max_len: int = 512        # per-slot KV capacity (prompt + new tokens)
+    temperature: float = 0.0  # one-shot generate's sampling (<= 0: greedy)
     eos_id: int = -1          # -1: never stop early (one-shot generate)
     n_slots: int = 8          # KV pool width = decode batch
+    # cache-memory budget per pool: when set, ``new_pool`` derives the slot
+    # count from the tier's bytes per slot instead of taking ``n_slots``
+    cache_budget_bytes: Optional[int] = None
     prefill_chunk: int = 16   # chunked-prefill granularity
     max_burst: int = 8        # cap on decode-burst length K (1 = no bursts)
     # weight schemes the parameters must carry, and the KV-cache tier
@@ -93,12 +103,25 @@ class ServingEngine:
         self.params = params.to(self.device)
 
     # ------------------------------------------------------------------
-    def new_pool(self) -> KVCachePool:
-        """A slot pool at the policy's KV tier, ``n_slots`` x ``max_len``
-        (capacity rounded up to whole prefill chunks)."""
-        return KVCachePool(self.cfg, self.scfg.n_slots, self.scfg.max_len,
-                           kv_dtype=self.policy.kv,
-                           align=self.scfg.prefill_chunk, device=self.device)
+    def new_pool(self, n_slots: Optional[int] = None,
+                 max_len: Optional[int] = None,
+                 kv_dtype: Optional[str] = None) -> KVCachePool:
+        """A slot pool at KV tier ``kv_dtype`` (default: the policy's),
+        ``max_len`` positions a slot (default: the config's; capacity
+        rounded up to whole prefill chunks).  Without ``n_slots`` the
+        width is budget-derived when ``cache_budget_bytes`` is set, else
+        the config's ``n_slots``."""
+        tier = self.policy.kv if kv_dtype is None \
+            else validate_kv_tier(kv_dtype, self.cfg)
+        max_len = max_len or self.scfg.max_len
+        c = self.scfg.prefill_chunk
+        if n_slots is None:
+            n_slots = self.scfg.n_slots \
+                if self.scfg.cache_budget_bytes is None else slots_for_budget(
+                    self.cfg, max_len, self.scfg.cache_budget_bytes,
+                    kv_dtype=tier, align=c)
+        return KVCachePool(self.cfg, n_slots, max_len, kv_dtype=tier,
+                           align=c, device=self.device)
 
     def pad_prompt(self, prompt: np.ndarray):
         """(prompt zero-padded to whole chunks, true length)."""
@@ -163,13 +186,18 @@ class ServingEngine:
         return logits[:, -1]
 
     @torch.no_grad()
-    def decode_slots(self, pool: KVCachePool, tokens: np.ndarray) -> np.ndarray:
-        """One decode step over every slot; ``tokens`` [n_slots].  Returns
-        the [n_slots] greedy ids.  The caller commits the write by
-        incrementing ``pool.lengths`` for its active rows."""
-        toks = self._tensor(np.asarray(tokens).reshape(pool.n_slots))
+    def decode_slots(self, pool: KVCachePool, tokens: np.ndarray,
+                     keys: Optional[np.ndarray] = None,
+                     temps: Optional[np.ndarray] = None) -> np.ndarray:
+        """One decode step over every slot; ``tokens`` [n_slots], ``keys``
+        [n_slots, 2] uint32 and ``temps`` [n_slots] (both default to
+        greedy).  Returns the [n_slots] sampled ids.  The caller commits
+        the write by incrementing ``pool.lengths`` for its active rows."""
+        n = pool.n_slots
+        keys, t, hot = sampler_inputs(keys, temps, n, self.device)
+        toks = self._tensor(np.asarray(tokens).reshape(n))
         logits = self._decode_logits(pool, toks, self._tensor(pool.lengths))
-        return sample_rows(logits).cpu().numpy()
+        return sample_on_device(logits, keys, t, hot).cpu().numpy()
 
     @torch.no_grad()
     def decode_slots_with_logits(self, pool: KVCachePool,
@@ -179,10 +207,13 @@ class ServingEngine:
         return self._decode_logits(pool, toks, self._tensor(pool.lengths))
 
     @torch.no_grad()
-    def decode_burst(self, pool: KVCachePool, tokens: np.ndarray, k: int,
+    def decode_burst(self, pool: KVCachePool, tokens: np.ndarray,
+                     keys: np.ndarray, temps: np.ndarray,
                      active: np.ndarray, remaining: np.ndarray,
                      eos_ids: np.ndarray):
-        """K consecutive decode steps with the state on the device.
+        """K = ``keys.shape[0]`` consecutive decode steps with the state on
+        the device; row i of ``keys[t]`` [K, n_slots, 2] is row i's key for
+        its t-th token of the burst, ``temps`` [n_slots] its temperature.
 
         ``active`` [n_slots] marks live rows, ``remaining`` their max-new
         budget left, ``eos_ids`` their stop id (-1 never).  A row stops
@@ -192,6 +223,10 @@ class ServingEngine:
         token (t, i) was emitted iff valid[t, i] — and commits
         ``pool.lengths`` for every emitted token."""
         n = pool.n_slots
+        k = keys.shape[0]
+        if keys.shape != (k, n, 2):
+            raise ValueError(f"key schedule {keys.shape} is not [K, {n}, 2]")
+        keys, t_dev, hot = sampler_inputs(keys, temps, n, self.device)
         toks = self._tensor(np.asarray(tokens).reshape(n))
         lengths = self._tensor(pool.lengths)
         act = self._tensor(active, torch.bool)
@@ -199,7 +234,9 @@ class ServingEngine:
         eos = self._tensor(eos_ids)
         out = torch.empty((2, k, n), dtype=torch.int64, device=self.device)
         for t in range(k):
-            sampled = sample_rows(self._decode_logits(pool, toks, lengths))
+            sampled = sample_on_device(
+                self._decode_logits(pool, toks, lengths),
+                None if keys is None else keys[t], t_dev, hot)
             step = act.to(torch.int64)
             lengths = lengths + step
             rem = rem - step
@@ -215,9 +252,11 @@ class ServingEngine:
         return toks_h, valid
 
     # ------------------------------------------------------------------
-    def generate(self, tokens: np.ndarray, *, max_new_tokens: int) -> Dict:
-        """One-shot greedy generation for a batch of prompts [B, S]: every
-        row goes through a private scheduler.  Returns generated ids
+    def generate(self, tokens: np.ndarray, *, max_new_tokens: int,
+                 seed: int = 0) -> Dict:
+        """One-shot generation for a batch of prompts [B, S] at
+        ``ServeConfig.temperature`` and ``seed``: the rows go through a
+        private scheduler (row i is request id i).  Returns generated ids
         [B, T] (zero-padded), per-row lengths and finish reasons."""
         from .request import Request, SamplingParams
         from .scheduler import Scheduler
@@ -228,8 +267,8 @@ class ServingEngine:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
         sched = Scheduler(self)
         reqs = [sched.submit(Request(prompt=tokens[i], sampling=SamplingParams(
-            max_new_tokens=max_new_tokens, eos_id=self.scfg.eos_id)))
-            for i in range(b)]
+            temperature=self.scfg.temperature, max_new_tokens=max_new_tokens,
+            eos_id=self.scfg.eos_id, seed=seed))) for i in range(b)]
         sched.run()
         width = max(r.n_generated for r in reqs)
         gen = np.zeros((b, width), np.int32)

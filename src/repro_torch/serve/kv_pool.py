@@ -10,6 +10,11 @@ bookkeeping plus in-place writes.
 Freed slots are not zeroed: every read is masked by the per-row valid
 length, and the next tenant's prefill overwrites [0, P) before any read.
 ``lengths[slot]`` is the number of committed positions of a slot.
+
+Capacity is a function of KV bytes per token: ``slots_for_budget`` turns
+a cache-memory budget into a slot count at a tier, so the int8 / fp8
+tiers (Dh code bytes plus one f32 scale per position and head) fit about
+twice the bf16 slots of the same budget.
 """
 from __future__ import annotations
 
@@ -20,7 +25,38 @@ import numpy as np
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.quant.kv_cache import kv_dtype_name
+from repro_torch.quant.kv_cache import QuantizedKV, kv_dtype_name
+
+
+def _cache_bytes(cache) -> int:
+    """Bytes of a (k, v) cache: bf16 slabs, or codes plus scales."""
+    leaves = []
+    for slab in cache:
+        leaves += ([slab.packed, slab.scales] if isinstance(slab, QuantizedKV)
+                   else [slab])
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def bytes_per_slot(cfg: ModelConfig, max_len: int, *, kv_dtype="bf16",
+                   align: int = 1) -> int:
+    """Cache bytes one slot costs (all layers, K and V, scales included),
+    from the shapes ``T.init_cache`` allocates, on the ``meta`` device
+    (nothing is allocated)."""
+    capacity = -(-max_len // align) * align
+    return _cache_bytes(T.init_cache(cfg, 1, capacity, kv_dtype=kv_dtype,
+                                     device="meta"))
+
+
+def slots_for_budget(cfg: ModelConfig, max_len: int, budget_bytes: int, *,
+                     kv_dtype="bf16", align: int = 1) -> int:
+    """How many ``max_len`` slots a cache budget holds at ``kv_dtype``."""
+    per = bytes_per_slot(cfg, max_len, kv_dtype=kv_dtype, align=align)
+    n = int(budget_bytes) // per
+    if n < 1:
+        raise ValueError(
+            f"cache budget {budget_bytes} B < one {max_len}-position slot "
+            f"({per} B at kv_dtype={kv_dtype_name(kv_dtype)!r})")
+    return n
 
 
 class KVCachePool:
@@ -42,12 +78,26 @@ class KVCachePool:
         heapq.heapify(self._free)
 
     @property
+    def cache_bytes(self) -> int:
+        """Allocated bytes of the whole cache (codes and scales)."""
+        return _cache_bytes(self.cache)
+
+    @property
+    def bytes_per_token(self) -> int:
+        """Cache bytes one committed position costs across all layers."""
+        return self.cache_bytes // (self.n_slots * self.capacity)
+
+    @property
     def n_free(self) -> int:
         return len(self._free)
 
     @property
     def n_used(self) -> int:
         return self.n_slots - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        return self.n_used / self.n_slots
 
     def alloc(self) -> Optional[int]:
         """The lowest free slot id, or None when the pool is full."""
@@ -62,3 +112,7 @@ class KVCachePool:
             raise ValueError(f"bad free of slot {slot}")
         self.lengths[slot] = 0
         heapq.heappush(self._free, slot)
+
+    def room(self, slot: int) -> int:
+        """Cache positions still writable in ``slot``."""
+        return self.max_len - int(self.lengths[slot])

@@ -4,8 +4,15 @@
   * ITL   — gaps between a request's consecutive tokens.
   * tok/s — generated tokens over the busy window (first arrival to last
             retirement).
-  * slot occupancy — time-weighted fraction of KV slots in use.
+  * slot occupancy — time-weighted fraction of KV slots in use, and per
+            tier when the scheduler serves several (a tier can starve
+            while the total looks healthy).
   * decode dispatches / token-steps — how amortized the decode loop ran.
+  * queue wait — admission minus the latest enqueue, per priority class
+            (a preempted request's second wait is charged to its requeue).
+  * preemptions — slots evicted for a higher class; ``finish_reasons``
+            adds ``preempted_resumed`` (finished after >= 1 preemption) as
+            an overlay, not a term of the sum.
 
 All K tokens of a decode burst surface at its end, so raw ITL percentiles
 are burst-granular; ``itl_burst_spread_*`` spreads each burst's wall time
@@ -14,7 +21,7 @@ over the tokens it emitted.  Timestamps come from the scheduler's clock.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 
@@ -49,7 +56,9 @@ def burst_spread_itl(token_times: List[float],
 
 class ServeMetrics:
     def __init__(self, n_slots: int):
-        self.n_slots = n_slots
+        self.n_slots = n_slots              # over every tier
+        # {tier: n_slots} when the scheduler serves several KV tiers
+        self.tiers: Optional[Dict[str, int]] = None
         self.ttft: List[float] = []
         self.itl: List[float] = []
         self.itl_spread: List[float] = []
@@ -57,34 +66,65 @@ class ServeMetrics:
         self.n_requests = 0
         self.total_new_tokens = 0
         self.finish_reasons: Dict[str, int] = {}
+        self.n_resumed = 0
+        self.n_preemptions = 0
+        self.preempt_reasons: Dict[str, int] = {}
+        self.queue_wait: Dict[int, List[float]] = {}
         self.first_arrival: Optional[float] = None
         self.last_finish: Optional[float] = None
         self._occ_integral = 0.0
         self._occ_time = 0.0
+        self._tier_occ: Dict[str, float] = {}
         self._last_sample: Optional[float] = None
         self.decode_dispatches = 0
         self.decode_token_steps = 0
         self.decode_tokens_emitted = 0
         self.burst_hist: Dict[int, int] = {}
+        self.tier_dispatches: Dict[str, int] = {}
 
     def on_arrival(self, now: float) -> None:
         if self.first_arrival is None:
             self.first_arrival = now
 
-    def on_step(self, now: float, used_slots: int) -> None:
+    def on_admit(self, req) -> None:
+        """WAITING -> PREFILL: the queue wait since the latest enqueue, by
+        priority class."""
+        t0 = req.last_enqueue_time if req.last_enqueue_time is not None \
+            else req.arrival_time
+        if req.admit_time is None or t0 is None:
+            return
+        self.queue_wait.setdefault(req.priority, []).append(
+            max(req.admit_time - t0, 0.0))
+
+    def on_preempt(self, req, reason: str = "priority") -> None:
+        self.n_preemptions += 1
+        self.preempt_reasons[reason] = self.preempt_reasons.get(reason, 0) + 1
+
+    def on_step(self, now: float,
+                used_slots: Union[int, Mapping[str, int]]) -> None:
         """Sample occupancy, weighted by the wall time since the last
-        sample."""
+        sample; ``used_slots`` is a count or {tier: count}."""
+        per_tier = used_slots if isinstance(used_slots, Mapping) else None
+        if per_tier is not None:
+            used_slots = sum(per_tier.values())
         if self._last_sample is not None:
             dt = max(now - self._last_sample, 0.0)
             self._occ_integral += dt * (used_slots / self.n_slots)
             self._occ_time += dt
+            if per_tier is not None and self.tiers:
+                for tier, used in per_tier.items():
+                    self._tier_occ[tier] = (self._tier_occ.get(tier, 0.0)
+                                            + dt * used / self.tiers[tier])
         self._last_sample = now
 
-    def on_decode_burst(self, k: int, tokens_emitted: int) -> None:
+    def on_decode_burst(self, k: int, tokens_emitted: int,
+                        tier: Optional[str] = None) -> None:
         self.decode_dispatches += 1
         self.decode_token_steps += k
         self.decode_tokens_emitted += tokens_emitted
         self.burst_hist[k] = self.burst_hist.get(k, 0) + 1
+        if tier is not None:
+            self.tier_dispatches[tier] = self.tier_dispatches.get(tier, 0) + 1
 
     def on_finish(self, req) -> None:
         self.n_requests += 1
@@ -92,6 +132,8 @@ class ServeMetrics:
         self.last_finish = req.finish_time
         reason = req.finish_reason or "unknown"
         self.finish_reasons[reason] = self.finish_reasons.get(reason, 0) + 1
+        if req.n_preemptions > 0:
+            self.n_resumed += 1
         if req.first_token_time is not None and req.arrival_time is not None:
             self.ttft.append(req.first_token_time - req.arrival_time)
             if req.finish_time is not None:
@@ -116,12 +158,21 @@ class ServeMetrics:
             "tokens_per_s": self.total_new_tokens / wall if wall > 0 else None,
             "slot_occupancy_mean": self.occupancy_mean,
         }
+        if self.tiers is not None:
+            out["tiers"] = dict(self.tiers)
+            if self._occ_time:
+                out["tier_occupancy_mean"] = {
+                    t: v / self._occ_time
+                    for t, v in sorted(self._tier_occ.items())}
         if self.decode_dispatches:
             out["decode_dispatches"] = self.decode_dispatches
             out["decode_token_steps"] = self.decode_token_steps
             out["decode_tokens_emitted"] = self.decode_tokens_emitted
             out["burst_hist"] = {str(k): v for k, v
                                  in sorted(self.burst_hist.items())}
+            if self.tiers is not None:
+                out["decode_dispatches_by_tier"] = dict(
+                    sorted(self.tier_dispatches.items()))
         for name, xs in (("ttft", self.ttft), ("itl", self.itl),
                          ("e2e_latency", self.e2e),
                          ("itl_burst_spread", self.itl_spread)):
@@ -130,5 +181,16 @@ class ServeMetrics:
                 out[f"{name}_p50_s"] = _pct(xs, 50)
                 out[f"{name}_p95_s"] = _pct(xs, 95)
         if self.finish_reasons:
-            out["finish_reasons"] = dict(sorted(self.finish_reasons.items()))
+            fr = dict(sorted(self.finish_reasons.items()))
+            if self.n_resumed:
+                fr["preempted_resumed"] = self.n_resumed
+            out["finish_reasons"] = fr
+        if self.queue_wait:
+            for q in (50, 95):
+                out[f"queue_wait_p{q}_s"] = {
+                    str(p): _pct(xs, q)
+                    for p, xs in sorted(self.queue_wait.items())}
+        if self.n_preemptions:
+            out["preemptions"] = self.n_preemptions
+            out["preempt_reasons"] = dict(sorted(self.preempt_reasons.items()))
         return out

@@ -1,59 +1,109 @@
-"""Continuous-batching scheduler: FCFS admission over one slot KV pool
-(torch twin of the FCFS core of ``repro/serve/scheduler.py``).
+"""Continuous-batching scheduler over slot KV pools, one pool per KV tier
+(torch twin of the slab path of ``repro/serve/scheduler.py``).
 
 Each ``step()``:
-  1. **Admission** — waiting requests are admitted in arrival order while
-     the pool has a free slot, at any time, including mid-flight between
-     decode steps.
+  1. **Admission** — waiting requests are scanned in (priority, arrival)
+     order; a request is admitted when its tier's pool has a free slot,
+     at any time, including mid-flight between decode steps.  When its
+     pool is full and a DECODE request of a strictly lower class holds a
+     slot of that tier, the lowest-class one with the least output (then
+     the youngest) is **preempted**: its slot is freed and it is requeued
+     with a resume buffer, prompt + generated[:-1].  With one class this
+     is plain FCFS.
   2. **One prefill chunk** — the oldest PREFILL request advances by one
-     chunk (chunked prefill interleaved with decode).  On its final chunk
-     the first token is sampled (the request's TTFT event).
-  3. **One decode round** — every DECODE slot advances, as one burst of K
-     token-steps on the device (``engine.decode_burst``) or a single step
-     for K = 1.  K is the least, over the decoding rows, of the tokens a
-     row can still emit before its length or capacity limit, capped by
-     ``max_burst``, rounded down to a power of two, and clamped to 1 while
-     a request waits or a prefill is in flight (so admission latency and
-     prefill interleaving match a burst-free scheduler).  EOS cannot be
-     planned; rows that sample it stop on the device.
+     chunk (chunked prefill interleaved with decode).  On a prompt's final
+     chunk the first token is sampled (the request's TTFT event); a
+     resume's final chunk computes no logits and emits nothing — its
+     tokens were delivered before the preemption.
+  3. **One decode round per tier** — the DECODE rows are cohorted by KV
+     tier (a dispatch runs on one pool), so mixed traffic issues one
+     dispatch per active tier per round.  Each cohort's round is a burst
+     of K token-steps on the device (``engine.decode_burst``) or a single
+     step for K = 1.  K is the least, over the cohort's rows, of the
+     tokens a row can still emit before its length or capacity limit,
+     capped by ``ServeConfig.max_burst``, rounded down to a power of two, and clamped
+     to 1 while a request waits or a prefill is in flight (so admission
+     latency and prefill interleaving match a burst-free scheduler).  EOS
+     cannot be planned; rows that sample it stop on the device.
+
+Tiers: ``Scheduler(engine, tiers=["bf16", "int8", "fp8"])`` (or a
+{tier: n_slots} mapping) builds one pool per tier from one engine, and a
+request picks its tier by ``Request.kv_policy`` (None: the default tier,
+the engine policy's when served, else the first listed).  With
+``ServeConfig.cache_budget_bytes`` each pool is sized from the budget, so
+the int8 / fp8 tiers hold about twice the bf16 slots.
 
 Retirement (EOS / max-new-tokens / slot capacity) frees the slot at once.
-With greedy sampling a request's tokens do not depend on its slot, its
-batch-mates or its admission time — except under W8A8 weights, whose
-per-tensor activation scale spans every row of a call (the reference's
-``kernels/ops.py:327``), so batch-mates move a row's logits.  The clock is
-injectable for tests.
+A token is a pure function of (seed, id, step, logits): the keys of a
+round's temperature rows come from the per-(request, step) schedule, so a
+request's tokens do not depend on its slot, its batch-mates, its
+admission time, a burst, the other tiers or a preemption — except under
+W8A8 weights, whose per-tensor activation scale spans every row of a call
+(the reference's ``kernels/ops.py:327``), so batch-mates move a row's
+logits, and except that on the card a resume replays the KV through
+another kernel than the one that first wrote it (``request.py``).  The
+clock is injectable for tests.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional
+from typing import (Callable, Deque, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
 from .kv_pool import KVCachePool
 from .metrics import ServeMetrics
 from .request import Request, RequestState
-from .sampling import sample_one
+from .sampling import batched_step_keys, sample_one
 
 
 class Scheduler:
     def __init__(self, engine, *,
+                 tiers: Union[None, Sequence[str],
+                              Mapping[str, Optional[int]]] = None,
                  clock: Callable[[], float] = time.monotonic):
+        """``tiers``: the KV tiers served, as names (each pool sized by the
+        engine's config) or {tier: n_slots} (None: the config's sizing);
+        default one pool at the engine policy's tier."""
         self.engine = engine
-        self.pool: KVCachePool = engine.new_pool()
+        if tiers is None:
+            items = [(None, None)]
+        else:
+            items = list(tiers.items()) if isinstance(tiers, Mapping) \
+                else [(t, None) for t in tiers]
+            if not items:
+                raise ValueError("tiers= must name at least one KV tier")
+        self.pools: Dict[str, KVCachePool] = {}
+        for tier, n in items:
+            pool = engine.new_pool(n_slots=n, kv_dtype=tier)
+            if pool.kv_dtype in self.pools:
+                raise ValueError(f"duplicate KV tier {pool.kv_dtype!r}")
+            self.pools[pool.kv_dtype] = pool
+        default = engine.policy.kv
+        self.default_tier = default if default in self.pools \
+            else next(iter(self.pools))
         self.max_burst = engine.scfg.max_burst
         if self.max_burst < 1:
             raise ValueError("max_burst must be >= 1")
         self.waiting: Deque[Request] = deque()
-        self.running: Dict[int, Request] = {}          # slot -> request
+        self.running: Dict[Tuple[str, int], Request] = {}   # (tier, slot)
         self.finished: List[Request] = []
-        self.metrics = ServeMetrics(self.pool.n_slots)
+        self.metrics = ServeMetrics(sum(p.n_slots
+                                        for p in self.pools.values()))
+        if len(self.pools) > 1:
+            self.metrics.tiers = {t: p.n_slots for t, p in self.pools.items()}
         self._clock = clock
+        self._last_now: Optional[float] = None
         self._next_id = 0
         self.n_steps = 0
         self._dispatch_seq = 0      # engine dispatches (prefill and decode)
+
+    @property
+    def pool(self) -> KVCachePool:
+        """The default tier's pool."""
+        return self.pools[self.default_tier]
 
     @property
     def has_work(self) -> bool:
@@ -61,18 +111,39 @@ class Scheduler:
 
     @property
     def n_decode_steps(self) -> int:
+        """Decode token-steps run (a burst adds its K)."""
         return self.metrics.decode_token_steps
 
-    def submit(self, req: Request) -> Request:
+    @property
+    def n_decode_dispatches(self) -> int:
+        """Decode dispatches (one per tier cohort per round)."""
+        return self.metrics.decode_dispatches
+
+    def _resolve_tier(self, req: Request) -> None:
+        """Set ``req.tier``; raise for a tier not served or a request that
+        overflows its slot."""
+        tier = self.default_tier if req.kv_policy is None else req.kv_policy
+        if tier not in self.pools:
+            raise ValueError(
+                f"request kv_policy={req.kv_policy!r}: no pool at that tier; "
+                f"this scheduler serves {sorted(self.pools)} (build it with "
+                "Scheduler(engine, tiers=[...]))")
+        req.tier = tier
         need = req.prompt_len + req.sampling.max_new_tokens
-        if need > self.pool.max_len:
+        if need > self.pools[tier].max_len:
             raise ValueError(f"request needs {need} cache positions > slot "
-                             f"capacity {self.pool.max_len}")
+                             f"capacity {self.pools[tier].max_len}")
+
+    def submit(self, req: Request) -> Request:
+        """Enqueue; ids are assigned in submit order and never reused (the
+        sampling keys depend on them)."""
+        self._resolve_tier(req)
         if req.id is None:
             req.id = self._next_id
         self._next_id = max(self._next_id, req.id) + 1
         req.state = RequestState.WAITING
         req.arrival_time = self._clock()
+        req.last_enqueue_time = self._last_now = req.arrival_time
         self.metrics.on_arrival(req.arrival_time)
         self.waiting.append(req)
         return req
@@ -91,38 +162,110 @@ class Scheduler:
         (request, slot, token)) and the requests retired (``finished``)."""
         emitted: List = []
         finished_now: List[Request] = []
-        while self.waiting and self.pool.n_free:
-            req = self.waiting.popleft()
-            req.slot = self.pool.alloc()
-            req.prefill_pos = 0
-            req.state = RequestState.PREFILL
-            req.prompt_padded, _ = self.engine.pad_prompt(req.prompt)
-            self.running[req.slot] = req
-
+        admitted = self._admit()
         self._prefill_one_chunk(emitted, finished_now)
 
         dec = sorted((r for r in self.running.values()
                       if r.state is RequestState.DECODE), key=lambda r: r.id)
-        if dec:
-            k = self._plan_burst(dec)
+        for tier in sorted({r.tier for r in dec}):
+            cohort = [r for r in dec if r.tier == tier]
+            pool = self.pools[tier]
+            k = self._plan_burst(cohort, pool)
             if k <= 1:
-                self._decode_single(dec, emitted, finished_now)
+                self._decode_single(cohort, pool, emitted, finished_now)
             else:
-                self._decode_burst(dec, k, emitted, finished_now)
+                self._decode_burst(cohort, pool, k, emitted, finished_now)
 
         self.n_steps += 1
-        self.metrics.on_step(self._clock(), self.pool.n_used)
+        now = self._last_now = self._clock()
+        for req in admitted:
+            req.admit_time = now
+            self.metrics.on_admit(req)
+        self.metrics.on_step(now, {t: p.n_used
+                                   for t, p in self.pools.items()})
         return {"emitted": emitted, "finished": finished_now}
 
     # ------------------------------------------------------------------
-    def _plan_burst(self, dec: List[Request]) -> int:
+    # Admission and preemption
+    # ------------------------------------------------------------------
+    def _admit(self) -> List[Request]:
+        """Scan the queue in (priority, arrival) order and admit what fits,
+        preempting where a strictly lower class holds the slot.  Stops at
+        the first waiter that neither a free slot nor a victim could
+        serve: the scan is priority-sorted, so the rest cannot either."""
+        admitted: List[Request] = []
+        if not self.waiting:
+            return admitted
+        for req in sorted(self.waiting, key=lambda r: r.priority):
+            free = sum(p.n_free for p in self.pools.values())
+            prios = [r.priority for r in self.running.values()
+                     if r.state is RequestState.DECODE]
+            if free == 0 and (not prios or req.priority >= max(prios)):
+                break
+            if self._try_admit(req):
+                admitted.append(req)
+        if admitted:
+            gone = {id(r) for r in admitted}
+            self.waiting = deque(r for r in self.waiting if id(r) not in gone)
+        return admitted
+
+    def _try_admit(self, req: Request) -> bool:
+        pool = self.pools[req.tier]
+        while not pool.n_free:
+            victim = self._pick_victim(req.tier, req.priority)
+            if victim is None:
+                return False
+            self._preempt(victim)
+        req.slot = pool.alloc()
+        req.prefill_pos = 0
+        req.state = RequestState.PREFILL
+        req.prompt_padded, _ = self.engine.pad_prompt(req.prefill_tokens)
+        self.running[(req.tier, req.slot)] = req
+        return True
+
+    def _pick_victim(self, tier: str, priority: int) -> Optional[Request]:
+        """The DECODE request of ``tier`` to evict for a waiter of class
+        ``priority``: strictly lower classes only (two equals would trade
+        one slot forever), the lowest first, then the least generated
+        (cheapest to recompute), then the youngest."""
+        cands = [r for r in self.running.values()
+                 if r.tier == tier and r.state is RequestState.DECODE
+                 and r.priority > priority]
+        if not cands:
+            return None
+        return max(cands, key=lambda r: (r.priority, -r.n_generated, r.id))
+
+    def _preempt(self, req: Request) -> None:
+        """Free ``req``'s slot and requeue it with a resume buffer: the
+        prompt and every generated token but the last (the next decode
+        input, whose KV was never written).  Output and ``n_generated``
+        stay, so with per-(request, step) keys the resumed tokens are
+        those of an unpreempted run."""
+        del self.running[(req.tier, req.slot)]
+        self.pools[req.tier].free(req.slot)
+        req.slot = None
+        req.state = RequestState.WAITING
+        req.resume_prompt = np.concatenate(
+            [req.prompt, np.asarray(req.output_tokens[:-1], np.int32)])
+        req.prompt_padded = None
+        req.prefill_pos = 0
+        req.n_preemptions += 1
+        req.last_enqueue_time = self._last_now
+        req.admit_time = None
+        self.waiting.append(req)
+        self.metrics.on_preempt(req, reason="priority")
+
+    # ------------------------------------------------------------------
+    # Prefill and decode dispatches
+    # ------------------------------------------------------------------
+    def _plan_burst(self, dec: List[Request], pool: KVCachePool) -> int:
         if self.max_burst <= 1 or self.waiting or any(
                 r.state is RequestState.PREFILL for r in self.running.values()):
             return 1
         k = self.max_burst
         for r in dec:
             budget = r.sampling.max_new_tokens - r.n_generated
-            capacity = self.pool.max_len - int(self.pool.lengths[r.slot]) - 1
+            capacity = pool.max_len - int(pool.lengths[r.slot]) - 1
             k = min(k, max(1, min(budget, capacity)))
         return 1 << (k.bit_length() - 1)
 
@@ -133,46 +276,75 @@ class Scheduler:
         if not pre:
             return
         req = min(pre, key=lambda r: r.id)
+        pool = self.pools[req.tier]
         self._dispatch_seq += 1
         c = self.engine.scfg.prefill_chunk
-        start = req.prefill_pos
+        start, plen = req.prefill_pos, req.prefill_len
         logits = self.engine.prefill_chunk_into_slot(
-            self.pool, req.slot, req.prompt_padded, start,
-            prompt_len=req.prompt_len)
-        req.prefill_pos = min(start + c, req.prompt_len)
-        if req.prefill_pos >= req.prompt_len:
-            req.state = RequestState.DECODE
-            tok = sample_one(logits[(req.prompt_len - 1) % c])
-            self._emit(req, tok, emitted, finished_now)
+            pool, req.slot, req.prompt_padded, start, prompt_len=plen,
+            need_logits=not req.is_resuming)
+        req.prefill_pos = min(start + c, plen)
+        if req.prefill_pos < plen:
+            return
+        req.state = RequestState.DECODE
+        if req.is_resuming:
+            # the replay covers prompt + generated[:-1]; decode goes on at
+            # n_generated with the last token as its input
+            req.resume_prompt = None
+            return
+        tok = sample_one(logits[(plen - 1) % c], req.step_key(),
+                         req.sampling.temperature)
+        self._emit(req, tok, emitted, finished_now)
 
-    def _decode_single(self, dec: List[Request], emitted: List,
-                       finished_now: List[Request]) -> None:
-        tokens = np.zeros((self.pool.n_slots,), np.int32)
+    def _key_schedule(self, dec: List[Request], k: int, keys: np.ndarray,
+                      temps: np.ndarray) -> None:
+        """Fill ``keys`` [k, n_slots, 2] and ``temps`` [n_slots] for the
+        temperature rows of ``dec`` (greedy rows keep key 0, never used)."""
+        hot = [r for r in dec if r.sampling.temperature > 0]
+        if not hot:
+            return
+        sched = batched_step_keys([r.sampling.seed for r in hot],
+                                  [r.id or 0 for r in hot],
+                                  [r.n_generated for r in hot], k)
+        for r, row in zip(hot, sched):
+            temps[r.slot] = r.sampling.temperature
+            keys[:, r.slot] = row
+
+    def _decode_single(self, dec: List[Request], pool: KVCachePool,
+                       emitted: List, finished_now: List[Request]) -> None:
+        n = pool.n_slots
+        tokens = np.zeros((n,), np.int32)
+        keys = np.zeros((1, n, 2), np.uint32)
+        temps = np.zeros((n,), np.float32)
         for r in dec:
             tokens[r.slot] = r.last_token
+        self._key_schedule(dec, 1, keys, temps)
         self._dispatch_seq += 1
-        toks = self.engine.decode_slots(self.pool, tokens)
-        self.metrics.on_decode_burst(1, len(dec))
+        toks = self.engine.decode_slots(pool, tokens, keys[0], temps)
+        self.metrics.on_decode_burst(1, len(dec), tier=pool.kv_dtype)
         for r in dec:
-            self.pool.lengths[r.slot] += 1      # the input token's KV
+            pool.lengths[r.slot] += 1      # the input token's KV
             self._emit(r, int(toks[r.slot]), emitted, finished_now)
 
-    def _decode_burst(self, dec: List[Request], k: int, emitted: List,
-                      finished_now: List[Request]) -> None:
-        n = self.pool.n_slots
+    def _decode_burst(self, dec: List[Request], pool: KVCachePool, k: int,
+                      emitted: List, finished_now: List[Request]) -> None:
+        n = pool.n_slots
         tokens = np.zeros((n,), np.int32)
         eos = np.full((n,), -1, np.int32)
         active = np.zeros((n,), bool)
         rem = np.zeros((n,), np.int32)
+        keys = np.zeros((k, n, 2), np.uint32)
+        temps = np.zeros((n,), np.float32)
         for r in dec:
             tokens[r.slot] = r.last_token
             eos[r.slot] = r.sampling.eos_id
             active[r.slot] = True
             rem[r.slot] = r.sampling.max_new_tokens - r.n_generated
+        self._key_schedule(dec, k, keys, temps)
         self._dispatch_seq += 1
-        toks, valid = self.engine.decode_burst(self.pool, tokens, k, active,
-                                               rem, eos)
-        self.metrics.on_decode_burst(k, int(valid.sum()))
+        toks, valid = self.engine.decode_burst(pool, tokens, keys, temps,
+                                               active, rem, eos)
+        self.metrics.on_decode_burst(k, int(valid.sum()), tier=pool.kv_dtype)
         # replay in step-major order; slots captured first because _emit
         # may retire a request mid-replay
         rows = [(r, r.slot) for r in dec]
@@ -195,7 +367,7 @@ class Scheduler:
             self._retire(req, "eos", now, finished_now)
         elif req.n_generated >= sp.max_new_tokens:
             self._retire(req, "length", now, finished_now)
-        elif req.prompt_len + req.n_generated >= self.pool.max_len:
+        elif req.prompt_len + req.n_generated >= self.pools[req.tier].max_len:
             self._retire(req, "capacity", now, finished_now)
 
     def _retire(self, req: Request, reason: str, now: float,
@@ -203,8 +375,8 @@ class Scheduler:
         req.state = RequestState.FINISHED
         req.finish_reason = reason
         req.finish_time = now
-        del self.running[req.slot]
-        self.pool.free(req.slot)
+        del self.running[(req.tier, req.slot)]
+        self.pools[req.tier].free(req.slot)
         req.slot = None
         self.finished.append(req)
         finished_now.append(req)

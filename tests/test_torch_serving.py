@@ -11,14 +11,22 @@ minitron-smoke size.
 * W8A8 (minitron): one activation scale spans every row of a linear's
   call, so batch-mates move a row's logits — in the reference and, the
   same way, in the port; a serve run repeats exactly.
+* KV tiers, temperature and preemption: one port engine serves bf16,
+  int8 and fp8 requests side by side, each request's tokens those of its
+  single-tier run; the greedy rows are the reference's mixed-tier
+  scheduler's, the temperature rows the reference's wherever its perturbed
+  top-2 gap exceeds 0.1 (teacher-forced); a preempted request resumes to
+  its unpreempted tokens.
 All on the CPU (the kernels' plain versions); weights from the reference's
 seeded QuantMaker through the bridge.
 """
 import contextlib
+import dataclasses
 import functools
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +35,9 @@ from repro.configs import get_config
 from repro.models import transformer as RT
 from repro.models.common import QuantMaker as RefQuantMaker
 from repro.quant.policy import PrecisionPolicy as RefPolicy
+from repro.serve import Request as RefRequest
+from repro.serve import SamplingParams as RefSamplingParams
+from repro.serve import Scheduler as RefScheduler
 from repro.serve import ServeConfig as RefServeConfig
 from repro.serve import ServingEngine as RefEngine
 from repro_torch.bridge import params_from_numpy
@@ -35,7 +46,8 @@ from repro_torch.models import common as C
 from repro_torch.models import transformer as T
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import (Request, SamplingParams, Scheduler,
-                               ServeConfig, ServingEngine)
+                               ServeConfig, ServingEngine, bytes_per_slot)
+from repro_torch.serve.sampling import batched_step_keys, sample_rows
 
 TOL = 5e-2
 DECIDED_GAP = 0.1
@@ -302,13 +314,17 @@ def test_slot_reuse_eos_and_metrics(weights):
 
 
 def test_serving_entry_points_refuse_what_is_not_ported(weights):
+    """What is still refused: a request at a KV tier the scheduler does
+    not serve (at submit), a CUDA engine without a card, and a request
+    that overflows its slot."""
     _, _, pcfg, port = weights
-    with pytest.raises(NotImplementedError):
-        SamplingParams(temperature=0.7)
+    eng = _engine(weights, max_len=16)
+    with pytest.raises(ValueError, match="no pool at that tier"):
+        Scheduler(eng, tiers=["bf16", "int8"]).submit(Request(
+            prompt=np.ones(4, np.int32), kv_policy="fp8"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServingEngine(pcfg, port, ServeConfig())      # device="cuda"
-    eng = _engine(weights, max_len=16)
     with pytest.raises(ValueError, match="cache positions"):
         Scheduler(eng).submit(Request(prompt=np.ones(12, np.int32),
                                       sampling=SamplingParams(
@@ -332,3 +348,261 @@ def test_engine_holds_parameters_to_the_policy_schemes():
     assert eng.new_pool().kv_dtype == "fp8"
     with pytest.raises(ValueError, match="attn.wo"):
         ServingEngine(pcfg, params, ServeConfig(device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# KV tiers side by side, temperature rows, priority preemption
+# ---------------------------------------------------------------------------
+TIERS = ("bf16", "int8", "fp8")
+TIER_SEED = 7
+
+
+def _tier_jobs(vocab):
+    """(id, prompt, tier, temperature): two requests a tier, temperature
+    rows on each tier."""
+    prompts = _prompts(vocab, (9, 6, 11, 8, 7, 10), seed=13)
+    tiers = ("bf16", "int8", "fp8", "int8", "bf16", "fp8")
+    temps = (0.0, 0.7, 0.0, 0.0, 0.8, 0.9)
+    return list(zip(range(6), prompts, tiers, temps))
+
+
+def _serve_jobs(sched, jobs, request_cls, sampling_cls, *, tiered=True,
+                late_from=None, max_new=6):
+    """Submit ``jobs`` (the ones from ``late_from`` on once two decode steps
+    ran); returns {id: tokens}."""
+    def submit(job):
+        rid, prompt, tier, temp = job
+        return sched.submit(request_cls(
+            prompt=prompt, id=rid, kv_policy=tier if tiered else None,
+            sampling=sampling_cls(temperature=temp, max_new_tokens=max_new,
+                                  seed=TIER_SEED)))
+
+    late_from = len(jobs) if late_from is None else late_from
+    reqs = [submit(j) for j in jobs[:late_from]]
+    while jobs[late_from:] and sched.n_decode_steps < 2:
+        sched.step()
+    reqs += [submit(j) for j in jobs[late_from:]]
+    sched.run(max_steps=400)
+    assert all(r.is_finished and r.n_generated == max_new for r in reqs)
+    return {r.id: list(r.output_tokens) for r in reqs}
+
+
+@pytest.fixture(scope="module")
+def mixed_run(weights):
+    """The port's mixed-tier run: one engine, three pools of 2 slots,
+    requests admitted mid-flight."""
+    jobs = _tier_jobs(weights[0].vocab)
+    sched = Scheduler(_engine(weights, max_len=32, n_slots=2),
+                      tiers=list(TIERS))
+    got = _serve_jobs(sched, jobs, Request, SamplingParams, late_from=3)
+    return jobs, got, sched
+
+
+@pytest.fixture(scope="module")
+def ref_mixed_run(weights):
+    """The reference's jitted mixed-tier run of the same jobs, meshless,
+    ``PrecisionPolicy(kernel='pallas')``: {id: tokens}."""
+    ref = _ref_engine(weights, "bf16", max_len=32, n_slots=2)
+    return _serve_jobs(RefScheduler(ref, tiers=list(TIERS)),
+                       _tier_jobs(weights[0].vocab), RefRequest,
+                       RefSamplingParams, late_from=3)
+
+
+def test_mixed_tier_engine_equals_single_tier_runs(weights, mixed_run):
+    """One engine serves bf16, int8 and fp8 requests (greedy and seeded
+    temperature rows) side by side: every request's tokens are, bit for
+    bit, those of a single-tier engine at its tier."""
+    jobs, got, sched = mixed_run
+    for tier in TIERS:
+        eng = _engine(weights, tier, max_len=32, n_slots=2)
+        want = _serve_jobs(Scheduler(eng), [j for j in jobs if j[2] == tier],
+                           Request, SamplingParams, tiered=False)
+        for rid, tokens in want.items():
+            assert got[rid] == tokens, (rid, tier)
+    rep = sched.metrics.report()
+    assert rep["tiers"] == {"bf16": 2, "int8": 2, "fp8": 2}
+    assert rep["n_requests"] == 6
+    assert set(rep["decode_dispatches_by_tier"]) == set(TIERS)
+    json.dumps(rep, allow_nan=False)
+
+
+def test_mixed_tier_greedy_rows_equal_reference_scheduler(weights, mixed_run,
+                                                          ref_mixed_run):
+    """The greedy rows equal the reference's meshless mixed-tier scheduler
+    with ``PrecisionPolicy(kernel='pallas')``: bf16 and int8 from its
+    jitted run, fp8 from its run op by op (under ``jit`` XLA keeps some
+    bf16 intermediates in f32, which moves fp8 KV codes)."""
+    jobs, got, _ = mixed_run
+    greedy = [j for j in jobs if j[3] == 0.0]
+    for rid, _, tier, _ in greedy:
+        if tier != "fp8":
+            assert got[rid] == ref_mixed_run[rid], (rid, tier)
+    fp8 = [j for j in greedy if j[2] == "fp8"]
+    assert fp8
+    ref = _ref_engine(weights, "bf16", max_len=32, n_slots=2)
+    with jax.disable_jit():
+        eager = _serve_jobs(RefScheduler(ref, tiers=list(TIERS)), fp8,
+                            RefRequest, RefSamplingParams)
+    for rid, *_ in fp8:
+        assert got[rid] == eager[rid], rid
+
+
+def _ref_perturbed_scores(logits, keys, temp):
+    """The reference's Gumbel-perturbed scores, [T, V]."""
+    t = jnp.maximum(jnp.float32(temp), jnp.float32(1e-6))
+    noise = jax.vmap(lambda k: jax.random.gumbel(k, (logits.shape[1],),
+                                                 jnp.float32))(keys)
+    return np.asarray(noise + jnp.asarray(logits) / t)
+
+
+def test_temperature_rows_equal_reference_where_decided(weights, mixed_run,
+                                                       ref_mixed_run):
+    """Teacher-forced on the reference's tokens of each bf16 / int8
+    temperature row: the port's sampler, on the port's logits and the
+    same keys, picks the reference's token at every step where the
+    reference's perturbed top-2 gap exceeds 0.1."""
+    jobs, _, _ = mixed_run
+    n_decided = 0
+    for rid, prompt, tier, temp in jobs:
+        if temp == 0.0 or tier == "fp8":
+            continue
+        tokens = ref_mixed_run[rid]
+        ref = _ref_engine(weights, tier, max_len=32, n_slots=2)
+        port = _engine(weights, tier, max_len=32, n_slots=2)
+        rpool, ppool = ref.new_pool(), port.new_pool()
+        slot = rpool.alloc()
+        assert ppool.alloc() == slot
+        r_rows = [np.asarray(x, np.float32) for x in
+                  ref.prefill_into_slots(rpool, [slot], [prompt])]
+        p_rows = list(port.prefill_into_slots(ppool, [slot], [prompt]))
+        feed = np.zeros((2,), np.int32)
+        for tok in tokens[:-1]:
+            feed[slot] = tok
+            r_rows.append(np.asarray(ref.decode_slots_with_logits(
+                rpool, feed), np.float32)[slot])
+            p_rows.append(port.decode_slots_with_logits(ppool, feed)[slot])
+            rpool.lengths[slot] += 1
+            ppool.lengths[slot] += 1
+        keys = batched_step_keys([TIER_SEED], [rid], [0], len(tokens))[0]
+        scores = _ref_perturbed_scores(np.stack(r_rows), keys, temp)
+        np.testing.assert_array_equal(scores.argmax(-1), tokens)
+        ids = sample_rows(torch.stack(p_rows), keys,
+                          np.full(len(tokens), temp, np.float32)).numpy()
+        top2 = np.sort(scores, -1)[:, -2:]
+        decided = top2[:, 1] - top2[:, 0] > DECIDED_GAP
+        np.testing.assert_array_equal(ids[decided],
+                                      np.asarray(tokens)[decided])
+        n_decided += int(decided.sum())
+    assert n_decided >= 6
+
+
+def _contended(eng, prompts, temp, max_new=24):
+    """Two low-class requests fill both slots and decode; a high-class
+    arrival then preempts one of them."""
+    sp = SamplingParams(temperature=temp, max_new_tokens=max_new,
+                        seed=TIER_SEED)
+    s = Scheduler(eng)
+    s.submit(Request(prompts[1], sp, id=1, priority=5))
+    s.submit(Request(prompts[2], sp, id=2, priority=5))
+    for _ in range(5):
+        s.step()
+    s.submit(Request(prompts[0], sp, id=0, priority=0))
+    s.run(max_steps=500)
+    return s
+
+
+@pytest.mark.parametrize("temp", [0.0, 0.8], ids=["greedy", "temp"])
+def test_preempt_resume_equals_unpreempted_run(weights, temp):
+    """A high-class arrival preempts a decoding request; the victim is
+    requeued with prompt + generated[:-1], replays it without emitting,
+    and ends with the tokens of an unpreempted run."""
+    eng = _engine(weights, max_len=48, n_slots=2)
+    prompts = _prompts(eng.cfg.vocab, (16, 12, 9), seed=0)
+    base = Scheduler(eng)
+    for i, p in enumerate(prompts):
+        base.submit(Request(p, SamplingParams(
+            temperature=temp, max_new_tokens=24, seed=TIER_SEED), id=i))
+    base.run(max_steps=500)
+    want = {r.id: list(r.output_tokens) for r in base.finished}
+    s = _contended(eng, prompts, temp)
+    assert sum(r.n_preemptions for r in s.finished) >= 1
+    assert {r.id: list(r.output_tokens) for r in s.finished} == want
+    victim = next(r for r in s.finished if r.n_preemptions > 0)
+    assert victim.resume_prompt is None and victim.slot is None
+    assert victim.finish_reason == "length"
+    rep = s.metrics.report()
+    assert rep["finish_reasons"]["preempted_resumed"] >= 1
+    assert rep["preempt_reasons"] == {"priority": rep["preemptions"]}
+    assert set(rep["queue_wait_p50_s"]) == {"0", "5"}
+
+
+def test_victim_selection_lowest_class_least_generated(weights):
+    """The victim is of the lowest class, then the least generated; an
+    equal class never preempts."""
+    eng = _engine(weights, max_len=48, n_slots=3, max_burst=1)
+    prompts = _prompts(eng.cfg.vocab, (8, 8, 8, 8), seed=0)
+
+    def sp(n):
+        return SamplingParams(max_new_tokens=n)
+
+    s = Scheduler(eng)
+    s.submit(Request(prompts[0], sp(24), id=0, priority=1))
+    s.step()
+    s.step()
+    s.submit(Request(prompts[1], sp(24), id=1, priority=5))
+    s.submit(Request(prompts[2], sp(24), id=2, priority=5))
+    for _ in range(6):
+        s.step()
+    gen = {r.id: r.n_generated for r in s.running.values()}
+    assert set(gen) == {0, 1, 2}
+    s.submit(Request(prompts[3], sp(4), id=3, priority=5))
+    s.step()
+    assert all(r.n_preemptions == 0 for r in s.running.values())
+    assert len(s.waiting) == 1
+    s.submit(Request(prompts[3], sp(4), id=4, priority=0))
+    s.step()
+    assert [r.id for r in s.waiting if r.n_preemptions > 0] == [2]
+    assert gen[2] <= gen[1]
+    s.run(max_steps=500)
+    assert all(r.finish_reason == "length" for r in s.finished)
+
+
+def test_mixed_tier_decode_cohorts_one_dispatch_per_tier(weights):
+    """One dispatch per active tier cohort per round: 1 (bf16 alone) + 2 +
+    2 (both) + 1 (int8 alone) = 6 for 6 decode token-steps, as the
+    reference counts."""
+    eng = _engine(weights, max_len=32, n_slots=2, max_burst=1)
+    sched = Scheduler(eng, tiers=["bf16", "int8"])
+    p = np.arange(1, 9, dtype=np.int32)
+    for i, tier in enumerate(("bf16", "int8")):
+        sched.submit(Request(prompt=p, id=i, kv_policy=tier,
+                             sampling=SamplingParams(max_new_tokens=4)))
+    sched.run(max_steps=100)
+    assert sched.metrics.decode_token_steps == 6
+    assert sched.n_decode_dispatches == 6
+    assert sched.metrics.report()["decode_dispatches_by_tier"] == {
+        "bf16": 3, "int8": 3}
+
+
+def test_budget_derived_tier_pools_capacity_ratio():
+    """From one cache budget per tier the int8 tier holds >= 1.9x the bf16
+    slots at d_head 128 (codes 4 a word plus one f32 scale a position and
+    head: 2 Dh / (Dh + 4)); the bytes counted on the meta device are the
+    bytes the pool allocates."""
+    pcfg = dataclasses.replace(port_config("granite-8b", smoke=True),
+                               d_head=128)
+    params = T.build_params(pcfg, C.QuantMaker(0, device="cpu"))
+    eng = ServingEngine(pcfg, params, ServeConfig(
+        max_len=32, prefill_chunk=8, cache_budget_bytes=1_000_000,
+        device="cpu"))
+    sched = Scheduler(eng, tiers=list(TIERS))
+    slots = {t: p.n_slots for t, p in sched.pools.items()}
+    assert slots["int8"] >= 1.9 * slots["bf16"], slots
+    assert slots["fp8"] == slots["int8"]
+    for tier, pool in sched.pools.items():
+        assert pool.kv_dtype == tier
+        per = bytes_per_slot(pcfg, 32, kv_dtype=tier, align=8)
+        assert pool.cache_bytes == per * pool.n_slots
+        assert pool.n_slots == 1_000_000 // per
+    assert sched.pools["bf16"].bytes_per_token > \
+        1.9 * sched.pools["int8"].bytes_per_token
