@@ -81,6 +81,23 @@ non-zero after the last phase; exceptions are not caught):
      int8 / fp8 cohorts, K3 and K4 (int8 and fp8) in the one engine, (vii)
      the sampler on the card against the CPU: bits and uniforms bit for
      bit, Gumbel noise within 4 eps x max(|g|, 1), ids but near ties;
+  5c. after 5b, on granite's parameters: serving from a paged KV pool
+     (``granite-8b-paged``; 8 slots, max_len 512, pages of 64 positions),
+     once with bf16 KV from 144 MiB (16 pages) and once with int8 KV from
+     72 MiB (15 pages), far below full provisioning (65), so admission is
+     page-limited: two 192-token prefixes A and B, A0-A5 = A + a suffix
+     (A1, A4 at temperature 0.8), A6 / A7 = A (full-cover hits, one
+     copy-on-write each), B0-B5 = B + a suffix once A's requests retired
+     (their admission evicts A's cache-only pages), A8, and a priority-0
+     B request that preempts; checks (i) every request not preempted
+     equals its slab-pool run bit for bit, (ii) a resume adopts its
+     registered prompt pages, re-prefills only the tail and is held to its
+     unpreempted run by 5b's rule iv, (iii) prefix hits >= 12, copies >= 2,
+     evictions >= 1 and a waiter held for pages with a slot free, (iv) the
+     allocator's invariants at the end, no page leaked, and after every
+     step no shared page under a write position, (v) every page still
+     registered at the end holds the bytes it had when registered (sha256
+     of codes and scales), (vi) K1, K2, K3 (bf16) and K4 (int8) launched;
   6. model phases only, at full width and cut depth: starcoder2-15b at 4
      layers under fp8 attention / mxfp4 FFN weights with fp8 KV (K1 / K2
      must launch on both formats, K4 on fp8 KV), and nemotron-4-340b at 2
@@ -94,6 +111,7 @@ line is ``{"ok": true, "device": {...}}``.  Every case is also written to
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -171,6 +189,8 @@ PATH_KERNELS = {
                    "decode_attention_quant"),
     "granite-8b-tiers": ("packed_gemv", "packed_matmul",
                          "decode_attention_bf16", "decode_attention_quant"),
+    "granite-8b-paged": ("packed_gemv", "packed_matmul",
+                         "decode_attention_bf16", "decode_attention_quant"),
     "minitron-8b": ("w8a8_matmul", "decode_attention_bf16",
                     "decode_attention_quant"),
     "starcoder2-15b": ("packed_gemv", "packed_matmul",
@@ -185,6 +205,8 @@ PATH_FORMATS = {
     "granite-8b-tiers": ("decode_attention_bf16:bf16",
                          "decode_attention_quant:int8",
                          "decode_attention_quant:fp8"),
+    "granite-8b-paged": ("decode_attention_bf16:bf16",
+                         "decode_attention_quant:int8"),
     "starcoder2-15b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
     "starcoder2-15b-mixed": (
         "packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1",
@@ -193,20 +215,20 @@ PATH_FORMATS = {
     "nemotron-4-340b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
 }
 # the model runs: (path, arch, layers (None: all), policy weights, KV
-# tiers of the model phase, witness variant, serve phase, the mixed-tier
-# path run after the serve phase on the same parameters (or None))
+# tiers of the model phase, witness variant, serve phase, the serving
+# paths run after the serve phase on the same parameters)
 MODEL_RUNS = [
     ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True,
-     "granite-8b-tiers"),
+     ("granite-8b-tiers", "granite-8b-paged")),
     ("minitron-8b", "minitron-8b", None, (), ("bf16", "int8"),
-     "plain_splitkv", True, None),
+     "plain_splitkv", True, ()),
     ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
-     "plain_splitkv", True, None),
+     "plain_splitkv", True, ()),
     ("starcoder2-15b-mixed", "starcoder2-15b", 4,
      (("attn.*", "fp8"), ("ffn.*", "mxfp4")), ("fp8",), "plain_splitkv",
-     False, None),
+     False, ()),
     ("nemotron-4-340b", "nemotron-4-340b", 2, (), ("bf16", "int8"),
-     "plain_splitkv", False, None),
+     "plain_splitkv", False, ()),
 ]
 # the mixed-tier path: one engine, one pool per KV tier, each sized from
 # 576 MiB (36 layers x 8 KV heads x Dh 128 at capacity 512: 8 bf16 slots
@@ -219,6 +241,21 @@ TIERS_SLOTS = {"bf16": 8, "int8": 15, "fp8": 15}
 TIERS_REQUESTS = {"bf16": 10, "int8": 6, "fp8": 6}
 TIERS_LOW_CLASS = 8                 # bf16 requests 0-7: priority 5
 TIERS_TEMPERATURE, TIERS_SEED = 0.8, 7
+# the paged path: granite's parameters, 8 slots, max_len 512, chunk 64, so
+# pages of 64 positions: 9,437,184 B bf16 / 4,866,048 B int8 (36 layers x
+# 8 KV heads x Dh 128, K and V); 144 MiB buys 16 bf16 pages and 72 MiB 15
+# int8 pages, garbage page included (full provisioning: 1 + 8 x 8 = 65)
+PAGED_BUDGETS = {"bf16": 150_994_944, "int8": 75_497_472}
+PAGED_PAGES = {"bf16": 16, "int8": 15}
+PAGED_PREFIX = 192                  # tokens of each shared prefix: 3 pages
+# suffix tokens after the prefix, by request, in id order (prompt + 32 new
+# tokens over 256 positions: 5 pages, 2 of them past the shared ones)
+PAGED_SUFFIX = {"A0": 72, "A1": 40, "A2": 16, "A3": 96, "A4": 56, "A5": 24,
+                "A6": 0, "A7": 0, "B0": 80, "B1": 48, "B2": 64, "B3": 90,
+                "B4": 40, "B5": 72, "A8": 30, "B6": 96}
+PAGED_HOT = ("A1", "A4")            # the paged path's temperature rows
+PAGED_NEW_TOKENS = 32
+PAGED_MAX_STEPS = 2000
 # the sampler on the card against the CPU: [rows, vocab] f32 draws;
 # Gumbel noise within GUMBEL_ULPS ulps of max(|g|, 1) (each platform's
 # log is within one ulp of the other's on the same input), ids equal but
@@ -1132,22 +1169,30 @@ def serve_single_tier(engine, tier, specs, new_tokens):
     return {r.id: list(r.output_tokens) for r in reqs}
 
 
-def replay_logits(engine, spec, tokens, n_slots, resumes=()):
-    """A run recomputed teacher-forced, the [T, V] f32 logits each of
-    ``tokens`` was sampled from: the prompt prefilled into one slot of a
-    fresh pool of the same width, then ``tokens`` fed one per decode step.
-    At each count of generated tokens in ``resumes`` the slot is first
-    refilled as a resume refills it: one chunked prefill of the prompt and
-    every token but the last (``Scheduler._preempt``)."""
+def replay_logits(engine, spec, tokens, n_slots, resumes=None):
+    """A run recomputed teacher-forced on a slab pool, the [T, V] f32
+    logits each of ``tokens`` was sampled from: the prompt prefilled into
+    one slot of a fresh pool of the same width, then ``tokens`` fed one
+    per decode step.  ``resumes`` maps a count of generated tokens to the
+    first position a resume re-prefilled there (0 on a slab pool; a paged
+    pool's resume starts past its adopted prefix pages): the slot is first
+    refilled from that position as the resume refills it, a chunked
+    prefill of the prompt and every token but the last
+    (``Scheduler._preempt``)."""
     _, tier, _, _, prompt = spec
     pool = engine.new_pool(n_slots=n_slots, kv_dtype=tier)
     slot = pool.alloc()
     rows = engine.prefill_into_slots(pool, [slot], [prompt])
     feed = np.zeros((n_slots,), np.int32)
+    c = engine.scfg.prefill_chunk
     for step in range(1, len(tokens)):
-        if step in resumes:
-            engine.prefill_into_slots(pool, [slot], [np.concatenate(
-                [prompt, np.asarray(tokens[:step - 1], np.int32)])])
+        if resumes and step in resumes:
+            padded, n = engine.pad_prompt(np.concatenate(
+                [prompt, np.asarray(tokens[:step - 1], np.int32)]))
+            for off in range(resumes[step], n, c):
+                engine.prefill_chunk_into_slot(pool, slot, padded, off,
+                                               prompt_len=n,
+                                               need_logits=False)
         feed[slot] = tokens[step - 1]
         rows.append(engine.decode_slots_with_logits(pool, feed)[slot])
         pool.lengths[slot] += 1
@@ -1168,6 +1213,51 @@ def decision_scores(spec, logits):
         return logits, bound, ids
     t = torch.as_tensor(temps, device=logits.device)
     return temperature_scores(logits, keys, t), bound / temp, ids
+
+
+def resume_check(single, spec, r, want, resumes, n_slots, path):
+    """Check iv for one preempted request ``r``: its unpreempted tokens
+    ``want`` recomputed teacher-forced must give ``want``; its own tokens,
+    recomputed on the resume's route (``resumes``: {generated count at a
+    preemption: first position re-prefilled}), its tokens; from its first
+    preemption to the step where it parts from ``want``, its logits within
+    ``logit_check``'s bound of the unpreempted run's; and it parts only at
+    a top-2 gap under 5 % of the logit scale.  Returns the logged entry."""
+    rid = spec[0]
+    at = min(resumes)
+    same = next((i for i, (a, b) in enumerate(zip(r.output_tokens, want))
+                 if a != b), len(want))
+    logits = replay_logits(single, spec, want, n_slots)
+    scores, bound, ids = decision_scores(spec, logits)
+    require(list(ids) == want, f"{path}: request {rid}'s teacher-forced "
+                               "recompute does not give its tokens")
+    resumed = replay_logits(single, spec, r.output_tokens, n_slots,
+                            resumes=resumes)
+    require(list(decision_scores(spec, resumed)[2]) == r.output_tokens,
+            f"{path}: request {rid}'s resume recomputed teacher-forced "
+            "does not give its tokens")
+    span = slice(min(at, same), min(same + 1, len(want)))
+    held = LS.logit_check(resumed[span], logits[span])
+    entry = {"id": rid, "tier": r.tier,
+             "temperature": r.sampling.temperature,
+             "preempted_at_token": sorted(resumes),
+             "resume_prefill_from": [resumes[p] for p in sorted(resumes)],
+             "tokens_matched": same,
+             "resumed_logits": {
+                 "tokens": [span.start, span.stop],
+                 "max_abs_logit_diff": held["max_abs_logit_diff"],
+                 "tolerance": held["tolerance"]}}
+    require(held["finite"] and held["logits_ok"],
+            f"{path}: resumed request {rid}'s logits from token {at} "
+            f"are not its unpreempted run's: {entry}")
+    if same < len(want):
+        top2 = scores[same].topk(2).values
+        entry.update(gap=float(top2[0] - top2[1]), bound=float(bound[same]))
+        require(same >= at and entry["gap"] < entry["bound"],
+                f"{path}: resumed request {rid} parts from its "
+                f"unpreempted run at token {same}: {entry}")
+    log(json.dumps({"resume": entry, "path": path}))
+    return entry
 
 
 def sampler_check(dev):
@@ -1275,39 +1365,9 @@ def tiers_phase(cfg, params, chunk, dev):
     resumes = []
     for rid, points in sorted(preempted_at.items()):
         r = next(q for q in reqs if q.id == rid)
-        spec, want, at = by_id[rid], solo[rid], points[0]
-        same = next((i for i, (a, b) in enumerate(zip(r.output_tokens, want))
-                     if a != b), len(want))
-        logits = replay_logits(single, spec, want, slots[r.tier])
-        scores, bound, ids = decision_scores(spec, logits)
-        require(list(ids) == want, f"tiers: request {rid}'s teacher-forced "
-                                   "recompute does not give its tokens")
-        resumed = replay_logits(single, spec, r.output_tokens, slots[r.tier],
-                                resumes=set(points))
-        require(list(decision_scores(spec, resumed)[2]) == r.output_tokens,
-                f"tiers: request {rid}'s resume recomputed teacher-forced "
-                "does not give its tokens")
-        span = slice(min(at, same), min(same + 1, len(want)))
-        held = LS.logit_check(resumed[span], logits[span])
-        entry = {"id": rid, "tier": r.tier,
-                 "temperature": r.sampling.temperature,
-                 "preempted_at_token": points, "tokens_matched": same,
-                 "resumed_logits": {
-                     "tokens": [span.start, span.stop],
-                     "max_abs_logit_diff": held["max_abs_logit_diff"],
-                     "tolerance": held["tolerance"]}}
-        require(held["finite"] and held["logits_ok"],
-                f"tiers: resumed request {rid}'s logits from token {at} "
-                f"are not its unpreempted run's: {entry}")
-        if same < len(want):
-            top2 = scores[same].topk(2).values
-            entry.update(gap=float(top2[0] - top2[1]),
-                         bound=float(bound[same]))
-            require(same >= at and entry["gap"] < entry["bound"],
-                    f"tiers: resumed request {rid} parts from its "
-                    f"unpreempted run at token {same}: {entry}")
-        resumes.append(entry)
-        log(json.dumps({"resume": entry}))
+        resumes.append(resume_check(single, by_id[rid], r, solo[rid],
+                                    {p: 0 for p in points}, slots[r.tier],
+                                    "tiers"))
     # v. one decode dispatch per active tier cohort per round
     rounds = {}
     for d in dispatches:
@@ -1340,6 +1400,243 @@ def tiers_phase(cfg, params, chunk, dev):
     return {"slots": slots, "serve": rep, "resumes": resumes,
             "decode_launches_by_tier": by_tier, "sampler": sampler,
             "rounds": len(rounds)}, launches, formats
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: serving from a paged KV pool
+# ---------------------------------------------------------------------------
+def paged_requests(cfg, seed=5):
+    """{name: (id, tier, priority, temperature, prompt)} of the paged path:
+    two 192-token prefixes A and B from ``seed``, each request its family's
+    prefix plus a suffix of ``PAGED_SUFFIX[name]`` tokens (A6 / A7: none,
+    full-cover hits); A1 and A4 at temperature 0.8; B6 at priority 0, the
+    rest at 5."""
+    rng = np.random.default_rng(seed)
+    pre = {f: rng.integers(1, cfg.vocab, (PAGED_PREFIX,)).astype(np.int32)
+           for f in "AB"}
+    specs = {}
+    for rid, (name, n) in enumerate(PAGED_SUFFIX.items()):
+        prompt = np.concatenate([pre[name[0]], rng.integers(
+            1, cfg.vocab, (n,)).astype(np.int32)])
+        temp = TIERS_TEMPERATURE if name in PAGED_HOT else 0.0
+        specs[name] = (rid, None, 0 if name == "B6" else 5, temp, prompt)
+    return specs
+
+
+def serve_paged(engine, tier, specs, new_tokens, dev):
+    """One paged run at ``tier``: A0 first; A1-A7 one every 2 steps once
+    A0's prefill has published A's pages; B0 once A0-A7 have retired; B1-B5
+    and A8 at once after B0's prefill (more than the arena holds: some wait
+    for pages with a slot free); B6 (priority 0) once B0-B4 decode (it
+    preempts).  After every step the page invariant is checked: no page
+    with refcount > 1 under a running row's write position.  Returns
+    (scheduler, {name: request}, observations)."""
+    sched = Scheduler(engine, tiers=[tier])
+    pool = sched.pools[tier]
+    alloc = pool.allocator
+    obs = {"page_holds": 0, "invariant_breaks": 0, "digests": {},
+           "preempted_at": {}, "resume_from": {}}
+
+    def admit(tokens, max_new, _fn=pool.admit):
+        free = pool.n_free
+        out = _fn(tokens, max_new)
+        obs["page_holds"] += int(out is None and free > 0)
+        return out
+
+    def register(slot, tokens, _fn=pool.register_prefix):
+        known = dict(alloc.page_key)
+        n = _fn(slot, tokens)
+        for page, key in alloc.page_key.items():
+            if known.get(page) != key:
+                obs["digests"][page] = page_digest(pool, page)
+        return n
+
+    pool.admit, pool.register_prefix = admit, register
+    reqs = {}
+
+    def submit(name):
+        rid, _, prio, temp, prompt = specs[name]
+        reqs[name] = sched.submit(make_request((rid, tier, prio, temp, prompt),
+                                               new_tokens))
+
+    def started(name):
+        return name in reqs and reqs[name].n_generated > 0
+
+    queue_a = [f"A{i}" for i in range(1, 8)]
+    queue_b = [f"B{i}" for i in range(1, 6)] + ["A8"]
+    last = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    submit("A0")
+    while sched.has_work or queue_a or queue_b or "B6" not in reqs:
+        step = sched.n_steps
+        if queue_a and started("A0") and step - last >= 2:
+            submit(queue_a.pop(0))
+            last = step
+        elif not queue_a and "B0" not in reqs and all(
+                reqs[f"A{i}"].is_finished for i in range(8)):
+            submit("B0")
+        elif queue_b and started("B0"):
+            while queue_b:
+                submit(queue_b.pop(0))
+        elif not queue_b and "B6" not in reqs and all(
+                started(f"B{i}") for i in range(5)):
+            submit("B6")
+        before = {n: r.n_preemptions for n, r in reqs.items()}
+        if sched.n_steps >= PAGED_MAX_STEPS:
+            require(False, f"paged ({tier}): not drained in "
+                           f"{PAGED_MAX_STEPS} steps")
+            break
+        sched.step()
+        for n, r in reqs.items():
+            if r.n_preemptions > before[n]:
+                obs["preempted_at"].setdefault(n, []).append(r.n_generated)
+            elif (r.n_preemptions and r.slot is not None
+                  and len(obs["resume_from"].get(n, ())) < r.n_preemptions):
+                obs["resume_from"].setdefault(n, []).append(
+                    r.prefix_hit_tokens)
+        for r in sched.running.values():
+            pos = int(pool.lengths[r.slot])
+            if pos < pool.capacity:
+                page = int(pool.page_table[r.slot, pos // pool.page_size])
+                obs["invariant_breaks"] += int(
+                    page != 0 and alloc.refcounts[page] > 1)
+    sync(dev)
+    obs["wall_s"] = time.perf_counter() - t0
+    return sched, reqs, obs
+
+
+def page_digest(pool, page: int) -> str:
+    """sha256 of one arena page's bytes over every layer, K and V, codes
+    and scales."""
+    h = hashlib.sha256()
+    for slab in pool.cache:
+        leaves = [slab.packed, slab.scales] \
+            if isinstance(slab, QuantizedKV) else [slab]
+        for a in leaves:
+            h.update(a[:, page].contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def serve_slab_reference(cfg, params, scfg, tier, specs, new_tokens):
+    """The same requests (ids, seeds, prompts) on a slab pool of the same
+    width, fully provisioned, one class, all at once: {name: tokens}."""
+    engine = ServingEngine(cfg, params, dataclasses.replace(
+        scfg, paged=False, cache_budget_bytes=None))
+    sched = Scheduler(engine, tiers=[tier])
+    reqs = {n: sched.submit(make_request((rid, tier, 0, temp, prompt),
+                                         new_tokens))
+            for n, (rid, _, _, temp, prompt) in specs.items()}
+    sched.run()
+    return {n: list(r.output_tokens) for n, r in reqs.items()}
+
+
+def paged_phase(cfg, params, chunk, dev):
+    """granite-8b FULL from a paged pool, bf16 (16 pages) and int8 (15
+    pages): checks i-vi of the paged path.  Launch counts are set to 0
+    just before the two paged runs and read just after."""
+    specs = paged_requests(cfg)
+    new_tokens = PAGED_NEW_TOKENS
+    base = ServeConfig(paged=True, max_len=512, prefill_chunk=chunk,
+                       n_slots=8, max_burst=8, device=str(dev))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    runs = {}
+    for tier, budget in PAGED_BUDGETS.items():
+        engine = ServingEngine(cfg, params, dataclasses.replace(
+            base, cache_budget_bytes=budget, policy=PrecisionPolicy(kv=tier)))
+        runs[tier] = (engine, *serve_paged(engine, tier, specs, new_tokens,
+                                           dev))
+    launches = ops.launch_counts()
+    formats = ops.format_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(json.dumps({"serve_launches": launches, "by_format": formats,
+                    "path": "granite-8b-paged"}))
+    out = {"tiers": {}}
+    for tier, (engine, sched, reqs, obs) in runs.items():
+        pool = sched.pools[tier]
+        rep = sched.metrics.report()
+        res = {"n_pages": pool.n_pages, "page_bytes": pool.cache_bytes
+               // pool.n_pages, "arena_bytes": pool.cache_bytes,
+               "peak_memory_bytes": peak, "host_wall_s": obs["wall_s"],
+               "tokens_per_s": rep["tokens_per_s"],
+               "ttft_p50_s": rep["ttft_p50_s"],
+               "ttft_hit_p50_s": rep.get("ttft_hit_p50_s"),
+               "ttft_miss_p50_s": rep.get("ttft_miss_p50_s"),
+               "pages": rep["pages"][tier],
+               "prefix_hits": pool.n_prefix_hits,
+               "prefix_misses": pool.n_prefix_misses,
+               "prefix_hit_tokens": pool.prefix_hit_tokens_total,
+               "cow_copies": pool.n_cow_copies,
+               "evictions": pool.n_evictions,
+               "page_holds": obs["page_holds"],
+               "preemptions": rep.get("preemptions", 0),
+               "preempted_at": obs["preempted_at"],
+               "resume_prefix_hit_tokens": obs["resume_from"]}
+        log(json.dumps({"serve": res, "path": "granite-8b-paged",
+                        "kv": tier}))
+        tag = f"paged ({tier})"
+        require(pool.n_pages == PAGED_PAGES[tier],
+                f"{tag}: {pool.n_pages} pages, not {PAGED_PAGES[tier]}")
+        for n, r in reqs.items():
+            require(r.is_finished and r.n_generated == new_tokens,
+                    f"{tag}: {n} finished with {r.n_generated} tokens")
+            require(all(0 <= t < cfg.vocab for t in r.output_tokens),
+                    f"{tag}: {n} emitted an id outside the vocabulary")
+        # i. every request not preempted is its slab run's, bit for bit
+        slab = serve_slab_reference(cfg, params, engine.scfg, tier, specs,
+                                    new_tokens)
+        for n, r in reqs.items():
+            if n not in obs["preempted_at"]:
+                require(r.output_tokens == slab[n],
+                        f"{tag}: {n} (t={r.sampling.temperature}) differs "
+                        "from its slab run")
+        # ii. a resume adopts its registered prompt pages and re-prefills
+        # only the tail; held to its unpreempted run by check iv's rule
+        require(obs["preempted_at"], f"{tag}: no preemption")
+        single = ServingEngine(cfg, params, dataclasses.replace(
+            engine.scfg, paged=False, cache_budget_bytes=None))
+        res["resumes"] = []
+        for n, points in sorted(obs["preempted_at"].items()):
+            hits = obs["resume_from"].get(n, [])
+            require(len(hits) == len(points) and all(h > 0 for h in hits),
+                    f"{tag}: {n}'s resume adopted no prefix pages ({hits})")
+            if len(hits) != len(points):
+                continue
+            rid, _, prio, temp, prompt = specs[n]
+            res["resumes"].append(resume_check(
+                single, (rid, tier, prio, temp, prompt), reqs[n], slab[n],
+                dict(zip(points, hits)), engine.scfg.n_slots,
+                f"paged-{tier}"))
+        # iii. prefix hits, copies, evictions, a waiter held for pages
+        require(pool.n_prefix_hits >= 12,
+                f"{tag}: {pool.n_prefix_hits} prefix hits, not >= 12")
+        require(pool.n_cow_copies >= 2,
+                f"{tag}: {pool.n_cow_copies} COW copies, not >= 2")
+        require(pool.n_evictions >= 1, f"{tag}: no eviction")
+        require(obs["page_holds"] >= 1,
+                f"{tag}: no waiter held for pages with a slot free")
+        # iv. the allocator's invariants, no leak, no shared page written to
+        try:
+            pool.allocator.check()
+        except AssertionError as e:
+            require(False, f"{tag}: allocator invariant: {e}")
+        require(pool.pages_in_use == 0
+                and pool.pages_free + pool.pages_cached == pool.n_pages - 1,
+                f"{tag}: pages leak: {res['pages']}")
+        require(obs["invariant_breaks"] == 0,
+                f"{tag}: {obs['invariant_breaks']} shared pages under a "
+                "write position")
+        # v. every page still registered holds its bytes of registration
+        changed = [p for p in pool.allocator.page_key
+                   if page_digest(pool, p) != obs["digests"][p]]
+        res["registered_pages_checked"] = len(pool.allocator.page_key)
+        require(not changed, f"{tag}: registered pages {changed} changed")
+        out["tiers"][tier] = res
+    # vi. K1 / K2 / K3 (bf16) / K4 (int8) launched, K5 / K6 not
+    check_path_launches("granite-8b-paged", launches, formats)
+    return out, launches, formats
 
 
 def check_path_launches(path: str, launches, formats=None) -> None:
@@ -1406,7 +1703,9 @@ def main() -> None:
     got = launches_by_path["xtramac-datapath"]["virtual_dsp_multiply"]
     require(got == want, f"datapath: {got} K6 launches, {want} xtramac_packed "
                          "calls and pipeline issues")
-    for path, arch, layers, weights, tiers, witness, serves, mixed \
+    extra_phases = {"granite-8b-tiers": tiers_phase,
+                    "granite-8b-paged": paged_phase}
+    for path, arch, layers, weights, tiers, witness, serves, extras \
             in MODEL_RUNS:
         cfg = get_config(arch)
         if layers is not None:      # full width, cut depth
@@ -1444,16 +1743,16 @@ def main() -> None:
                             seconds=time.perf_counter() - t0)
         log(json.dumps({"path": path, "model_and_serve_s":
                         result[path]["seconds"]}))
-        if mixed is not None:
+        for extra in extras:
             t0 = time.perf_counter()
-            result[mixed], launches, formats = tiers_phase(cfg, params,
-                                                           chunk, dev)
-            launches_by_path[mixed] = launches
-            result[mixed].update(launches=launches,
+            result[extra], launches, formats = extra_phases[extra](
+                cfg, params, chunk, dev)
+            launches_by_path[extra] = launches
+            result[extra].update(launches=launches,
                                  launches_by_format=formats,
                                  seconds=time.perf_counter() - t0)
-            log(json.dumps({"path": mixed, "seconds":
-                            result[mixed]["seconds"]}))
+            log(json.dumps({"path": extra, "seconds":
+                            result[extra]["seconds"]}))
         del params                  # free the card for the next model
         torch.cuda.empty_cache()
 

@@ -28,7 +28,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.quant.kv_cache import QuantizedKV, cache_read
+from repro_torch.quant.kv_cache import QuantizedKV, cache_read, gather_pages
 
 from . import build
 
@@ -77,6 +77,19 @@ def decode_attention_plain(q: torch.Tensor, k_cache, v_cache,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bgrk,bkgd->bgrd", p, v) / torch.clamp(l, min=1e-30)
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_arena, v_arena,
+                                 table: torch.Tensor,
+                                 kv_valid_len: torch.Tensor) -> torch.Tensor:
+    """Paged decode attention = page gather + slab attention (the twin of
+    the reference's ``kernels/ref.py:paged_decode_attention_ref``): each
+    row's virtual slab gathered from the arenas [n_pages, page_size, Hk,
+    Dh] through ``table`` [B, pages_per_slot], then
+    ``decode_attention_plain``.  Pages gathered past a row's valid length
+    (the garbage page among them) weigh exactly zero."""
+    return decode_attention_plain(q, gather_pages(k_arena, table),
+                                  gather_pages(v_arena, table), kv_valid_len)
 
 
 def split_plan(sk: int):

@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch granite-8b
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch minitron-8b
   PYTHONPATH=src python -m repro_torch.launch.profile_step --temperature 0.8
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --paged
 
 Builds the model on the card, fills every slot with one prefill chunk,
 then times (a) prefill chunks and (b) decode steps over all slots: host
@@ -13,8 +14,16 @@ durations), the idle share 1 - busy / wall, and the kernels ranked by
 device time.  With ``--temperature`` every row also samples at that
 temperature with its own threefry keys: (c) the decode step so, and (d)
 the sampler alone (``sample_rows`` on [n_slots, vocab] f32 logits), so (c)
-minus (b) and (d) are the sampler's cost.  Device numbers come only from
-the profiler's CUDA activity; when it reports none they are null.
+minus (b) and (d) are the sampler's cost.  With ``--paged`` the same slots
+are also filled in a fully provisioned paged pool (pages of one prefill
+chunk) and (e) its prefill chunks and (f) its decode steps are timed the
+same way, beside (g) the page gather alone: every layer's K and V virtual
+slabs gathered through the full page table, as a decode step gathers
+them.  ``paged_minus_slab_ms`` lists, by kernel name, the device time per
+step that a paged step adds to the slab one (the gather's indexing
+kernels and the writes through the table).  Device numbers come
+only from the profiler's CUDA activity; when it reports none they are
+null.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from repro_torch.models.common import QuantMaker
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.serve.engine import resolve_device
+from repro_torch.quant.kv_cache import gather_pages
 from repro_torch.serve.sampling import batched_step_keys, sample_rows
 
 
@@ -44,6 +54,15 @@ def _kernel_times(prof, steps: int):
                              + evt.time_range.elapsed_us() / 1e3)
     return sorted(((n, t / steps) for n, t in per.items()),
                   key=lambda kv: -kv[1])
+
+
+def _by_name(kernels):
+    """{kernel name: ms} from ``measure``'s list (names cut to 80 chars
+    may repeat: summed)."""
+    out = {}
+    for k in kernels:
+        out[k["name"]] = out.get(k["name"], 0.0) + k["ms"]
+    return out
 
 
 def measure(step, steps: int, dev, top=12):
@@ -78,6 +97,8 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--paged", action="store_true",
+                    help="also time the steps on a paged pool")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -105,8 +126,11 @@ def main(argv=None) -> None:
     decode()           # warm-up: kernel build and first launches
     out = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
            "kv": args.kv_dtype, "n_slots": args.n_slots, "chunk": args.chunk,
-           "prefill_chunk": measure(prefill, args.steps, dev),
-           "decode_step": measure(decode, args.steps, dev)}
+           "prefill_chunk": measure(prefill, args.steps, dev, top=None),
+           "decode_step": measure(decode, args.steps, dev, top=None)}
+    slab = {k: out[k] for k in ("prefill_chunk", "decode_step")}
+    for k in slab:
+        out[k] = dict(slab[k], kernels=slab[k]["kernels"][:12])
     if args.temperature > 0:
         n = args.n_slots
         keys = batched_step_keys(np.full(n, args.seed), np.arange(n),
@@ -126,7 +150,54 @@ def main(argv=None) -> None:
                    decode_step_temperature=measure(decode_temperature,
                                                    args.steps, dev),
                    sampler=measure(sampler, args.steps, dev))
+    if args.paged:
+        out.update(paged_steps(cfg, params, args, prompt, tokens, dev, slab))
     print(json.dumps(out))
+
+
+def paged_steps(cfg, params, args, prompt, tokens, dev, slab):
+    """(e) prefill chunks, (f) decode steps and (g) the page gather alone on
+    a fully provisioned paged pool holding the same slots; ``slab`` holds
+    the slab pool's steps, every kernel listed, for the difference."""
+    engine = ServingEngine(cfg, params, ServeConfig(
+        max_len=512, n_slots=args.n_slots, prefill_chunk=args.chunk,
+        paged=True, policy=PrecisionPolicy(kv=args.kv_dtype),
+        device=str(dev)))
+    pool = engine.new_pool()
+    for _ in range(args.n_slots):
+        slot, _, _ = pool.admit(prompt, 1)
+        engine.prefill_chunk_into_slot(pool, slot, prompt, 0)
+    pool.ensure_decode(range(args.n_slots), 1)
+    table = torch.as_tensor(pool.page_table, dtype=torch.int64, device=dev)
+
+    def prefill():      # rewrites slot 0's first chunk (lengths unchanged)
+        engine.prefill_chunk_into_slot(pool, 0, prompt, 0)
+
+    def decode():
+        engine.decode_slots(pool, tokens)
+
+    def gather():       # what one decode step gathers, every layer
+        k_all, v_all = pool.cache
+        for layer in range(cfg.n_layers):
+            gather_pages(k_all[layer], table)
+            gather_pages(v_all[layer], table)
+
+    prefill()
+    decode()
+    gather()
+    out = {"page_size": pool.page_size, "n_pages": pool.n_pages,
+           "arena_bytes": pool.cache_bytes}
+    for kind, step in (("prefill_chunk", prefill), ("decode_step", decode)):
+        res = measure(step, args.steps, dev, top=None)
+        base, mine = _by_name(slab[kind]["kernels"]), _by_name(res["kernels"])
+        extra = sorted(((n, mine.get(n, 0.0) - base.get(n, 0.0))
+                        for n in set(base) | set(mine)),
+                       key=lambda kv: -kv[1])
+        out[kind] = dict(res, kernels=res["kernels"][:12],
+                         paged_minus_slab_ms=[{"name": n, "ms": t}
+                                              for n, t in extra[:8]])
+    out["gather"] = measure(gather, args.steps, dev)
+    return {"paged": out}
 
 
 if __name__ == "__main__":

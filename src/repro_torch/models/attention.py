@@ -10,7 +10,9 @@ Two execution modes, as in the reference:
     flash-decode kernel reads the (packed) slab directly.
 
 Shapes: x [B, S, D]; heads [B, S, H, Dh]; KV slabs [B, Smax, Hk, Dh]
-(bf16 or ``QuantizedKV``).  Cache writes go into the slab in place.
+(bf16 or ``QuantizedKV``).  Cache writes go into the slab in place.  With
+a page table the cache is a page arena instead: the new rows are written
+through the table, and the rows' virtual slabs are gathered for the read.
 """
 from __future__ import annotations
 
@@ -21,8 +23,9 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.ops import fused_decode_attention
-from repro_torch.quant.kv_cache import (cache_read, cache_write_rows,
-                                        cache_write_slice)
+from repro_torch.quant.kv_cache import (cache_read, cache_write_pages,
+                                        cache_write_rows, cache_write_slice,
+                                        gather_pages)
 
 from .common import apply_linear, apply_rope
 
@@ -125,14 +128,21 @@ def _attend_chunked(q, k, v, *, q_offset, kv_chunk, kv_valid_len):
 
 
 def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
-                cache: Tuple, cache_index, plain: bool = False):
+                cache: Tuple, cache_index, plain: bool = False,
+                page_table: Optional[torch.Tensor] = None):
     """x [B, S, D] -> out [B, S, D]; writes the new K/V into ``cache``.
 
     ``cache`` = (k_slab, v_slab) [B, Smax, Hk, Dh] views of the pool,
     updated in place.  ``cache_index``: an int offset (prefill chunk: S
     positions written at ``cache_index``, attention over the slab) or a [B]
     tensor (decode, S == 1: row i writes and attends at its own length,
-    through the fused decode kernel)."""
+    through the fused decode kernel).
+
+    ``page_table`` [B, pages_per_slot] int64 (paged pools): ``cache`` is
+    then a page arena [n_pages, page_size, Hk, Dh] per slab; the rows are
+    written through the table and the attention reads each row's gathered
+    virtual slab, the same bytes at the same [row, position] as a slab
+    pool holds."""
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = apply_linear(params["wq"], x, plain=plain).reshape(b, s, h, dh)
@@ -148,9 +158,16 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     k_cache, v_cache = cache
-    if per_row:
-        if s != 1:
-            raise ValueError("per-row cache_index is the decode (S == 1) path")
+    if per_row and s != 1:
+        raise ValueError("per-row cache_index is the decode (S == 1) path")
+    if page_table is not None:
+        pos = positions.expand(b, s)
+        cache_write_pages(k_cache, k, page_table, pos)
+        cache_write_pages(v_cache, v, page_table, pos)
+        k_cache = gather_pages(k_cache, page_table)
+        v_cache = gather_pages(v_cache, page_table)
+        valid = (pos[:, -1] + 1).to(torch.int32)
+    elif per_row:
         rows = torch.arange(b, device=x.device)
         cache_write_rows(k_cache, k, rows, cache_index)
         cache_write_rows(v_cache, v, rows, cache_index)

@@ -9,7 +9,10 @@ of the dense path of ``repro/models/transformer.py``).
     at its own length), attention through the fused decode kernel.
 
 The cache is ``(k, v)``: stacked per-layer slabs [L, B, Smax, Hk, Dh] (bf16
-or ``QuantizedKV``), written in place.  ``plain=True`` runs every kernel's
+or ``QuantizedKV``), written in place; with a ``page_table`` [B,
+pages_per_slot], page arenas [L, n_pages, page_size, Hk, Dh] instead
+(paged pools: each layer writes through the table and reads the gathered
+virtual slabs).  ``plain=True`` runs every kernel's
 plain version instead (the on-card reference for the kernels).
 """
 from __future__ import annotations
@@ -114,7 +117,7 @@ def _logits(params: DenseLM, x, plain: bool):
 
 def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
             cache: Tuple, cache_index, mode: str, need_logits: bool = True,
-            plain: bool = False,
+            plain: bool = False, page_table: Optional[torch.Tensor] = None,
             layer_out: Optional[list] = None) -> Optional[torch.Tensor]:
     """tokens [B, S] -> logits [B, S, V] f32 (None when ``need_logits`` is
     False: the lm-head is skipped).  ``cache`` is updated in place.  A
@@ -128,7 +131,8 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
     for l, blk in enumerate(params.layers):
         h = rms_norm(x, blk.ln1)
         x = x + A.gqa_forward(blk.attn, acfg, h, cache=(k_all[l], v_all[l]),
-                              cache_index=cache_index, plain=plain)
+                              cache_index=cache_index, plain=plain,
+                              page_table=page_table)
         x = x + _ffn(cfg, blk.ffn, rms_norm(x, blk.ln2), plain)
         if layer_out is not None:
             layer_out.append(x)

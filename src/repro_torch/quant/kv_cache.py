@@ -10,6 +10,16 @@ and, unlike the reference's pure functions, **update the slab in place**
 (the serving pool owns one preallocated cache; copying it per step would
 double its memory traffic).  They also return the slab, so call sites read
 like the reference.
+
+Paged pools (``serve/kv_pool.PagedKVPool``) keep each layer's cache as a
+page arena [n_pages, page_size, ...] with a page table [n_slots,
+pages_per_slot] over it.  ``cache_write_pages`` writes new rows through
+the table straight into the arena, and ``gather_pages`` materializes the
+virtual slab [n_slots, pages_per_slot * page_size, ...] — the layout the
+slab pool stores — for the unchanged attention that reads it.  (The
+reference gathers, writes into the gathered slab and scatters it all
+back; the arena then holds the same bytes on every page but the garbage
+page 0, which is never read at an attended position.)
 """
 from __future__ import annotations
 
@@ -89,3 +99,42 @@ def cache_read(slab, dtype=torch.bfloat16) -> torch.Tensor:
         return kv_dequantize(get_kv_scheme(slab.scheme_name), slab.packed,
                              slab.scales, dtype)
     return slab
+
+
+def cache_write_pages(arena, vals: torch.Tensor, table: torch.Tensor,
+                      positions: torch.Tensor):
+    """Write ``vals`` [B, S, ...] through the page table, in place: row b's
+    position ``p = positions[b, s]`` lands at ``arena[table[b, p // ps],
+    p % ps]``.  ``table`` [B, pages_per_slot] and ``positions`` [B, S] are
+    int64 tensors on the arena's device (no host read).  Rows that map to
+    one page at one offset (unmapped entries: the garbage page) leave an
+    unspecified winner there."""
+    base = arena.packed if isinstance(arena, QuantizedKV) else arena
+    ps = base.shape[1]
+    pages = torch.gather(table, 1, positions // ps).reshape(-1)
+    offs = (positions % ps).reshape(-1)
+    flat = vals.reshape((-1,) + tuple(vals.shape[2:]))
+    if isinstance(arena, QuantizedKV):
+        packed, scales = kv_quantize(get_kv_scheme(arena.scheme_name), flat)
+        arena.packed[pages, offs] = packed
+        arena.scales[pages, offs] = scales
+        return arena
+    arena[pages, offs] = flat.to(arena.dtype)
+    return arena
+
+
+def gather_pages(arena, table: torch.Tensor):
+    """The virtual slab of every table row: ``arena`` [n_pages, page_size,
+    ...] (bf16 or ``QuantizedKV``: codes and scales gathered in
+    lockstep), ``table`` [n_slots, pages_per_slot] int64 page ids ->
+    [n_slots, pages_per_slot * page_size, ...], a fresh contiguous tensor
+    in the slab pool's layout."""
+    n_slots, pp = table.shape
+
+    def g(a):
+        return a[table].reshape((n_slots, pp * a.shape[1]) + a.shape[2:])
+
+    if isinstance(arena, QuantizedKV):
+        return QuantizedKV(g(arena.packed), g(arena.scales),
+                           arena.scheme_name)
+    return g(arena)

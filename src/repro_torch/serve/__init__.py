@@ -1,8 +1,12 @@
-"""Continuous-batching serving over slot KV pools (torch twin of the slab
-path of ``repro.serve``): engine step primitives, a scheduler with one pool
-per KV tier, priority preemption, chunked prefill and mid-flight admission,
-greedy and seeded temperature sampling (``threefry.py``), metrics."""
+"""Continuous-batching serving over slot KV pools (torch twin of
+``repro.serve``): engine step primitives, slab or paged pools (page
+tables, copy-on-write prefix sharing, LRU eviction), a scheduler with one
+pool per KV tier, priority preemption, chunked prefill and mid-flight
+admission, greedy and seeded temperature sampling (``threefry.py``),
+metrics."""
 from .engine import ServeConfig, ServingEngine  # noqa: F401
-from .kv_pool import KVCachePool, bytes_per_slot, slots_for_budget  # noqa: F401
+from .kv_pool import (KVCachePool, PagedKVPool, PageAllocator,  # noqa: F401
+                      bytes_per_page, bytes_per_slot, pages_for_budget,
+                      slots_for_budget)
 from .request import Request, RequestState, SamplingParams  # noqa: F401
 from .scheduler import Scheduler  # noqa: F401

@@ -18,9 +18,15 @@ slab path of ``repro/serve/engine.py``).
 ``new_pool`` builds a slot pool at any KV tier; one engine's parameters
 serve every tier's pool (the scheduler holds one pool per tier).  With
 ``cache_budget_bytes`` the slot count comes from the budget and the tier's
-bytes per slot.  Weights, the pools and all step tensors live on
-``ServeConfig.device`` ("cuda" by default; the tests pass "cpu", where
-the kernels' plain versions run).  The pool cache is updated in place.
+bytes per slot.  With ``ServeConfig.paged`` the pool is a ``PagedKVPool``
+instead: the budget buys arena pages, the slot count stays the config's,
+and every step also takes the page table (on the device once per
+dispatch; a burst indexes it with its device-side lengths).  The caller
+pins each decode step's write window first (``PagedKVPool.ensure_decode``;
+the prefill step pins its own chunk).  Weights, the pools and all step
+tensors live on ``ServeConfig.device`` ("cuda" by default; the tests pass
+"cpu", where the kernels' plain versions run).  The pool cache is updated
+in place.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import QLinear
 from repro_torch.quant.policy import PrecisionPolicy, validate_kv_tier
 
-from .kv_pool import KVCachePool, slots_for_budget
+from .kv_pool import (KVCachePool, PagedKVPool, pages_for_budget,
+                      slots_for_budget)
 from .sampling import sample_on_device, sampler_inputs
 
 
@@ -50,6 +57,11 @@ class ServeConfig:
     cache_budget_bytes: Optional[int] = None
     prefill_chunk: int = 16   # chunked-prefill granularity
     max_burst: int = 8        # cap on decode-burst length K (1 = no bursts)
+    # paged KV: one page arena per pool with page tables, copy-on-write
+    # prefix sharing and LRU eviction; ``page_size`` 0 is the prefill
+    # chunk, any other value must be a multiple of it
+    paged: bool = False
+    page_size: int = 0
     # weight schemes the parameters must carry, and the KV-cache tier
     policy: PrecisionPolicy = PrecisionPolicy()
     device: str = "cuda"
@@ -101,20 +113,37 @@ class ServingEngine:
                 f"parameters do not carry the policy's schemes at {diff} "
                 "(build them with QuantMaker(plan=policy.resolved_plan(cfg)))")
         self.params = params.to(self.device)
+        c = serve_cfg.prefill_chunk
+        if serve_cfg.page_size < 0 or serve_cfg.page_size % c:
+            raise ValueError(f"page_size {serve_cfg.page_size} must be 0 "
+                             f"(the prefill chunk) or a multiple of {c}")
 
     # ------------------------------------------------------------------
     def new_pool(self, n_slots: Optional[int] = None,
                  max_len: Optional[int] = None,
-                 kv_dtype: Optional[str] = None) -> KVCachePool:
+                 kv_dtype: Optional[str] = None):
         """A slot pool at KV tier ``kv_dtype`` (default: the policy's),
         ``max_len`` positions a slot (default: the config's; capacity
         rounded up to whole prefill chunks).  Without ``n_slots`` the
         width is budget-derived when ``cache_budget_bytes`` is set, else
-        the config's ``n_slots``."""
+        the config's ``n_slots``.  Paged: a ``PagedKVPool`` of the
+        config's ``n_slots`` (or ``n_slots``), its arena sized from the
+        budget when one is set, else fully provisioned."""
         tier = self.policy.kv if kv_dtype is None \
             else validate_kv_tier(kv_dtype, self.cfg)
         max_len = max_len or self.scfg.max_len
         c = self.scfg.prefill_chunk
+        if self.scfg.paged:
+            page_size = self.scfg.page_size or c
+            n_pages = None
+            if self.scfg.cache_budget_bytes is not None:
+                n_pages = pages_for_budget(
+                    self.cfg, max_len, self.scfg.cache_budget_bytes,
+                    kv_dtype=tier, page_size=page_size, align=c)
+            return PagedKVPool(self.cfg, n_slots or self.scfg.n_slots,
+                               max_len, kv_dtype=tier, align=c,
+                               page_size=page_size, n_pages=n_pages,
+                               device=self.device)
         if n_slots is None:
             n_slots = self.scfg.n_slots \
                 if self.scfg.cache_budget_bytes is None else slots_for_budget(
@@ -156,10 +185,18 @@ class ServingEngine:
                              f"(prompt {prompt_len}, capacity {pool.max_len})")
         final = (offset + n >= prompt_len) and need_logits
         chunk = self._tensor(prompt[offset:offset + c][None])
-        slot_cache = tuple(slab[:, slot:slot + 1] for slab in pool.cache)
-        logits = T.forward(self.cfg, self.params, chunk, cache=slot_cache,
+        if pool.paged:
+            # pin the chunk's write window (a fresh page, or the copy of a
+            # shared one on a full-cover prefix hit) before the write
+            pool.ensure(slot, offset + c)
+            cache, table = pool.cache, self._tensor(
+                pool.page_table[slot:slot + 1])
+        else:
+            cache = tuple(slab[:, slot:slot + 1] for slab in pool.cache)
+            table = None
+        logits = T.forward(self.cfg, self.params, chunk, cache=cache,
                            cache_index=offset, mode="prefill_chunk",
-                           need_logits=final)
+                           need_logits=final, page_table=table)
         pool.lengths[slot] = offset + n
         return logits[0] if final else None
 
@@ -178,11 +215,17 @@ class ServingEngine:
             out.append(logits[(n - 1) % c])
         return out
 
+    def _page_table(self, pool) -> Optional[torch.Tensor]:
+        """The pool's page table on the device (None for a slab pool).  The
+        caller has pinned every row's write window."""
+        return self._tensor(pool.page_table) if pool.paged else None
+
     def _decode_logits(self, pool: KVCachePool, tokens: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       lengths: torch.Tensor,
+                       table: Optional[torch.Tensor]) -> torch.Tensor:
         logits = T.forward(self.cfg, self.params, tokens[:, None],
                            cache=pool.cache, cache_index=lengths,
-                           mode="decode")
+                           mode="decode", page_table=table)
         return logits[:, -1]
 
     @torch.no_grad()
@@ -196,7 +239,8 @@ class ServingEngine:
         n = pool.n_slots
         keys, t, hot = sampler_inputs(keys, temps, n, self.device)
         toks = self._tensor(np.asarray(tokens).reshape(n))
-        logits = self._decode_logits(pool, toks, self._tensor(pool.lengths))
+        logits = self._decode_logits(pool, toks, self._tensor(pool.lengths),
+                                     self._page_table(pool))
         return sample_on_device(logits, keys, t, hot).cpu().numpy()
 
     @torch.no_grad()
@@ -204,7 +248,8 @@ class ServingEngine:
                                  tokens: np.ndarray) -> torch.Tensor:
         """``decode_slots`` returning the [n_slots, V] f32 logits instead."""
         toks = self._tensor(np.asarray(tokens).reshape(pool.n_slots))
-        return self._decode_logits(pool, toks, self._tensor(pool.lengths))
+        return self._decode_logits(pool, toks, self._tensor(pool.lengths),
+                                   self._page_table(pool))
 
     @torch.no_grad()
     def decode_burst(self, pool: KVCachePool, tokens: np.ndarray,
@@ -232,10 +277,11 @@ class ServingEngine:
         act = self._tensor(active, torch.bool)
         rem = self._tensor(remaining)
         eos = self._tensor(eos_ids)
+        table = self._page_table(pool)
         out = torch.empty((2, k, n), dtype=torch.int64, device=self.device)
         for t in range(k):
             sampled = sample_on_device(
-                self._decode_logits(pool, toks, lengths),
+                self._decode_logits(pool, toks, lengths, table),
                 None if keys is None else keys[t], t_dev, hot)
             step = act.to(torch.int64)
             lengths = lengths + step

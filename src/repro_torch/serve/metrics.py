@@ -13,6 +13,11 @@
   * preemptions — slots evicted for a higher class; ``finish_reasons``
             adds ``preempted_resumed`` (finished after >= 1 preemption) as
             an overlay, not a term of the sum.
+  * prefix cache (paged pools) — requests that adopted cached prompt
+            pages (hits) or none (misses), the tokens adopted, TTFT split
+            by hit and miss (a hit skips its cached chunks), and per tier
+            the arena's pages in use, cache-only and free at their
+            extremes, copy-on-write copies and evictions.
 
 All K tokens of a decode burst surface at its end, so raw ITL percentiles
 are burst-granular; ``itl_burst_spread_*`` spreads each burst's wall time
@@ -60,6 +65,13 @@ class ServeMetrics:
         # {tier: n_slots} when the scheduler serves several KV tiers
         self.tiers: Optional[Dict[str, int]] = None
         self.ttft: List[float] = []
+        # TTFT by prefix-cache outcome (slab pools fill ttft_miss only)
+        self.ttft_hit: List[float] = []
+        self.ttft_miss: List[float] = []
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_hit_tokens = 0
+        self.pages: Dict[str, Dict[str, int]] = {}    # by tier
         self.itl: List[float] = []
         self.itl_spread: List[float] = []
         self.e2e: List[float] = []
@@ -117,6 +129,18 @@ class ServeMetrics:
                                             + dt * used / self.tiers[tier])
         self._last_sample = now
 
+    def on_pages(self, tier: str, pool) -> None:
+        """Sample a paged pool's arena after a step."""
+        acc = self.pages.setdefault(tier, {
+            "n_pages": pool.n_pages, "used_peak": 0, "cached_peak": 0,
+            "free_min": pool.pages_free})
+        acc["used_peak"] = max(acc["used_peak"], pool.pages_in_use)
+        acc["cached_peak"] = max(acc["cached_peak"], pool.pages_cached)
+        acc["free_min"] = min(acc["free_min"], pool.pages_free)
+        acc.update(used=pool.pages_in_use, cached=pool.pages_cached,
+                   free=pool.pages_free, cow_copies=pool.n_cow_copies,
+                   evictions=pool.n_evictions)
+
     def on_decode_burst(self, k: int, tokens_emitted: int,
                         tier: Optional[str] = None) -> None:
         self.decode_dispatches += 1
@@ -135,7 +159,15 @@ class ServeMetrics:
         if req.n_preemptions > 0:
             self.n_resumed += 1
         if req.first_token_time is not None and req.arrival_time is not None:
-            self.ttft.append(req.first_token_time - req.arrival_time)
+            ttft = req.first_token_time - req.arrival_time
+            self.ttft.append(ttft)
+            hit = req.prefix_hit_tokens > 0
+            if hit:
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += req.prefix_hit_tokens
+            else:
+                self.prefix_misses += 1
+            (self.ttft_hit if hit else self.ttft_miss).append(ttft)
             if req.finish_time is not None:
                 self.e2e.append(req.finish_time - req.arrival_time)
         if len(req.token_times) > 1:
@@ -173,6 +205,19 @@ class ServeMetrics:
             if self.tiers is not None:
                 out["decode_dispatches_by_tier"] = dict(
                     sorted(self.tier_dispatches.items()))
+        if self.prefix_hits:
+            out["prefix_hits"] = self.prefix_hits
+            out["prefix_misses"] = self.prefix_misses
+            out["prefix_hit_rate"] = self.prefix_hits / (
+                self.prefix_hits + self.prefix_misses)
+            out["prefix_hit_tokens"] = self.prefix_hit_tokens
+            for name, xs in (("ttft_hit", self.ttft_hit),
+                             ("ttft_miss", self.ttft_miss)):
+                if xs:
+                    out[f"{name}_mean_s"] = float(np.mean(xs))
+                    out[f"{name}_p50_s"] = _pct(xs, 50)
+        if self.pages:
+            out["pages"] = {t: dict(v) for t, v in sorted(self.pages.items())}
         for name, xs in (("ttft", self.ttft), ("itl", self.itl),
                          ("e2e_latency", self.e2e),
                          ("itl_burst_spread", self.itl_spread)):

@@ -64,6 +64,9 @@ class Request:
     priority: int = 0
     slot: Optional[int] = None               # KV pool slot while admitted
     prefill_pos: int = 0                     # prefill positions in cache
+    # prompt positions adopted from a paged pool's prefix cache at
+    # admission (0 on a slab pool or a miss); prefill starts past them
+    prefix_hit_tokens: int = 0
     prompt_padded: Optional[np.ndarray] = None   # chunk-padded prefill
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     # after a preemption: prompt + every generated token but the last (the
@@ -125,6 +128,13 @@ class Request:
 
     def step_keys(self, n: int) -> np.ndarray:
         """[n, 2] uint32 keys of tokens ``n_generated .. n_generated+n-1``;
-        row t equals ``step_key()`` at that step."""
-        return threefry.step_keys([self.sampling.seed], [self.id or 0],
+        row t equals ``step_key()`` at that step.  The id is folded in as
+        a uint32, as ``jax.random.fold_in`` takes it: an id outside
+        [0, 2^32) raises ``OverflowError`` (it would alias id mod 2^32)."""
+        rid = self.id or 0
+        if not 0 <= rid < 2**32:
+            raise OverflowError(
+                f"Python integer {rid} out of bounds for uint32 "
+                "(request ids are folded into the sampling key as uint32)")
+        return threefry.step_keys([self.sampling.seed], [rid],
                                   [self.n_generated], n)[0]

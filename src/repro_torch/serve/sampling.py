@@ -86,5 +86,12 @@ def sample_one(logits: torch.Tensor, key, temperature: float) -> int:
 def batched_step_keys(seeds, ids, starts, k: int) -> np.ndarray:
     """[R, k, 2] uint32 key schedules on the host: row r, step t is
     ``fold_in(fold_in(PRNGKey(seeds[r]), ids[r]), starts[r] + t)``, equal
-    to ``Request.step_keys`` / ``step_key``."""
+    to ``Request.step_keys`` / ``step_key``.  Seeds, ids and starts are
+    int32, as the reference takes them: a value outside [-2^31, 2^31)
+    raises ``OverflowError``."""
+    for name, vals in (("seed", seeds), ("id", ids), ("start", starts)):
+        for v in np.asarray(vals).reshape(-1).tolist():
+            if not -2**31 <= v < 2**31:
+                raise OverflowError(
+                    f"Python integer {v} out of bounds for int32 ({name})")
     return threefry.step_keys(seeds, ids, starts, k)

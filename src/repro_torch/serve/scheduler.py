@@ -33,6 +33,16 @@ the engine policy's when served, else the first listed).  With
 ``ServeConfig.cache_budget_bytes`` each pool is sized from the budget, so
 the int8 / fp8 tiers hold about twice the bf16 slots.
 
+Paged pools (``ServeConfig(paged=True)``): admission needs a slot *and*
+the arena pages of the request's worst-case growth (``PagedKVPool.
+admit``); a prefix-cache hit adopts the cached prompt pages and prefill
+starts past them.  The scan goes on past a waiter refused for pages, so
+under page pressure a smaller later request may pass a larger one.  Each
+decode dispatch first pins its rows' write windows (``ensure_decode``),
+a prompt's whole pages are published to the prefix cache when its
+prefill completes, and a preempted request's registered pages stay
+cached, so its resume re-prefills only what is not.
+
 Retirement (EOS / max-new-tokens / slot capacity) frees the slot at once.
 A token is a pure function of (seed, id, step, logits): the keys of a
 round's temperature rows come from the per-(request, step) schedule, so a
@@ -183,6 +193,9 @@ class Scheduler:
             self.metrics.on_admit(req)
         self.metrics.on_step(now, {t: p.n_used
                                    for t, p in self.pools.items()})
+        for tier, pool in self.pools.items():
+            if pool.paged:
+                self.metrics.on_pages(tier, pool)
         return {"emitted": emitted, "finished": finished_now}
 
     # ------------------------------------------------------------------
@@ -211,13 +224,23 @@ class Scheduler:
 
     def _try_admit(self, req: Request) -> bool:
         pool = self.pools[req.tier]
-        while not pool.n_free:
+        # the worst-case new tokens: a resume's replay already holds all
+        # of its generated tokens but the last
+        max_new = req.sampling.max_new_tokens - max(req.n_generated - 1, 0)
+        while True:
+            if pool.paged:
+                adm = pool.admit(req.prefill_tokens, max_new)
+                if adm is not None:
+                    req.slot, req.prefill_pos, req.prefix_hit_tokens = adm
+                    break
+            elif pool.n_free:
+                req.slot = pool.alloc()
+                req.prefill_pos = 0
+                break
             victim = self._pick_victim(req.tier, req.priority)
             if victim is None:
                 return False
             self._preempt(victim)
-        req.slot = pool.alloc()
-        req.prefill_pos = 0
         req.state = RequestState.PREFILL
         req.prompt_padded, _ = self.engine.pad_prompt(req.prefill_tokens)
         self.running[(req.tier, req.slot)] = req
@@ -240,7 +263,8 @@ class Scheduler:
         prompt and every generated token but the last (the next decode
         input, whose KV was never written).  Output and ``n_generated``
         stay, so with per-(request, step) keys the resumed tokens are
-        those of an unpreempted run."""
+        those of an unpreempted run.  On a paged pool its registered
+        prompt pages stay in the prefix cache for the resume."""
         del self.running[(req.tier, req.slot)]
         self.pools[req.tier].free(req.slot)
         req.slot = None
@@ -249,6 +273,7 @@ class Scheduler:
             [req.prompt, np.asarray(req.output_tokens[:-1], np.int32)])
         req.prompt_padded = None
         req.prefill_pos = 0
+        req.prefix_hit_tokens = 0
         req.n_preemptions += 1
         req.last_enqueue_time = self._last_now
         req.admit_time = None
@@ -287,6 +312,8 @@ class Scheduler:
         if req.prefill_pos < plen:
             return
         req.state = RequestState.DECODE
+        if pool.paged:
+            pool.register_prefix(req.slot, req.prefill_tokens)
         if req.is_resuming:
             # the replay covers prompt + generated[:-1]; decode goes on at
             # n_generated with the last token as its input
@@ -319,6 +346,8 @@ class Scheduler:
         for r in dec:
             tokens[r.slot] = r.last_token
         self._key_schedule(dec, 1, keys, temps)
+        if pool.paged:
+            pool.ensure_decode([r.slot for r in dec], 1)
         self._dispatch_seq += 1
         toks = self.engine.decode_slots(pool, tokens, keys[0], temps)
         self.metrics.on_decode_burst(1, len(dec), tier=pool.kv_dtype)
@@ -341,6 +370,12 @@ class Scheduler:
             active[r.slot] = True
             rem[r.slot] = r.sampling.max_new_tokens - r.n_generated
         self._key_schedule(dec, k, keys, temps)
+        if pool.paged:
+            # each row's K-step window, capped at its remaining budget: a
+            # row that stops mid-burst writes on at its frozen length, on
+            # an unmapped entry (the garbage page) or a page of its own
+            pool.ensure_decode([r.slot for r in dec], k,
+                               [int(rem[r.slot]) for r in dec])
         self._dispatch_seq += 1
         toks, valid = self.engine.decode_burst(pool, tokens, keys, temps,
                                                active, rem, eos)

@@ -86,6 +86,69 @@ def test_step_keys_equal_the_references(seed):
                                   ref_batched_step_keys(seeds, ids, starts, 8))
 
 
+# ids at and past the edges of int32 and uint32: the reference folds a
+# request id in as a uint32 (``step_key`` / ``step_keys``) and takes ids,
+# seeds and starts as int32 in ``batched_step_keys``; both raise
+# ``OverflowError`` outside those ranges
+EDGE_IDS = [0, 1, 2**31 - 1, 2**31, 2**32 - 1, 2**32, 2**32 + 1, -1, 2**40 + 7]
+
+
+def _same_or_both_raise(port_fn, ref_fn):
+    """The reference's result and the port's are equal, or both raise
+    ``OverflowError``; True where they raised."""
+    try:
+        want = np.asarray(ref_fn())
+    except OverflowError:
+        with pytest.raises(OverflowError):
+            port_fn()
+        return True
+    np.testing.assert_array_equal(port_fn(), want)
+    return False
+
+
+@pytest.mark.parametrize("rid", EDGE_IDS)
+def test_step_keys_refuse_the_ids_the_reference_refuses(rid):
+    """P4: an id outside [0, 2^32) raises ``OverflowError`` in the port's
+    ``Request.step_key`` / ``step_keys`` wherever ``jax.random.fold_in``
+    raises in the reference's (it used to alias id mod 2^32), and ids 0 ...
+    2^32 - 1 keep the reference's keys."""
+    ref = RefRequest(prompt=np.arange(1, 4), id=rid,
+                     sampling=RefSamplingParams(temperature=0.8, seed=7))
+    port = Request(prompt=np.arange(1, 4), id=rid,
+                   sampling=SamplingParams(temperature=0.8, seed=7))
+    raised = [_same_or_both_raise(port.step_key, ref.step_key),
+              _same_or_both_raise(lambda: port.step_keys(3),
+                                  lambda: ref.step_keys(3))]
+    assert raised == [not 0 <= rid < 2**32] * 2
+
+
+@pytest.mark.parametrize("rid", EDGE_IDS + [-2**31, -2**31 - 1])
+def test_batched_step_keys_refuse_what_the_reference_refuses(rid):
+    """``batched_step_keys`` takes ids as int32, as the reference's does:
+    equal keys inside [-2^31, 2^31), ``OverflowError`` outside, for ids,
+    seeds and starts alike."""
+    raised = _same_or_both_raise(
+        lambda: batched_step_keys([7], [rid], [0], 2),
+        lambda: ref_batched_step_keys([7], [rid], [0], 2))
+    assert raised == (not -2**31 <= rid < 2**31)
+    for seeds, starts in (([rid], [0]), ([7], [rid])):
+        _same_or_both_raise(
+            lambda: batched_step_keys(seeds, [3], starts, 2),
+            lambda: ref_batched_step_keys(seeds, [3], starts, 2))
+
+
+def test_scheduler_refuses_an_id_past_uint32(engine):
+    """``Request(id=2**32 + 1)`` at temperature 0.8: the first token's key
+    raises, as the reference's ``fold_in`` does, instead of serving the
+    keys of id 1."""
+    sched = Scheduler(engine)
+    sched.submit(Request(prompt=np.arange(1, 9, dtype=np.int32), id=2**32 + 1,
+                         sampling=SamplingParams(temperature=0.8, seed=7,
+                                                 max_new_tokens=2)))
+    with pytest.raises(OverflowError, match="uint32"):
+        sched.run(max_steps=20)
+
+
 @pytest.mark.parametrize("v", WIDTHS)
 def test_random_bits_and_uniforms_equal_jax(v):
     rng = np.random.default_rng(v)
