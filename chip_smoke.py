@@ -98,6 +98,23 @@ non-zero after the last phase; exceptions are not caught):
      step no shared page under a write position, (v) every page still
      registered at the end holds the bytes it had when registered (sha256
      of codes and scales), (vi) K1, K2, K3 (bf16) and K4 (int8) launched;
+  5d. after 5c, on granite's parameters: serving under an SLO policy and a
+     fenced dispatch (``granite-8b-slo``): one engine, bf16 and int8 pools
+     of 8 / 15 slots from 576 MiB each, ``SLOPolicy`` (queue cap, protect
+     priority 0, bf16 -> int8 downgrade with hysteresis, cost-model burst
+     and chunk planning; thresholds in seconds of the paper's V80 model),
+     the seeded fault injector of ``launch/serve.py`` (rate 0.1 from step
+     2, half kills, half poisoned ids; 3 retries), an injected clock of 2 s
+     a step, 28 bf16 requests (prompts 64-192, 32 new, a third at 0.8) in
+     three waves, 4 with a TTFT deadline, 4 at priority 0, 2 with an e2e
+     deadline; checks (1) every request finished once, by length,
+     rejected, deadline_exceeded or fault, the rejection counts agree, no
+     priority-0 rejection, at least one queue_full, one downgrade with the
+     policy engaged and released, one deadline_exceeded, faults of both
+     kinds, (2) each request that no resume touched equals its rerun
+     (final tier, no policy, no injector, same pool widths) bit for bit, or
+     a prefix of it, (3) a resumed request is held to its rerun by 5b's
+     rule iv, (4) K1, K2, K3 (bf16) and K4 (int8) launched;
   6. model phases only, at full width and cut depth: starcoder2-15b at 4
      layers under fp8 attention / mxfp4 FFN weights with fp8 KV (K1 / K2
      must launch on both formats, K4 on fp8 KV), and nemotron-4-340b at 2
@@ -110,6 +127,7 @@ line is ``{"ok": true, "device": {...}}``.  Every case is also written to
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import hashlib
 import json
@@ -144,9 +162,12 @@ from repro_torch.kernels.xtramac_mac import (  # noqa: E402
     REF_MAX_STRIDE, check_reference_domain, virtual_dsp_multiply,
     virtual_dsp_plain)
 from repro_torch.launch import logit_spread as LS  # noqa: E402
+from repro_torch.launch.serve import build_fault_injector  # noqa: E402
 from repro_torch.launch.profile_datapath import (  # noqa: E402
     DATAPATH_COMBOS, TABLE_VII_LANE_MACS, random_operands)
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.perfmodel.analytical import (  # noqa: E402
+    decode_latency, gemv_engine_for)
 from repro_torch.models.common import QuantMaker  # noqa: E402
 from repro_torch.quant.kv_cache import QuantizedKV, cache_read  # noqa: E402
 from repro_torch.quant.policy import PrecisionPolicy  # noqa: E402
@@ -155,7 +176,7 @@ from repro_torch.quant.schemes import (  # noqa: E402
     quantize_activations_int8, quantize_weights)
 from repro_torch.serve import (Request, RequestState,  # noqa: E402
                                SamplingParams, Scheduler, ServeConfig,
-                               ServingEngine)
+                               ServingEngine, SLOPolicy)
 from repro_torch.serve import threefry  # noqa: E402
 from repro_torch.serve.sampling import (  # noqa: E402
     batched_step_keys, sample_rows, temperature_scores)
@@ -191,6 +212,8 @@ PATH_KERNELS = {
                          "decode_attention_bf16", "decode_attention_quant"),
     "granite-8b-paged": ("packed_gemv", "packed_matmul",
                          "decode_attention_bf16", "decode_attention_quant"),
+    "granite-8b-slo": ("packed_gemv", "packed_matmul",
+                       "decode_attention_bf16", "decode_attention_quant"),
     "minitron-8b": ("w8a8_matmul", "decode_attention_bf16",
                     "decode_attention_quant"),
     "starcoder2-15b": ("packed_gemv", "packed_matmul",
@@ -207,6 +230,8 @@ PATH_FORMATS = {
                          "decode_attention_quant:fp8"),
     "granite-8b-paged": ("decode_attention_bf16:bf16",
                          "decode_attention_quant:int8"),
+    "granite-8b-slo": ("decode_attention_bf16:bf16",
+                       "decode_attention_quant:int8"),
     "starcoder2-15b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
     "starcoder2-15b-mixed": (
         "packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1",
@@ -219,7 +244,7 @@ PATH_FORMATS = {
 # paths run after the serve phase on the same parameters)
 MODEL_RUNS = [
     ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True,
-     ("granite-8b-tiers", "granite-8b-paged")),
+     ("granite-8b-tiers", "granite-8b-paged", "granite-8b-slo")),
     ("minitron-8b", "minitron-8b", None, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
     ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
@@ -256,6 +281,40 @@ PAGED_SUFFIX = {"A0": 72, "A1": 40, "A2": 16, "A3": 96, "A4": 56, "A5": 24,
 PAGED_HOT = ("A1", "A4")            # the paged path's temperature rows
 PAGED_NEW_TOKENS = 32
 PAGED_MAX_STEPS = 2000
+# the SLO path (granite-8b-slo): one engine, bf16 and int8 pools from the
+# tiers path's 576 MiB each (8 / 15 slots), 28 bf16 requests (prompts
+# 64-192 tokens, 32 new) in three waves, an injected clock that advances
+# SLO_CLOCK_STEP per scheduler step, and the seeded fault injector of
+# ``launch/serve.py`` (rate 0.1 from step 2 on, 3 retries a request).
+# SLOPolicy thresholds are seconds of the paper's V80 cost model, chosen
+# from the prices the phase prints (granite-8b FULL, awq_int4, xtramac on
+# the GEMV engine, context 256: 8.33 ms a token-step at batch 1, 66.6 ms at
+# 8, 191.6 ms at 23; compute-bound, so the KV tier does not move them): a
+# 23-slot backlog of 24 x 32 new tokens drains in ~6.4 model-seconds before
+# prefill, and every 64-token chunk queued adds ~0.19 s.  Wave 1 (16
+# arrivals at once) raises the estimate by ~0.5-0.8 s an arrival: past
+# SLO_HIGH_S at its 12th (the downgrade engages: bf16 -> int8), and its
+# 13th-16th find SLO_MAX_WAITING waiting (queue_full).  Wave 2 arrives at
+# step 10 to an estimate under SLO_LOW_S (released), re-engages within the
+# wave, and its TTFT deadlines (3 steps of the 2 s clock) are either
+# unmeetable at submit (estimate past them) or shed while they wait for a
+# bf16 slot; wave 3 arrives to a drained system (released).
+# SLO_MAX_STEP_S buys two prefill chunks a round (a chunk is priced as 64
+# single-row steps, 0.53 s).
+SLO_TIERS = ("bf16", "int8")
+SLO_WAVES = (16, 8, 4)              # requests a wave
+SLO_TTFT_REQUESTS = 4               # wave 2 opens with these ...
+SLO_PRIO0 = 4                       # ... and ends with these at priority 0
+SLO_E2E_IDS = (3, 6)                # wave-1 requests with an e2e deadline
+SLO_CLOCK_STEP = 2.0                # clock seconds per scheduler step
+SLO_WAVE2_STEP = 10                 # wave 2 arrives at this step
+SLO_MAX_WAITING = 12
+SLO_HIGH_S, SLO_LOW_S, SLO_MAX_STEP_S = 6.5, 5.0, 1.1
+SLO_TTFT_DEADLINE_S = 6.0           # clock seconds: 3 steps
+SLO_E2E_DEADLINE_S = 30.0           # clock seconds: 15 steps
+SLO_FAULT_RATE, SLO_FAULT_ARM_STEP, SLO_FAULT_RETRIES = 0.1, 2, 3
+SLO_SEED = 7
+SLO_MAX_STEPS = 3000
 # the sampler on the card against the CPU: [rows, vocab] f32 draws;
 # Gumbel noise within GUMBEL_ULPS ulps of max(|g|, 1) (each platform's
 # log is within one ulp of the other's on the same input), ids equal but
@@ -1638,6 +1697,221 @@ def paged_phase(cfg, params, chunk, dev):
     check_path_launches("granite-8b-paged", launches, formats)
     return out, launches, formats
 
+# ---------------------------------------------------------------------------
+# Phase 5d: serving under an SLO policy and a fenced dispatch
+# ---------------------------------------------------------------------------
+def slo_requests(cfg, seed=SLO_SEED):
+    """[{id, wave, priority, temperature, prompt, ttft, e2e}] of the SLO
+    path: every request asks for bf16 KV and a third of each wave samples
+    at 0.8; wave 2 opens with SLO_TTFT_REQUESTS whose TTFT deadline is
+    SLO_TTFT_DEADLINE_S and ends with SLO_PRIO0 at priority 0; the wave-1
+    requests SLO_E2E_IDS carry an e2e deadline of SLO_E2E_DEADLINE_S; the
+    rest are priority 2 without deadlines."""
+    rng = np.random.default_rng(seed)
+    specs, rid = [], 0
+    for wave, n in enumerate(SLO_WAVES):
+        for j in range(n):
+            prompt = rng.integers(1, cfg.vocab, (int(rng.integers(64, 193)),))
+            specs.append(dict(
+                id=rid, wave=wave,
+                priority=0 if wave == 1 and j >= n - SLO_PRIO0 else 2,
+                temperature=TIERS_TEMPERATURE if j % 3 == 1 else 0.0,
+                prompt=prompt.astype(np.int32),
+                ttft=SLO_TTFT_DEADLINE_S
+                if wave == 1 and j < SLO_TTFT_REQUESTS else None,
+                e2e=SLO_E2E_DEADLINE_S
+                if wave == 0 and j in SLO_E2E_IDS else None))
+            rid += 1
+    return specs
+
+
+def slo_policy() -> SLOPolicy:
+    return SLOPolicy(max_waiting=SLO_MAX_WAITING, protect_priority=0,
+                     downgrade_map={"bf16": "int8"},
+                     downgrade_high_s=SLO_HIGH_S, downgrade_low_s=SLO_LOW_S,
+                     max_step_s=SLO_MAX_STEP_S)
+
+
+def slo_request(spec, new_tokens, tier="bf16", deadlines=True) -> Request:
+    return Request(prompt=spec["prompt"], id=spec["id"], kv_policy=tier,
+                   priority=spec["priority"],
+                   ttft_deadline_s=spec["ttft"] if deadlines else None,
+                   e2e_deadline_s=spec["e2e"] if deadlines else None,
+                   sampling=SamplingParams(temperature=spec["temperature"],
+                                           max_new_tokens=new_tokens,
+                                           seed=TIERS_SEED))
+
+
+def serve_slo(engine, specs, new_tokens, policy, arm_faults, dev,
+              tiers=SLO_TIERS):
+    """Run A: wave 1 at step 0, wave 2 at step SLO_WAVE2_STEP, wave 3 once
+    the system has drained; the clock advances SLO_CLOCK_STEP a step and
+    the fault injector is armed at step SLO_FAULT_ARM_STEP.  Returns
+    (scheduler, {id: request}, observations)."""
+    t = [0.0]
+    sched = Scheduler(engine, tiers=tiers, clock=lambda: t[0], slo=policy)
+    waves = [[s for s in specs if s["wave"] == w]
+             for w in range(len(SLO_WAVES))]
+    reqs, obs = {}, {"preempted_at": {}, "submits": [], "degraded": []}
+
+    def submit(spec):
+        r = sched.submit(slo_request(spec, new_tokens))
+        reqs[r.id] = r
+        obs["submits"].append({"id": r.id, "step": sched.n_steps,
+                               "estimate_s": policy.last_estimate_s,
+                               "degraded": policy.degraded, "tier": r.tier,
+                               "rejection": None if r.rejection is None
+                               else r.rejection.kind})
+        obs["degraded"].append(policy.degraded)
+
+    sync(dev)
+    t0 = time.perf_counter()
+    for spec in waves[0]:
+        submit(spec)
+    while sched.has_work or waves[1] or waves[2]:
+        if waves[1] and sched.n_steps >= SLO_WAVE2_STEP:
+            for spec in waves[1]:
+                submit(spec)
+            waves[1] = []
+        if sched.n_steps == SLO_FAULT_ARM_STEP:
+            arm_faults()
+        if sched.n_steps >= SLO_MAX_STEPS:
+            require(False, f"slo: not drained in {SLO_MAX_STEPS} steps")
+            break
+        before = {i: r.n_preemptions for i, r in reqs.items()}
+        sched.step()
+        t[0] += SLO_CLOCK_STEP
+        for i, r in reqs.items():
+            if r.n_preemptions > before[i]:
+                obs["preempted_at"].setdefault(i, []).append(r.n_generated)
+        if not sched.has_work and not waves[1] and waves[2]:
+            for spec in waves[2]:
+                submit(spec)
+            waves[2] = []
+    sync(dev)
+    obs["wall_s"] = time.perf_counter() - t0
+    return sched, reqs, obs
+
+
+def slo_rerun(engine, specs, reqs, new_tokens, slots):
+    """Every request run A started, again at its final tier with all its
+    new tokens, no deadline, no policy and no injector, one class, on
+    pools of run A's widths ``slots``: {id: tokens}."""
+    out = {}
+    for tier, width in slots.items():
+        mine = [s for s in specs if reqs[s["id"]].n_generated > 0
+                and reqs[s["id"]].tier == tier]
+        if not mine:
+            continue
+        sched = Scheduler(engine, tiers={tier: width})
+        again = [sched.submit(slo_request(dict(s, priority=0), new_tokens,
+                                          tier=tier, deadlines=False))
+                 for s in mine]
+        sched.run()
+        out.update({r.id: list(r.output_tokens) for r in again})
+    return out
+
+
+def slo_phase(cfg, params, chunk, dev):
+    """granite-8b FULL under an SLOPolicy and a seeded fault injector:
+    checks 1-4 of the SLO path (5, its seconds, is the caller's print).
+    Launch counts are set to 0 just before run A and read just after."""
+    specs = slo_requests(cfg)
+    new_tokens = PAGED_NEW_TOKENS
+    args = argparse.Namespace(fault_rate=SLO_FAULT_RATE, seed=SLO_SEED)
+    injector, arm = build_fault_injector(args)
+    engine = ServingEngine(cfg, params, ServeConfig(
+        max_len=512, prefill_chunk=chunk, max_burst=8,
+        cache_budget_bytes=TIERS_BUDGET, device=str(dev),
+        fault_injector=injector, max_fault_retries=SLO_FAULT_RETRIES))
+    policy = slo_policy()
+    prices = {b: decode_latency(cfg, "awq_int4", batch=b, context=256,
+                                design="xtramac",
+                                engine_model=gemv_engine_for("awq_int4"))
+              ["t_total_s"] for b in (1, 8, 23)}
+    log(json.dumps({"slo_model_step_s": prices, "path": "granite-8b-slo"}))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sched, reqs, obs = serve_slo(engine, specs, new_tokens, policy, arm, dev)
+    launches = ops.launch_counts()
+    formats = ops.format_launch_counts()
+    rep = sched.metrics.report()
+    slots = {t: p.n_slots for t, p in sched.pools.items()}
+    ests = [s["estimate_s"] for s in obs["submits"]]
+    res = {"slots": slots, "snapshot": policy.snapshot(),
+           "estimates_s": {"first": ests[0], "max": max(ests),
+                           "last": ests[-1]},
+           "host_wall_s": obs["wall_s"], "steps": sched.n_steps,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "preempted_at": obs["preempted_at"], "submits": obs["submits"]}
+    log(json.dumps({"serve": rep, "path": "granite-8b-slo"}))
+    log(json.dumps({"slo": {k: v for k, v in res.items() if k != "submits"},
+                    "path": "granite-8b-slo"}))
+    log(json.dumps({"serve_launches": launches, "by_format": formats,
+                    "path": "granite-8b-slo"}))
+    require(slots == {t: TIERS_SLOTS[t] for t in SLO_TIERS},
+            f"slo: slots {slots}")
+    # 1. accounting
+    reasons = {"length", "rejected", "deadline_exceeded", "fault"}
+    finished = [r.id for r in sched.finished]
+    require(sorted(finished) == sorted(reqs) == [s["id"] for s in specs],
+            "slo: a request did not finish exactly once")
+    for r in reqs.values():
+        require(r.is_finished and r.finish_reason in reasons,
+                f"slo: request {r.id} finished by {r.finish_reason}")
+        require(all(0 <= t < cfg.vocab for t in r.output_tokens),
+                f"slo: request {r.id} emitted an id outside the vocabulary")
+        require(r.priority > 0 or r.finish_reason != "rejected",
+                f"slo: priority-0 request {r.id} was rejected")
+    fr, kinds = rep.get("finish_reasons", {}), rep.get("rejection_kinds", {})
+    require(rep.get("rejections", 0) == sum(kinds.values())
+            == fr.get("rejected", 0),
+            f"slo: rejections {rep.get('rejections')}, kinds {kinds}, "
+            f"finish reasons {fr}")
+    require(kinds.get("queue_full", 0) >= 1, f"slo: no queue_full: {kinds}")
+    require(rep.get("downgrades", 0) >= 1, "slo: no downgrade")
+    require(any(obs["degraded"]) and not policy.degraded,
+            "slo: the downgrade did not engage and release")
+    require(fr.get("deadline_exceeded", 0) >= 1, "slo: no deadline shed")
+    require(set(rep.get("fault_kinds", {})) >= {"injected", "nan"},
+            f"slo: fault kinds {rep.get('fault_kinds')}")
+    # 2. requests with no fault and no preemption are their rerun's, bit
+    # for bit (a request retired by its deadline or its faults: a prefix
+    # of it); 3. faulted or preempted ones by check iv of the tiers path
+    single = ServingEngine(cfg, params, dataclasses.replace(
+        engine.scfg, fault_injector=None))
+    rerun = slo_rerun(single, specs, reqs, new_tokens, slots)
+    res["resumes"], res["bit_for_bit"] = [], 0
+    for rid, r in sorted(reqs.items()):
+        if rid not in rerun:
+            continue
+        want = rerun[rid][:r.n_generated]
+        if r.finish_reason == "length":
+            require(r.n_generated == new_tokens,
+                    f"slo: request {rid} retired by length early")
+        # a request resumed before its last token is held by rule iv; one
+        # never preempted, or only before its first token or after its
+        # last, emitted every token on the route of an undisturbed run
+        points = [p for p in obs["preempted_at"].get(rid, [])
+                  if 0 < p < r.n_generated]
+        if not points:
+            require(r.output_tokens == want,
+                    f"slo: request {rid} ({r.tier}, "
+                    f"t={r.sampling.temperature}, {r.n_faults} faults) "
+                    "differs from its rerun")
+            res["bit_for_bit"] += 1
+            continue
+        spec = (rid, r.tier, r.priority, r.sampling.temperature, r.prompt)
+        res["resumes"].append(resume_check(
+            single, spec, r, want, {p: 0 for p in points}, slots[r.tier],
+            "slo"))
+    require(res["bit_for_bit"] >= 4,
+            f"slo: {res['bit_for_bit']} fault-free requests checked")
+    # 4. K1 (bf16 cohort), K2 (prefill, int8 cohort), K3 and K4 launched
+    check_path_launches("granite-8b-slo", launches, formats)
+    res["serve"] = rep
+    return res, launches, formats
+
 
 def check_path_launches(path: str, launches, formats=None) -> None:
     """Every kernel of ``path`` launched in its run, and no other; and on
@@ -1704,7 +1978,8 @@ def main() -> None:
     require(got == want, f"datapath: {got} K6 launches, {want} xtramac_packed "
                          "calls and pipeline issues")
     extra_phases = {"granite-8b-tiers": tiers_phase,
-                    "granite-8b-paged": paged_phase}
+                    "granite-8b-paged": paged_phase,
+                    "granite-8b-slo": slo_phase}
     for path, arch, layers, weights, tiers, witness, serves, extras \
             in MODEL_RUNS:
         cfg = get_config(arch)

@@ -18,12 +18,29 @@ pool from that budget (10^6 bytes a MB) instead of ``--n-slots``;
 ``--temperature`` samples every request with its seeded threefry keys.
 ``--smoke`` serves the 2-layer config; ``--device cpu`` runs the kernels'
 plain versions.
+
+Serving policy: ``--slo-max-waiting N`` / ``--slo-max-queue-delay-s S`` /
+``--slo-downgrade FROM:TO --slo-high-s H --slo-low-s L`` /
+``--slo-max-step-s S`` attach an ``SLOPolicy`` (typed admission, KV-tier
+downgrade with hysteresis, cost-model burst and chunk planning);
+``--slo-protect-priority P`` exempts classes <= P from rejection
+(``--priority-mix`` assigns seeded classes).  Its thresholds are seconds
+of the paper's V80 cost model, not wall seconds.  ``--fault-rate R`` arms
+a seeded fault injector after the warm-up: each dispatch dies or returns
+poisoned ids with probability R (half each), and the scheduler recovers
+by requeueing, up to ``--max-fault-retries`` faults a request.
+
+  python -m repro_torch.launch.serve --arch granite-8b --smoke \
+      --device cpu --tiers bf16,int8 --priority-mix 0:0.25,2:0.75 \
+      --slo-max-waiting 4 --slo-downgrade bf16:int8 --slo-high-s 0.5 \
+      --slo-low-s 0.1 --fault-rate 0.1
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +51,75 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import (Request, SamplingParams, Scheduler,
-                               ServeConfig, ServingEngine)
+                               ServeConfig, ServingEngine, SLOPolicy)
 from repro_torch.serve.engine import resolve_device
+
+
+def add_policy_args(ap: argparse.ArgumentParser) -> None:
+    """The ``--slo-*`` and fault flags (``build_slo``,
+    ``build_fault_injector``)."""
+    ap.add_argument("--slo-max-waiting", type=int, default=None)
+    ap.add_argument("--slo-max-queue-delay-s", type=float, default=None)
+    ap.add_argument("--slo-protect-priority", type=int, default=0)
+    ap.add_argument("--slo-downgrade", default=None, metavar="FROM:TO")
+    ap.add_argument("--slo-high-s", type=float, default=None)
+    ap.add_argument("--slo-low-s", type=float, default=None)
+    ap.add_argument("--slo-max-step-s", type=float, default=None)
+    ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--max-fault-retries", type=int, default=3)
+
+
+def build_slo(args) -> Optional[SLOPolicy]:
+    """An ``SLOPolicy`` from the --slo-* flags, or None when none given."""
+    downgrade = None
+    if args.slo_downgrade:
+        src, dst = args.slo_downgrade.split(":")
+        downgrade = {src: dst}
+    if not any([args.slo_max_waiting, args.slo_max_queue_delay_s,
+                downgrade, args.slo_max_step_s]):
+        return None
+    return SLOPolicy(
+        max_waiting=args.slo_max_waiting,
+        max_queue_delay_s=args.slo_max_queue_delay_s,
+        protect_priority=args.slo_protect_priority,
+        downgrade_map=downgrade,
+        downgrade_high_s=args.slo_high_s,
+        downgrade_low_s=args.slo_low_s,
+        max_step_s=args.slo_max_step_s)
+
+
+def build_fault_injector(args) -> Tuple[Optional[Callable], Callable]:
+    """(injector, arm): a seeded ``(kind, seq) -> mode`` injector that
+    stays quiet until ``arm()`` (call it after the warm-up).  Its own
+    generator, ``default_rng(seed + 7919)``, is consulted once per
+    dispatch in dispatch order; half its faults kill the dispatch, half
+    poison its ids ('nan'; a prefill chunk is killed either way)."""
+    if not args.fault_rate:
+        return None, lambda: None
+    frng = np.random.default_rng(args.seed + 7919)
+    armed = []
+
+    def injector(kind, seq):
+        if not armed or frng.random() >= args.fault_rate:
+            return None
+        return "nan" if frng.random() < 0.5 else "injected"
+
+    return injector, lambda: armed.append(True)
+
+
+def parse_priority_mix(spec: Optional[str]):
+    """'0:0.25,2:0.75' -> ([0, 2], [0.25, 0.75]) (weights normalized)."""
+    if not spec:
+        return [0], [1.0]
+    classes, weights = [], []
+    for part in spec.split(","):
+        prio, w = part.split(":")
+        classes.append(int(prio))
+        weights.append(float(w))
+    total = sum(weights)
+    if total <= 0:
+        raise SystemExit("--priority-mix weights must sum > 0")
+    return classes, [w / total for w in weights]
 
 
 def main(argv=None) -> None:
@@ -55,6 +139,9 @@ def main(argv=None) -> None:
     ap.add_argument("--max-burst", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--priority-mix", default=None,
+                    help="seeded classes, e.g. 0:0.25,2:0.75")
+    add_policy_args(ap)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -65,19 +152,24 @@ def main(argv=None) -> None:
     tiers = args.tiers.split(",") if args.tiers else None
     budget = None if args.cache_budget_mb is None \
         else int(args.cache_budget_mb * 1e6)
+    injector, arm_faults = build_fault_injector(args)
     engine = ServingEngine(cfg, params, ServeConfig(
         max_len=args.prompt_len + args.max_new, n_slots=args.n_slots,
         prefill_chunk=args.prefill_chunk, max_burst=args.max_burst,
         cache_budget_bytes=budget, policy=PrecisionPolicy(kv=args.kv_dtype),
-        device=str(dev)))
+        device=str(dev), fault_injector=injector,
+        max_fault_retries=args.max_fault_retries))
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len))
+    classes, weights = parse_priority_mix(args.priority_mix)
+    prios = rng.choice(classes, size=args.batch, p=weights)
 
-    def serve(batch):
-        sched = Scheduler(engine, tiers=tiers)
+    def serve(batch, slo=None):
+        sched = Scheduler(engine, tiers=tiers, slo=slo)
         reqs = [sched.submit(Request(
             prompt=p, kv_policy=tiers[i % len(tiers)] if tiers else None,
+            priority=int(prios[i]),
             sampling=SamplingParams(temperature=args.temperature,
                                     max_new_tokens=args.max_new,
                                     seed=args.seed)))
@@ -86,10 +178,12 @@ def main(argv=None) -> None:
         return sched, reqs
 
     serve(prompts[:len(tiers) if tiers else 1])             # warm-up
+    arm_faults()
+    slo = build_slo(args)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
-    sched, reqs = serve(prompts)
+    sched, reqs = serve(prompts, slo)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     report = sched.metrics.report()
@@ -102,6 +196,8 @@ def main(argv=None) -> None:
         peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
         first_output=reqs[0].output_tokens[:8])
+    if slo is not None:
+        report["slo"] = slo.snapshot()
     print(json.dumps(report))
 
 

@@ -27,11 +27,20 @@ the prefill step pins its own chunk).  Weights, the pools and all step
 tensors live on ``ServeConfig.device`` ("cuda" by default; the tests pass
 "cpu", where the kernels' plain versions run).  The pool cache is updated
 in place.
+
+Fault injection (``ServeConfig.fault_injector``): a hook consulted once per
+dispatch, before it runs, as ``(kind, seq)`` with kind 'prefill', 'decode'
+or 'burst' and ``seq`` the engine's dispatch count since it was built.  It
+returns None (no fault), 'nan' (a decode step or burst runs and returns
+ids of -1, as a poisoned sampler would; a prefill chunk raises instead) or
+any other tag, raised as ``StepFault(tag)`` in place of the dispatch.  The
+scheduler recovers from ``StepFault`` alone; any other error (a CUDA
+error, a kernel that fails to build or launch) ends the run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +49,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QLinear
 from repro_torch.quant.policy import PrecisionPolicy, validate_kv_tier
+from repro_torch.runtime.fault_tolerance import StepFault
 
 from .kv_pool import (KVCachePool, PagedKVPool, pages_for_budget,
                       slots_for_budget)
@@ -65,6 +75,12 @@ class ServeConfig:
     # weight schemes the parameters must carry, and the KV-cache tier
     policy: PrecisionPolicy = PrecisionPolicy()
     device: str = "cuda"
+    # fault-injection hook ``(kind, seq) -> None | 'nan' | tag`` (module
+    # docstring); None disables it at no cost
+    fault_injector: Optional[Callable[[str, int], Optional[str]]] = None
+    # step faults one request may survive (each a preempt-and-requeue with
+    # exponential backoff) before it retires with finish_reason='fault'
+    max_fault_retries: int = 3
 
 
 def resolve_device(device) -> torch.device:
@@ -117,6 +133,9 @@ class ServingEngine:
         if serve_cfg.page_size < 0 or serve_cfg.page_size % c:
             raise ValueError(f"page_size {serve_cfg.page_size} must be 0 "
                              f"(the prefill chunk) or a multiple of {c}")
+        # dispatches seen by the fault injector (advances whenever one is
+        # configured)
+        self._fault_seq = 0
 
     # ------------------------------------------------------------------
     def new_pool(self, n_slots: Optional[int] = None,
@@ -163,6 +182,21 @@ class ServingEngine:
         padded[:n] = prompt
         return padded, n
 
+    def _inject_fault(self, kind: str) -> Optional[str]:
+        """Consult the fault injector for one dispatch of ``kind``: 'nan'
+        when a decode dispatch's ids are to be poisoned, None for no
+        fault; a kill (or 'nan' on a prefill chunk) raises ``StepFault``."""
+        fi = self.scfg.fault_injector
+        if fi is None:
+            return None
+        self._fault_seq += 1
+        mode = fi(kind, self._fault_seq)
+        if not mode:
+            return None
+        if mode == "nan" and kind != "prefill":
+            return "nan"
+        raise StepFault(str(mode), f"{kind} dispatch #{self._fault_seq}")
+
     def _tensor(self, a, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
@@ -184,6 +218,7 @@ class ServingEngine:
             raise ValueError(f"bad prefill chunk at offset {offset} "
                              f"(prompt {prompt_len}, capacity {pool.max_len})")
         final = (offset + n >= prompt_len) and need_logits
+        self._inject_fault("prefill")
         chunk = self._tensor(prompt[offset:offset + c][None])
         if pool.paged:
             # pin the chunk's write window (a fresh page, or the copy of a
@@ -237,11 +272,17 @@ class ServingEngine:
         greedy).  Returns the [n_slots] sampled ids.  The caller commits
         the write by incrementing ``pool.lengths`` for its active rows."""
         n = pool.n_slots
+        poison = self._inject_fault("decode")
         keys, t, hot = sampler_inputs(keys, temps, n, self.device)
         toks = self._tensor(np.asarray(tokens).reshape(n))
         logits = self._decode_logits(pool, toks, self._tensor(pool.lengths),
                                      self._page_table(pool))
-        return sample_on_device(logits, keys, t, hot).cpu().numpy()
+        out = sample_on_device(logits, keys, t, hot).cpu().numpy()
+        if poison is not None:
+            # out-of-vocabulary ids, as a NaN-saturated sampler would give:
+            # the scheduler's guard must catch them
+            out = np.full_like(out, -1)
+        return out
 
     @torch.no_grad()
     def decode_slots_with_logits(self, pool: KVCachePool,
@@ -271,6 +312,7 @@ class ServingEngine:
         k = keys.shape[0]
         if keys.shape != (k, n, 2):
             raise ValueError(f"key schedule {keys.shape} is not [K, {n}, 2]")
+        poison = self._inject_fault("burst")
         keys, t_dev, hot = sampler_inputs(keys, temps, n, self.device)
         toks = self._tensor(np.asarray(tokens).reshape(n))
         lengths = self._tensor(pool.lengths)
@@ -294,6 +336,8 @@ class ServingEngine:
             act = still
         host = out.cpu().numpy()                   # the burst's one sync
         toks_h, valid = host[0].astype(np.int32), host[1].astype(bool)
+        if poison is not None:
+            toks_h = np.full_like(toks_h, -1)
         pool.lengths += valid.sum(axis=0).astype(np.int32)
         return toks_h, valid
 

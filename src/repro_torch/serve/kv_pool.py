@@ -500,6 +500,11 @@ class PagedKVPool:
         return _cache_bytes(self.cache)
 
     @property
+    def bytes_per_token(self) -> int:
+        """Arena bytes one cached position costs across all layers."""
+        return self.cache_bytes // (self.n_pages * self.page_size)
+
+    @property
     def n_free(self) -> int:
         return self.allocator.n_free_slots
 

@@ -10,9 +10,18 @@
   * decode dispatches / token-steps — how amortized the decode loop ran.
   * queue wait — admission minus the latest enqueue, per priority class
             (a preempted request's second wait is charged to its requeue).
-  * preemptions — slots evicted for a higher class; ``finish_reasons``
-            adds ``preempted_resumed`` (finished after >= 1 preemption) as
-            an overlay, not a term of the sum.
+  * preemptions — slots evicted for a higher class or by a faulted
+            dispatch (``preempt_reasons``: priority / fault);
+            ``finish_reasons`` adds ``preempted_resumed`` (finished after
+            >= 1 preemption) as an overlay, not a term of the sum.
+  * SLO accounting — every submitted request retires with exactly one
+            finish reason: eos / length / capacity, or the shed reasons
+            rejected / deadline_exceeded / fault, so ``finish_reasons``
+            sums to ``n_requests``.  Rejections by kind, downgrades, and
+            faulted dispatches (``faults``) with the request-slots they
+            hit and their kinds.  Latency samples come only from requests
+            that delivered a first token; with more than one priority
+            class, ``per_priority`` gives TTFT / e2e percentiles by class.
   * prefix cache (paged pools) — requests that adopted cached prompt
             pages (hits) or none (misses), the tokens adopted, TTFT split
             by hit and miss (a hit skips its cached chunks), and per tier
@@ -76,12 +85,21 @@ class ServeMetrics:
         self.itl_spread: List[float] = []
         self.e2e: List[float] = []
         self.n_requests = 0
+        self.n_arrived = 0
         self.total_new_tokens = 0
         self.finish_reasons: Dict[str, int] = {}
         self.n_resumed = 0
         self.n_preemptions = 0
-        self.preempt_reasons: Dict[str, int] = {}
+        self.preempt_reasons: Dict[str, int] = {}   # priority | fault
+        self.n_rejections = 0
+        self.rejection_kinds: Dict[str, int] = {}
+        self.n_downgrades = 0
+        self.n_fault_events = 0       # faulted dispatches
+        self.n_fault_requests = 0     # request-slots those dispatches hit
+        self.fault_kinds: Dict[str, int] = {}
         self.queue_wait: Dict[int, List[float]] = {}
+        self._prio_ttft: Dict[int, List[float]] = {}
+        self._prio_e2e: Dict[int, List[float]] = {}
         self.first_arrival: Optional[float] = None
         self.last_finish: Optional[float] = None
         self._occ_integral = 0.0
@@ -95,6 +113,7 @@ class ServeMetrics:
         self.tier_dispatches: Dict[str, int] = {}
 
     def on_arrival(self, now: float) -> None:
+        self.n_arrived += 1
         if self.first_arrival is None:
             self.first_arrival = now
 
@@ -109,8 +128,29 @@ class ServeMetrics:
             max(req.admit_time - t0, 0.0))
 
     def on_preempt(self, req, reason: str = "priority") -> None:
+        """A slot was evicted and its request requeued: for a higher class
+        ('priority') or by a faulted dispatch ('fault')."""
         self.n_preemptions += 1
         self.preempt_reasons[reason] = self.preempt_reasons.get(reason, 0) + 1
+
+    def on_reject(self, req) -> None:
+        """The serving policy shed the request at submit (its typed verdict
+        in ``req.rejection``)."""
+        kind = getattr(req.rejection, "kind", None) or "unknown"
+        self.n_rejections += 1
+        self.rejection_kinds[kind] = self.rejection_kinds.get(kind, 0) + 1
+
+    def on_downgrade(self, req) -> None:
+        """The serving policy moved the request to a denser KV tier."""
+        self.n_downgrades += 1
+
+    def on_fault(self, fault, n_requests: int) -> None:
+        """One dispatch faulted (raised or returned poisoned output),
+        invalidating ``n_requests`` slots."""
+        self.n_fault_events += 1
+        self.n_fault_requests += n_requests
+        kind = getattr(fault, "kind", None) or "unknown"
+        self.fault_kinds[kind] = self.fault_kinds.get(kind, 0) + 1
 
     def on_step(self, now: float,
                 used_slots: Union[int, Mapping[str, int]]) -> None:
@@ -168,8 +208,11 @@ class ServeMetrics:
             else:
                 self.prefix_misses += 1
             (self.ttft_hit if hit else self.ttft_miss).append(ttft)
+            self._prio_ttft.setdefault(req.priority, []).append(ttft)
             if req.finish_time is not None:
-                self.e2e.append(req.finish_time - req.arrival_time)
+                e2e = req.finish_time - req.arrival_time
+                self.e2e.append(e2e)
+                self._prio_e2e.setdefault(req.priority, []).append(e2e)
         if len(req.token_times) > 1:
             self.itl.extend(np.diff(np.asarray(req.token_times)).tolist())
             self.itl_spread.extend(burst_spread_itl(req.token_times,
@@ -238,4 +281,26 @@ class ServeMetrics:
         if self.n_preemptions:
             out["preemptions"] = self.n_preemptions
             out["preempt_reasons"] = dict(sorted(self.preempt_reasons.items()))
+        if self.n_rejections:
+            out["rejections"] = self.n_rejections
+            out["rejection_kinds"] = dict(sorted(self.rejection_kinds.items()))
+        if self.n_downgrades:
+            out["downgrades"] = self.n_downgrades
+        if self.n_fault_events:
+            out["faults"] = self.n_fault_events
+            out["fault_requests"] = self.n_fault_requests
+            out["fault_kinds"] = dict(sorted(self.fault_kinds.items()))
+        classes = set(self._prio_ttft) | set(self._prio_e2e)
+        if len(classes) > 1:
+            per: Dict[str, Dict] = {}
+            for p in sorted(classes):
+                d: Dict = {}
+                for name, xs in (("ttft", self._prio_ttft.get(p)),
+                                 ("e2e", self._prio_e2e.get(p))):
+                    if xs:
+                        for q in (50, 95, 99):
+                            d[f"{name}_p{q}_s"] = _pct(xs, q)
+                        d[f"n_{name}"] = len(xs)
+                per[str(p)] = d
+            out["per_priority"] = per
         return out

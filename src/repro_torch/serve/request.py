@@ -6,7 +6,9 @@ PREFILL:  owns a KV slot in its tier's pool; the prompt (or the resume
           buffer) is written chunk by chunk (``prefill_pos`` counts
           committed positions).
 DECODE:   prompt in cache; one token per decode step.
-FINISHED: retired (EOS, length or slot capacity); the slot is returned.
+FINISHED: retired (EOS, length or slot capacity), or shed by the serving
+          policy (rejected at submit, past a deadline, or out of fault
+          retries); a held slot is returned.
 
 Randomness is per request and per step: the key of generated token n is
 ``fold_in(fold_in(PRNGKey(seed), id), n)`` (``threefry.py``), so a
@@ -62,6 +64,12 @@ class Request:
     # DECODE request of a strictly lower class in its tier.  Priority
     # changes when tokens come, never which.
     priority: int = 0
+    # optional SLO deadlines in scheduler-clock seconds from arrival: a
+    # request still WAITING past its TTFT deadline, or running past its
+    # e2e deadline, retires with finish_reason='deadline_exceeded'
+    # (checked once per step from the step's own clock sample)
+    ttft_deadline_s: Optional[float] = None
+    e2e_deadline_s: Optional[float] = None
     slot: Optional[int] = None               # KV pool slot while admitted
     prefill_pos: int = 0                     # prefill positions in cache
     # prompt positions adopted from a paged pool's prefix cache at
@@ -74,7 +82,18 @@ class Request:
     # replays it, emits nothing, and decode goes on at ``n_generated``.
     resume_prompt: Optional[np.ndarray] = None
     n_preemptions: int = 0
-    finish_reason: Optional[str] = None      # eos | length | capacity
+    n_faults: int = 0                        # step faults charged to it
+    # first scheduler step at which a fault-requeued request may be
+    # admitted again (exponential backoff; 0 = at once)
+    hold_until_step: int = 0
+    # the serving policy's typed verdict when it sheds the request at
+    # submit (``slo.Rejection``; finish_reason='rejected')
+    rejection: Optional[object] = None
+    # the KV tier the serving policy downgraded the request from (None:
+    # served at the tier it asked for)
+    downgraded_from: Optional[str] = None
+    finish_reason: Optional[str] = None
+    # ^ eos | length | capacity | rejected | deadline_exceeded | fault
     # timing (scheduler clock); ``last_enqueue_time`` is the latest entry
     # into the queue (submit or requeue), ``admit_time`` the latest exit
     arrival_time: Optional[float] = None

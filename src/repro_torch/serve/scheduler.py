@@ -2,8 +2,14 @@
 (torch twin of the slab path of ``repro/serve/scheduler.py``).
 
 Each ``step()``:
-  1. **Admission** — waiting requests are scanned in (priority, arrival)
-     order; a request is admitted when its tier's pool has a free slot,
+  0. **Deadline shedding** — WAITING requests past their TTFT or e2e
+     deadline retire with ``deadline_exceeded`` (from the clock sample the
+     previous step took; no extra clock call).
+  1. **Admission** — waiting requests are scanned in (priority, absolute
+     TTFT deadline, arrival) order — EDF within a class, requests without
+     a deadline after those with one; with no deadlines this is (priority,
+     arrival) — skipping those held back after a fault; a request is
+     admitted when its tier's pool has a free slot,
      at any time, including mid-flight between decode steps.  When its
      pool is full and a DECODE request of a strictly lower class holds a
      slot of that tier, the lowest-class one with the least output (then
@@ -11,7 +17,8 @@ Each ``step()``:
      with a resume buffer, prompt + generated[:-1].  With one class this
      is plain FCFS.
   2. **One prefill chunk** — the oldest PREFILL request advances by one
-     chunk (chunked prefill interleaved with decode).  On a prompt's final
+     chunk (chunked prefill interleaved with decode; an SLO policy may
+     budget more chunks a round from its cost model).  On a prompt's final
      chunk the first token is sampled (the request's TTFT event); a
      resume's final chunk computes no logits and emits nothing — its
      tokens were delivered before the preemption.
@@ -24,7 +31,26 @@ Each ``step()``:
      capped by ``ServeConfig.max_burst``, rounded down to a power of two, and clamped
      to 1 while a request waits or a prefill is in flight (so admission
      latency and prefill interleaving match a burst-free scheduler).  EOS
-     cannot be planned; rows that sample it stop on the device.
+     cannot be planned; rows that sample it stop on the device.  An SLO
+     policy may cap K further from its cost model.
+  4. **E2e deadlines** — running requests past theirs retire with
+     ``deadline_exceeded``, keeping the tokens they emitted.
+
+SLO policy: ``Scheduler(engine, slo=SLOPolicy(...))`` (``slo.py``) judges
+each ``submit``: it may downgrade the request's KV tier in place (the tier
+is re-resolved and counted) or shed it with a typed ``Rejection`` — the
+request comes back FINISHED with ``finish_reason='rejected'`` and is never
+queued, so callers serving under a policy check ``is_finished``.
+
+Fault fence: every prefill chunk, decode step and burst is fenced.  A
+``StepFault`` (raised by the dispatch, e.g. by ``ServeConfig.
+fault_injector``), or with an injector armed a decode output holding ids
+outside the vocabulary, drops the dispatch's output whole; every request
+of it is charged one fault and requeued through the preemption path
+(reason 'fault') with a hold of 1, 2, 4, ... steps, or retired with
+``finish_reason='fault'`` once past ``ServeConfig.max_fault_retries``.
+The fence catches ``StepFault`` and nothing else: any other error (a CUDA
+error, a kernel that fails to build or launch) ends the run.
 
 Tiers: ``Scheduler(engine, tiers=["bf16", "int8", "fp8"])`` (or a
 {tier: n_slots} mapping) builds one pool per tier from one engine, and a
@@ -51,8 +77,9 @@ admission time, a burst, the other tiers or a preemption — except under
 W8A8 weights, whose per-tensor activation scale spans every row of a call
 (the reference's ``kernels/ops.py:327``), so batch-mates move a row's
 logits, and except that on the card a resume replays the KV through
-another kernel than the one that first wrote it (``request.py``).  The
-clock is injectable for tests.
+another kernel than the one that first wrote it (``request.py``).  So a
+request recovered from a fault emits its fault-free tokens, up to that
+caveat.  The clock is injectable for tests.
 """
 from __future__ import annotations
 
@@ -62,6 +89,8 @@ from typing import (Callable, Deque, Dict, List, Mapping, Optional, Sequence,
                     Tuple, Union)
 
 import numpy as np
+
+from repro_torch.runtime.fault_tolerance import RetryBudget, StepFault
 
 from .kv_pool import KVCachePool
 from .metrics import ServeMetrics
@@ -73,10 +102,13 @@ class Scheduler:
     def __init__(self, engine, *,
                  tiers: Union[None, Sequence[str],
                               Mapping[str, Optional[int]]] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 slo=None):
         """``tiers``: the KV tiers served, as names (each pool sized by the
         engine's config) or {tier: n_slots} (None: the config's sizing);
-        default one pool at the engine policy's tier."""
+        default one pool at the engine policy's tier.  ``slo``: an
+        ``SLOPolicy`` (admission control, tier downgrade, cost-model burst
+        and chunk planning); None admits everything."""
         self.engine = engine
         if tiers is None:
             items = [(None, None)]
@@ -100,6 +132,12 @@ class Scheduler:
         self.waiting: Deque[Request] = deque()
         self.running: Dict[Tuple[str, int], Request] = {}   # (tier, slot)
         self.finished: List[Request] = []
+        self.slo = slo
+        # fault recovery: bounded retry with exponential backoff, and the
+        # poisoned-output guard (ids in [0, vocab)), armed only with an
+        # injector
+        self._retry = RetryBudget(engine.scfg.max_fault_retries)
+        self._ft_check = engine.scfg.fault_injector is not None
         self.metrics = ServeMetrics(sum(p.n_slots
                                         for p in self.pools.values()))
         if len(self.pools) > 1:
@@ -146,7 +184,9 @@ class Scheduler:
 
     def submit(self, req: Request) -> Request:
         """Enqueue; ids are assigned in submit order and never reused (the
-        sampling keys depend on them)."""
+        sampling keys depend on them).  Under an SLO policy the request
+        may come back downgraded (``downgraded_from``) or FINISHED with
+        ``finish_reason='rejected'`` and ``rejection`` set, never queued."""
         self._resolve_tier(req)
         if req.id is None:
             req.id = self._next_id
@@ -155,6 +195,19 @@ class Scheduler:
         req.arrival_time = self._clock()
         req.last_enqueue_time = self._last_now = req.arrival_time
         self.metrics.on_arrival(req.arrival_time)
+        if self.slo is not None:
+            verdict = self.slo.admit(req, self)
+            if req.downgraded_from is not None \
+                    and req.tier != req.kv_policy:
+                # downgraded in place: re-resolve (and re-check the fit)
+                self._resolve_tier(req)
+                self.metrics.on_downgrade(req)
+            if verdict is not None:
+                req.rejection = verdict
+                self.metrics.on_reject(req)
+                self._finish_unadmitted(req, "rejected", req.arrival_time,
+                                        None)
+                return req
         self.waiting.append(req)
         return req
 
@@ -172,8 +225,13 @@ class Scheduler:
         (request, slot, token)) and the requests retired (``finished``)."""
         emitted: List = []
         finished_now: List[Request] = []
+        self._shed_expired_waiting(finished_now)
         admitted = self._admit()
-        self._prefill_one_chunk(emitted, finished_now)
+        n_chunks = 1 if self.slo is None \
+            else self.slo.prefill_chunks_per_step(self)
+        for _ in range(n_chunks):
+            if not self._prefill_one_chunk(emitted, finished_now):
+                break
 
         dec = sorted((r for r in self.running.values()
                       if r.state is RequestState.DECODE), key=lambda r: r.id)
@@ -191,6 +249,10 @@ class Scheduler:
         for req in admitted:
             req.admit_time = now
             self.metrics.on_admit(req)
+        for req in [r for r in self.running.values()
+                    if r.e2e_deadline_s is not None
+                    and now - r.arrival_time > r.e2e_deadline_s]:
+            self._retire(req, "deadline_exceeded", now, finished_now)
         self.metrics.on_step(now, {t: p.n_used
                                    for t, p in self.pools.items()})
         for tier, pool in self.pools.items():
@@ -199,28 +261,46 @@ class Scheduler:
         return {"emitted": emitted, "finished": finished_now}
 
     # ------------------------------------------------------------------
-    # Admission and preemption
+    # Admission, preemption and deadline shedding
     # ------------------------------------------------------------------
+    @staticmethod
+    def _admit_order_key(r: Request) -> Tuple[int, float]:
+        """Scan order: class, then the absolute TTFT deadline (none: after
+        every deadline); the sort is stable, so arrival breaks ties."""
+        if r.ttft_deadline_s is None:
+            return (r.priority, float("inf"))
+        return (r.priority, r.arrival_time + r.ttft_deadline_s)
+
     def _admit(self) -> List[Request]:
-        """Scan the queue in (priority, arrival) order and admit what fits,
-        preempting where a strictly lower class holds the slot.  Stops at
-        the first waiter that neither a free slot nor a victim could
-        serve: the scan is priority-sorted, so the rest cannot either."""
+        """Scan the queue in ``_admit_order_key`` order and admit what fits,
+        preempting where a strictly lower class holds the slot; skip a
+        request still held back after a fault.  Stops at the first waiter
+        that neither a free slot nor a victim could serve: the scan is
+        priority-sorted, so the rest cannot either."""
         admitted: List[Request] = []
         if not self.waiting:
             return admitted
-        for req in sorted(self.waiting, key=lambda r: r.priority):
-            free = sum(p.n_free for p in self.pools.values())
-            prios = [r.priority for r in self.running.values()
-                     if r.state is RequestState.DECODE]
-            if free == 0 and (not prios or req.priority >= max(prios)):
+        free = sum(p.n_free for p in self.pools.values())
+        top = self._lowest_decoding_class()
+        for req in sorted(self.waiting, key=self._admit_order_key):
+            if req.hold_until_step > self.n_steps:
+                continue
+            if free == 0 and (top is None or req.priority >= top):
                 break
             if self._try_admit(req):
                 admitted.append(req)
+                free = sum(p.n_free for p in self.pools.values())
+                top = self._lowest_decoding_class()
         if admitted:
             gone = {id(r) for r in admitted}
             self.waiting = deque(r for r in self.waiting if id(r) not in gone)
         return admitted
+
+    def _lowest_decoding_class(self) -> Optional[int]:
+        """The largest class number among DECODE requests (None: none)."""
+        prios = [r.priority for r in self.running.values()
+                 if r.state is RequestState.DECODE]
+        return max(prios) if prios else None
 
     def _try_admit(self, req: Request) -> bool:
         pool = self.pools[req.tier]
@@ -258,19 +338,23 @@ class Scheduler:
             return None
         return max(cands, key=lambda r: (r.priority, -r.n_generated, r.id))
 
-    def _preempt(self, req: Request) -> None:
-        """Free ``req``'s slot and requeue it with a resume buffer: the
-        prompt and every generated token but the last (the next decode
-        input, whose KV was never written).  Output and ``n_generated``
-        stay, so with per-(request, step) keys the resumed tokens are
-        those of an unpreempted run.  On a paged pool its registered
-        prompt pages stay in the prefix cache for the resume."""
+    def _preempt(self, req: Request, reason: str = "priority") -> None:
+        """Free ``req``'s slot and requeue it.  A request that has emitted
+        tokens gets a resume buffer: the prompt and every generated token
+        but the last (the next decode input, whose KV was never written).
+        Output and ``n_generated`` stay, so with per-(request, step) keys
+        the resumed tokens are those of an unpreempted run.  (A request
+        faulted before its first token starts its prompt over.)  On a
+        paged pool its registered prompt pages stay in the prefix cache
+        for the resume."""
         del self.running[(req.tier, req.slot)]
         self.pools[req.tier].free(req.slot)
         req.slot = None
         req.state = RequestState.WAITING
-        req.resume_prompt = np.concatenate(
-            [req.prompt, np.asarray(req.output_tokens[:-1], np.int32)])
+        if req.output_tokens:
+            req.resume_prompt = np.concatenate(
+                [req.prompt, np.asarray(req.output_tokens[:-1], np.int32)]) \
+                if req.n_generated > 1 else req.prompt
         req.prompt_padded = None
         req.prefill_pos = 0
         req.prefix_hit_tokens = 0
@@ -278,7 +362,65 @@ class Scheduler:
         req.last_enqueue_time = self._last_now
         req.admit_time = None
         self.waiting.append(req)
-        self.metrics.on_preempt(req, reason="priority")
+        self.metrics.on_preempt(req, reason=reason)
+
+    def _shed_expired_waiting(self, finished_now: List[Request]) -> None:
+        """Retire WAITING requests whose TTFT (before a first token) or e2e
+        deadline has passed, by the last clock sample taken."""
+        now = self._last_now
+        if now is None or not self.waiting:
+            return
+        expired = [
+            r for r in self.waiting
+            if (r.ttft_deadline_s is not None and r.first_token_time is None
+                and now - r.arrival_time > r.ttft_deadline_s)
+            or (r.e2e_deadline_s is not None
+                and now - r.arrival_time > r.e2e_deadline_s)]
+        if not expired:
+            return
+        gone = {id(r) for r in expired}
+        self.waiting = deque(r for r in self.waiting if id(r) not in gone)
+        for r in expired:
+            self._finish_unadmitted(r, "deadline_exceeded", now,
+                                    finished_now)
+
+    def _finish_unadmitted(self, req: Request, reason: str, now: float,
+                           finished_now: Optional[List[Request]]) -> None:
+        """Retire a request that holds no slot (rejected at submit, or shed
+        from the queue)."""
+        req.state = RequestState.FINISHED
+        req.finish_reason = reason
+        req.finish_time = now
+        self.finished.append(req)
+        if finished_now is not None:
+            finished_now.append(req)
+        self.metrics.on_finish(req)
+
+    # ------------------------------------------------------------------
+    # Fault recovery
+    # ------------------------------------------------------------------
+    def _on_fault(self, cohort: List[Request], fault: StepFault,
+                  finished_now: List[Request]) -> None:
+        """A dispatch died or returned poisoned output: its output is
+        dropped whole; each of its requests is charged a fault and
+        requeued through the preemption path, held back 1, 2, 4, ...
+        steps, or retired with ``finish_reason='fault'`` once its budget
+        is spent."""
+        self.metrics.on_fault(fault, len(cohort))
+        for r in list(cohort):
+            backoff = self._retry.record_fault(r.id)
+            r.n_faults += 1
+            if backoff is None:
+                now = self._last_now if self._last_now is not None \
+                    else r.arrival_time
+                self._retire(r, "fault", now, finished_now)
+            else:
+                r.hold_until_step = self.n_steps + backoff
+                self._preempt(r, reason="fault")
+
+    def _tokens_poisoned(self, toks: np.ndarray) -> bool:
+        """The poisoned-output guard: sampled ids must be in the vocabulary."""
+        return bool(np.any((toks < 0) | (toks >= self.engine.cfg.vocab)))
 
     # ------------------------------------------------------------------
     # Prefill and decode dispatches
@@ -288,6 +430,8 @@ class Scheduler:
                 r.state is RequestState.PREFILL for r in self.running.values()):
             return 1
         k = self.max_burst
+        if self.slo is not None:
+            k = self.slo.burst_cap(self, dec, pool, k)
         for r in dec:
             budget = r.sampling.max_new_tokens - r.n_generated
             capacity = pool.max_len - int(pool.lengths[r.slot]) - 1
@@ -295,22 +439,29 @@ class Scheduler:
         return 1 << (k.bit_length() - 1)
 
     def _prefill_one_chunk(self, emitted: List,
-                           finished_now: List[Request]) -> None:
+                           finished_now: List[Request]) -> bool:
+        """One chunk of the oldest PREFILL request; False when there was
+        none, it faulted, or it finished its prompt (a round budgeting
+        several chunks stops there)."""
         pre = [r for r in self.running.values()
                if r.state is RequestState.PREFILL]
         if not pre:
-            return
+            return False
         req = min(pre, key=lambda r: r.id)
         pool = self.pools[req.tier]
         self._dispatch_seq += 1
         c = self.engine.scfg.prefill_chunk
         start, plen = req.prefill_pos, req.prefill_len
-        logits = self.engine.prefill_chunk_into_slot(
-            pool, req.slot, req.prompt_padded, start, prompt_len=plen,
-            need_logits=not req.is_resuming)
+        try:
+            logits = self.engine.prefill_chunk_into_slot(
+                pool, req.slot, req.prompt_padded, start, prompt_len=plen,
+                need_logits=not req.is_resuming)
+        except StepFault as f:
+            self._on_fault([req], f, finished_now)
+            return False
         req.prefill_pos = min(start + c, plen)
         if req.prefill_pos < plen:
-            return
+            return True
         req.state = RequestState.DECODE
         if pool.paged:
             pool.register_prefix(req.slot, req.prefill_tokens)
@@ -318,10 +469,11 @@ class Scheduler:
             # the replay covers prompt + generated[:-1]; decode goes on at
             # n_generated with the last token as its input
             req.resume_prompt = None
-            return
+            return False
         tok = sample_one(logits[(plen - 1) % c], req.step_key(),
                          req.sampling.temperature)
         self._emit(req, tok, emitted, finished_now)
+        return False
 
     def _key_schedule(self, dec: List[Request], k: int, keys: np.ndarray,
                       temps: np.ndarray) -> None:
@@ -349,7 +501,16 @@ class Scheduler:
         if pool.paged:
             pool.ensure_decode([r.slot for r in dec], 1)
         self._dispatch_seq += 1
-        toks = self.engine.decode_slots(pool, tokens, keys[0], temps)
+        try:
+            toks = self.engine.decode_slots(pool, tokens, keys[0], temps)
+        except StepFault as f:
+            self._on_fault(dec, f, finished_now)
+            return
+        if self._ft_check \
+                and self._tokens_poisoned(toks[[r.slot for r in dec]]):
+            self._on_fault(dec, StepFault("nan", "decode ids out of vocab"),
+                           finished_now)
+            return
         self.metrics.on_decode_burst(1, len(dec), tier=pool.kv_dtype)
         for r in dec:
             pool.lengths[r.slot] += 1      # the input token's KV
@@ -377,8 +538,18 @@ class Scheduler:
             pool.ensure_decode([r.slot for r in dec], k,
                                [int(rem[r.slot]) for r in dec])
         self._dispatch_seq += 1
-        toks, valid = self.engine.decode_burst(pool, tokens, keys, temps,
-                                               active, rem, eos)
+        try:
+            toks, valid = self.engine.decode_burst(pool, tokens, keys, temps,
+                                                   active, rem, eos)
+        except StepFault as f:
+            self._on_fault(dec, f, finished_now)
+            return
+        if self._ft_check and self._tokens_poisoned(toks[valid]):
+            # the burst committed the lengths; the requeue frees the slots
+            # (and pages), so no poisoned write reaches a served token
+            self._on_fault(dec, StepFault("nan", "burst ids out of vocab"),
+                           finished_now)
+            return
         self.metrics.on_decode_burst(k, int(valid.sum()), tier=pool.kv_dtype)
         # replay in step-major order; slots captured first because _emit
         # may retire a request mid-replay
@@ -413,6 +584,7 @@ class Scheduler:
         del self.running[(req.tier, req.slot)]
         self.pools[req.tier].free(req.slot)
         req.slot = None
+        self._retry.clear(req.id)
         self.finished.append(req)
         finished_now.append(req)
         self.metrics.on_finish(req)
