@@ -115,6 +115,21 @@ non-zero after the last phase; exceptions are not caught):
      (final tier, no policy, no injector, same pool widths) bit for bit, or
      a prefix of it, (3) a resumed request is held to its rerun by 5b's
      rule iv, (4) K1, K2, K3 (bf16) and K4 (int8) launched;
+  5e. after 5d, on granite's parameters: speculative decoding
+     (``granite-8b-spec``): one engine (8 slots, max_len 512, chunk 64,
+     bursts of up to 8, bf16 KV), ``SpecConfig(draft_kv="int8", k_init=2,
+     k_max=4)``, 10 requests (prompts 64-192, 48 new tokens, 3 at
+     temperature 0.8), 8 at step 0 and 2 at step 12 (they stop
+     speculation while they wait and prefill, and the draft catches up
+     after); runs (A) spec off, (B) spec on, (C) spec on from a paged bf16
+     pool of 64-position pages, fully provisioned, (D) spec on with
+     corrupt drafts; checks (1) every request of B, C and D emits A's
+     tokens bit for bit, (2) B and C accept drafts; C's allocator
+     invariants hold and no page leaked, (3) D accepts none, collapses and
+     falls back to plain bursts, (4) the accounting identities hold and
+     one verify dispatch runs per decoding tier a spec round, (5) in B, K1
+     and K3 on the bf16 target, K4 on the int8 draft pool and K2 on
+     prefill and on the draft's catch-up chunks;
   6. model phases only, at full width and cut depth: starcoder2-15b at 4
      layers under fp8 attention / mxfp4 FFN weights with fp8 KV (K1 / K2
      must launch on both formats, K4 on fp8 KV), and nemotron-4-340b at 2
@@ -176,7 +191,7 @@ from repro_torch.quant.schemes import (  # noqa: E402
     quantize_activations_int8, quantize_weights)
 from repro_torch.serve import (Request, RequestState,  # noqa: E402
                                SamplingParams, Scheduler, ServeConfig,
-                               ServingEngine, SLOPolicy)
+                               ServingEngine, SLOPolicy, SpecConfig)
 from repro_torch.serve import threefry  # noqa: E402
 from repro_torch.serve.sampling import (  # noqa: E402
     batched_step_keys, sample_rows, temperature_scores)
@@ -214,6 +229,8 @@ PATH_KERNELS = {
                          "decode_attention_bf16", "decode_attention_quant"),
     "granite-8b-slo": ("packed_gemv", "packed_matmul",
                        "decode_attention_bf16", "decode_attention_quant"),
+    "granite-8b-spec": ("packed_gemv", "packed_matmul",
+                        "decode_attention_bf16", "decode_attention_quant"),
     "minitron-8b": ("w8a8_matmul", "decode_attention_bf16",
                     "decode_attention_quant"),
     "starcoder2-15b": ("packed_gemv", "packed_matmul",
@@ -232,6 +249,8 @@ PATH_FORMATS = {
                          "decode_attention_quant:int8"),
     "granite-8b-slo": ("decode_attention_bf16:bf16",
                        "decode_attention_quant:int8"),
+    "granite-8b-spec": ("decode_attention_bf16:bf16",
+                        "decode_attention_quant:int8"),
     "starcoder2-15b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
     "starcoder2-15b-mixed": (
         "packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1",
@@ -244,7 +263,8 @@ PATH_FORMATS = {
 # paths run after the serve phase on the same parameters)
 MODEL_RUNS = [
     ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True,
-     ("granite-8b-tiers", "granite-8b-paged", "granite-8b-slo")),
+     ("granite-8b-tiers", "granite-8b-paged", "granite-8b-slo",
+      "granite-8b-spec")),
     ("minitron-8b", "minitron-8b", None, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
     ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
@@ -315,6 +335,15 @@ SLO_E2E_DEADLINE_S = 30.0           # clock seconds: 15 steps
 SLO_FAULT_RATE, SLO_FAULT_ARM_STEP, SLO_FAULT_RETRIES = 0.1, 2, 3
 SLO_SEED = 7
 SLO_MAX_STEPS = 3000
+# the speculative path (granite-8b-spec): 8 slots, 10 bf16 requests
+# (prompts 64-192 tokens, 48 new, every third at 0.8), SPEC_EARLY at step 0
+# and the rest at SPEC_LATE_STEP; the draft twin at int8 KV, K on the
+# ladder 1-2-4 from 2; paged run C from 64-position pages
+SPEC_REQUESTS, SPEC_EARLY, SPEC_LATE_STEP = 10, 8, 12
+SPEC_NEW_TOKENS = 48
+SPEC_SEED = 11
+SPEC_PAGE = 64
+SPEC_MAX_STEPS = 2000
 # the sampler on the card against the CPU: [rows, vocab] f32 draws;
 # Gumbel noise within GUMBEL_ULPS ulps of max(|g|, 1) (each platform's
 # log is within one ulp of the other's on the same input), ids equal but
@@ -1913,6 +1942,203 @@ def slo_phase(cfg, params, chunk, dev):
     return res, launches, formats
 
 
+# ---------------------------------------------------------------------------
+# Phase 5e: speculative decoding with an int8-KV draft
+# ---------------------------------------------------------------------------
+def spec_requests(cfg, seed=SPEC_SEED):
+    """[(id, temperature, prompt)] of the speculative path."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SPEC_REQUESTS):
+        prompt = rng.integers(1, cfg.vocab, (int(rng.integers(64, 193)),))
+        out.append((i, TIERS_TEMPERATURE if i % 3 == 1 else 0.0,
+                    prompt.astype(np.int32)))
+    return out
+
+
+def serve_spec(engine, specs, spec, dev):
+    """One run of the speculative path: SPEC_EARLY requests at step 0, the
+    rest at SPEC_LATE_STEP.  Returns (scheduler, {id: request}, log):
+    ``log`` holds the host wall, each spec round's draft and verify
+    dispatches by step, and the launches by format inside the draft's
+    catch-up."""
+    sched = Scheduler(engine, spec=spec)
+    obs = {"verify": [], "draft": [], "catchup_launches": {}}
+    if spec is not None:
+        verify, draft = engine.verify_slots, sched.draft.draft_burst
+        catch_up = sched.draft.catch_up
+
+        def watched_verify(pool, *a, **kw):
+            obs["verify"].append((sched.n_steps, pool.kv_dtype))
+            return verify(pool, *a, **kw)
+
+        def watched_draft(tier, *a, **kw):
+            obs["draft"].append((sched.n_steps, tier))
+            return draft(tier, *a, **kw)
+
+        def watched_catch_up(*a, **kw):
+            before = ops.format_launch_counts()
+            n = catch_up(*a, **kw)
+            for k, v in ops.format_launch_counts().items():
+                if v != before.get(k, 0):
+                    obs["catchup_launches"][k] = \
+                        obs["catchup_launches"].get(k, 0) + v \
+                        - before.get(k, 0)
+            return n
+
+        engine.verify_slots = watched_verify
+        sched.draft.draft_burst = watched_draft
+        sched.draft.catch_up = watched_catch_up
+    reqs = {}
+
+    def submit(rid, temp, prompt):
+        reqs[rid] = sched.submit(Request(
+            prompt=prompt, id=rid, sampling=SamplingParams(
+                temperature=temp, max_new_tokens=SPEC_NEW_TOKENS,
+                seed=TIERS_SEED)))
+
+    sync(dev)
+    t0 = time.perf_counter()
+    for s in specs[:SPEC_EARLY]:
+        submit(*s)
+    late = list(specs[SPEC_EARLY:])
+    while sched.has_work or late:
+        if late and sched.n_steps >= SPEC_LATE_STEP:
+            for s in late:
+                submit(*s)
+            late = []
+        if sched.n_steps >= SPEC_MAX_STEPS:
+            require(False, f"spec: not drained in {SPEC_MAX_STEPS} steps")
+            break
+        sched.step()
+    sync(dev)
+    obs["wall_s"] = time.perf_counter() - t0
+    if spec is not None:
+        del engine.verify_slots            # the engine's own method again
+    return sched, reqs, obs
+
+
+def spec_phase(cfg, params, chunk, dev):
+    """granite-8b FULL with speculative decoding: runs A-D and checks 1-5
+    of the speculative path.  Launch counts are set to 0 just before run B
+    and read just after."""
+    t_phase = time.perf_counter()
+    specs = spec_requests(cfg)
+    base = ServeConfig(max_len=512, n_slots=8, prefill_chunk=chunk,
+                       max_burst=8, policy=PrecisionPolicy(kv="bf16"),
+                       device=str(dev))
+    slab = ServingEngine(cfg, params, base)
+    paged = ServingEngine(cfg, params, dataclasses.replace(
+        base, paged=True, page_size=SPEC_PAGE))
+    spec = SpecConfig(draft_kv="int8", k_init=2, k_max=4)
+    runs = {"A": serve_spec(slab, specs, None, dev)}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    runs["B"] = serve_spec(slab, specs, spec, dev)
+    launches = ops.launch_counts()
+    formats = ops.format_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    runs["C"] = serve_spec(paged, specs, spec, dev)
+    runs["D"] = serve_spec(slab, specs, dataclasses.replace(
+        spec, corrupt_drafts=True), dev)
+    log(json.dumps({"serve_launches": launches, "by_format": formats,
+                    "catchup_launches": runs["B"][2]["catchup_launches"],
+                    "path": "granite-8b-spec"}))
+    card = nvidia_smi()
+    out = {"card": card, "peak_memory_bytes_B": peak}
+    want = {rid: r.output_tokens for rid, r in runs["A"][1].items()}
+    for name, (sched, reqs, obs) in runs.items():
+        m = sched.metrics
+        rep = m.report()
+        tokens = m.total_new_tokens
+        res = {"host_wall_s": obs["wall_s"], "steps": sched.n_steps,
+               "total_new_tokens": tokens,
+               "host_wall_per_token_s": obs["wall_s"] / max(tokens, 1),
+               "host_syncs_per_token": sched.n_host_syncs / max(tokens, 1),
+               "dispatches_per_token": rep.get("dispatches_per_token"),
+               "burst_hist": rep.get("burst_hist"), "spec": rep.get("spec")}
+        tag = f"spec ({name})"
+        for rid, r in sorted(reqs.items()):
+            require(r.is_finished and r.finish_reason == "length"
+                    and r.n_generated == SPEC_NEW_TOKENS,
+                    f"{tag}: request {rid} finished by {r.finish_reason} "
+                    f"with {r.n_generated} tokens")
+            require(all(0 <= t < cfg.vocab for t in r.output_tokens),
+                    f"{tag}: request {rid} emitted an id outside the "
+                    "vocabulary")
+        if name != "A":
+            # 1. every request is run A's, bit for bit
+            for rid, r in sorted(reqs.items()):
+                require(r.output_tokens == want[rid],
+                        f"{tag}: request {rid} (t={r.sampling.temperature})"
+                        " differs from its spec-off run")
+            res["planner"] = sched.spec_planner.snapshot()
+            # 4. the accounting identities, one verify a tier a round
+            require(m.spec_rounds > 0, f"{tag}: no spec round")
+            require(m.spec_tokens_drafted == m.spec_tokens_accepted
+                    + m.spec_tokens_rejected
+                    and m.spec_tokens_emitted == m.spec_tokens_accepted
+                    + m.spec_bonus_tokens
+                    and tokens == len(m.ttft) + m.decode_tokens_emitted
+                    + m.spec_tokens_emitted
+                    and 0 < m.spec_bonus_tokens
+                    <= m.spec_rounds * base.n_slots,
+                    f"{tag}: accounting {rep.get('spec')}")
+            rounds = sorted(set(obs["verify"]))
+            require(len(obs["verify"]) == len(rounds) == m.spec_rounds
+                    == len(obs["draft"]) == m.spec_verify_dispatches,
+                    f"{tag}: {len(obs['verify'])} verify dispatches in "
+                    f"{len(rounds)} (step, tier) rounds, {m.spec_rounds} "
+                    "spec rounds")
+        if name in ("B", "C"):
+            # 2. drafts accepted
+            require(m.spec_tokens_accepted > 0, f"{tag}: nothing accepted")
+            require(m.spec_catchup_dispatches > 0, f"{tag}: no catch-up")
+        if name == "C":
+            pool = sched.pool
+            try:
+                pool.allocator.check()
+            except AssertionError as e:
+                require(False, f"{tag}: allocator invariant: {e}")
+            require(pool.pages_in_use == 0
+                    and pool.pages_free + pool.pages_cached
+                    == pool.n_pages - 1,
+                    f"{tag}: pages leak: {rep.get('pages')}")
+            res["pages"] = rep.get("pages")
+        if name == "D":
+            # 3. nothing accepted, a collapse, plain bursts after it
+            snap = sched.spec_planner.snapshot()
+            require(m.spec_tokens_accepted == 0,
+                    f"{tag}: {m.spec_tokens_accepted} corrupt drafts "
+                    "accepted")
+            require(snap["collapses"] >= 1 and snap["plain_fallbacks"] >= 1,
+                    f"{tag}: planner {snap}")
+            log(json.dumps({"spec_planner_D": snap,
+                            "path": "granite-8b-spec"}))
+        out[name] = res
+        spec_rep = rep.get("spec") or {}
+        log(json.dumps({
+            "path": "granite-8b-spec", "run": name,
+            "acceptance_rate": spec_rep.get("acceptance_rate"),
+            "tokens_per_verify_dispatch":
+                spec_rep.get("emitted_per_verify_dispatch"),
+            "dispatches_per_token": res["dispatches_per_token"],
+            "host_syncs_per_token": res["host_syncs_per_token"],
+            "host_wall_per_token_s": res["host_wall_per_token_s"],
+            "host_wall_s": obs["wall_s"], "steps": sched.n_steps,
+            "card": card}))
+    # 5. K1 / K3 on the bf16 target, K4 on the int8 draft, K2 on prefill
+    # and on the draft's catch-up chunks
+    check_path_launches("granite-8b-spec", launches, formats)
+    require(sum(v for k, v in runs["B"][2]["catchup_launches"].items()
+                if k.startswith("packed_matmul:")) > 0,
+            "spec (B): K2 did not run the draft's catch-up chunks")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"path": "granite-8b-spec", "phase_s": out["seconds"],
+                    "card": card}))
+    return out, launches, formats
+
+
 def check_path_launches(path: str, launches, formats=None) -> None:
     """Every kernel of ``path`` launched in its run, and no other; and on
     every weight / KV format ``PATH_FORMATS`` names for it."""
@@ -1927,14 +2153,19 @@ def check_path_launches(path: str, launches, formats=None) -> None:
 
 
 # ---------------------------------------------------------------------------
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     log(smi)
@@ -1979,7 +2210,8 @@ def main() -> None:
                          "calls and pipeline issues")
     extra_phases = {"granite-8b-tiers": tiers_phase,
                     "granite-8b-paged": paged_phase,
-                    "granite-8b-slo": slo_phase}
+                    "granite-8b-slo": slo_phase,
+                    "granite-8b-spec": spec_phase}
     for path, arch, layers, weights, tiers, witness, serves, extras \
             in MODEL_RUNS:
         cfg = get_config(arch)

@@ -34,11 +34,23 @@ by requeueing, up to ``--max-fault-retries`` faults a request.
       --device cpu --tiers bf16,int8 --priority-mix 0:0.25,2:0.75 \
       --slo-max-waiting 4 --slo-downgrade bf16:int8 --slo-high-s 0.5 \
       --slo-low-s 0.1 --fault-rate 0.1
+
+Speculative decoding: ``--spec`` drafts on a twin of the engine over the
+same weights at ``--spec-draft-kv`` (a KV tier, or a ``PrecisionPolicy``
+JSON file for the whole draft policy) and verifies each window in one
+target dispatch; ``--spec-k`` is the draft length (k_init = k_max),
+``--spec-corrupt`` garbles every draft (acceptance 0, the output
+unchanged).  The report gains the ``spec`` block and the planner's
+snapshot.
+
+  python -m repro_torch.launch.serve --arch granite-8b --smoke \
+      --device cpu --spec --spec-k 4 --temperature 0.8
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Callable, Optional, Tuple
 
@@ -51,7 +63,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import (Request, SamplingParams, Scheduler,
-                               ServeConfig, ServingEngine, SLOPolicy)
+                               ServeConfig, ServingEngine, SLOPolicy,
+                               SpecConfig)
 from repro_torch.serve.engine import resolve_device
 
 
@@ -107,6 +120,33 @@ def build_fault_injector(args) -> Tuple[Optional[Callable], Callable]:
     return injector, lambda: armed.append(True)
 
 
+def add_spec_args(ap: argparse.ArgumentParser) -> None:
+    """The ``--spec*`` flags (``build_spec``)."""
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decoding with a low-precision draft")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft length (k_init = k_max)")
+    ap.add_argument("--spec-draft-kv", default="int8",
+                    help="the draft's KV tier, or a PrecisionPolicy JSON "
+                         "file for the whole draft policy")
+    ap.add_argument("--spec-corrupt", action="store_true",
+                    help="garble every draft (acceptance 0)")
+
+
+def build_spec(args) -> Optional[SpecConfig]:
+    """A ``SpecConfig`` from the --spec* flags, or None without --spec."""
+    if not args.spec:
+        return None
+    draft_kv, draft_policy = args.spec_draft_kv, None
+    if os.path.exists(args.spec_draft_kv):
+        with open(args.spec_draft_kv) as f:
+            draft_policy = PrecisionPolicy.from_json(f.read())
+        draft_kv = draft_policy.kv
+    return SpecConfig(draft_kv=draft_kv, draft_policy=draft_policy,
+                      k_max=args.spec_k, k_init=args.spec_k,
+                      corrupt_drafts=args.spec_corrupt)
+
+
 def parse_priority_mix(spec: Optional[str]):
     """'0:0.25,2:0.75' -> ([0, 2], [0.25, 0.75]) (weights normalized)."""
     if not spec:
@@ -142,7 +182,9 @@ def main(argv=None) -> None:
     ap.add_argument("--priority-mix", default=None,
                     help="seeded classes, e.g. 0:0.25,2:0.75")
     add_policy_args(ap)
+    add_spec_args(ap)
     args = ap.parse_args(argv)
+    spec = build_spec(args)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -166,7 +208,7 @@ def main(argv=None) -> None:
     prios = rng.choice(classes, size=args.batch, p=weights)
 
     def serve(batch, slo=None):
-        sched = Scheduler(engine, tiers=tiers, slo=slo)
+        sched = Scheduler(engine, tiers=tiers, slo=slo, spec=spec)
         reqs = [sched.submit(Request(
             prompt=p, kv_policy=tiers[i % len(tiers)] if tiers else None,
             priority=int(prios[i]),
@@ -198,6 +240,8 @@ def main(argv=None) -> None:
         first_output=reqs[0].output_tokens[:8])
     if slo is not None:
         report["slo"] = slo.snapshot()
+    if spec is not None:
+        report["spec_planner"] = sched.spec_planner.snapshot()
     print(json.dumps(report))
 
 

@@ -1,5 +1,5 @@
 """Analytical decode-latency model (paper §VI-D, Figs. 1 / 14; copy of
-``repro/perfmodel/analytical.py`` up to ``decode_latency``).
+``repro/perfmodel/analytical.py`` up to ``spec_round_latency``).
 
 Transformer decode alternates memory phases (weight streaming from HBM)
 and compute phases (MAC-array limited), with idealized streaming and
@@ -19,7 +19,8 @@ MAC counting per decode token (context L):
 
 Every number this module returns is in the paper's FPGA model (V80 by
 default), not a measurement of the card the port runs on.  The serving
-policy (``serve/slo.py``) prices its decisions in these seconds.
+policy (``serve/slo.py``) prices its decisions in these seconds, a
+speculative round too (``spec_round_latency``).
 """
 from __future__ import annotations
 
@@ -155,3 +156,60 @@ def decode_latency(cfg: ModelConfig, scheme: str, *, batch: int, context: int,
             "t_total_s": max(t_mem, t_compute),
             "bound": "memory" if t_mem >= t_compute else "compute",
             "units_quant": units_q, "units_bf16": units_b}
+
+
+def spec_round_latency(cfg: ModelConfig, *, k: int, batch: int, context: int,
+                       design: str = "xtramac",
+                       draft_scheme: str = "awq_int4",
+                       target_scheme: str = "w8a8",
+                       acceptance: float = 0.7,
+                       kv_bytes_per_token: Optional[float] = None,
+                       draft_kv_bytes_per_token: Optional[float] = None,
+                       fpga: FPGAProfile = V80,
+                       use_engine_model: bool = True) -> Dict[str, float]:
+    """One speculative decode round in the paper's FPGA model: K draft
+    steps at the draft scheme and KV tier plus one (K+1)-position verify
+    at the target's.  Every time it returns is in model-seconds of
+    ``fpga`` (the V80 by default), not of the card the port runs on.
+
+    The verify streams the target weights and KV once (its memory phase
+    is a plain step's) while its compute phase covers K+1 positions a
+    row, so the window costs about one plain step where the MAC array
+    has compute headroom and K+1 steps on the channel-streaming GEMV
+    engine, whose lanes match HBM.  This prices a single-weight-stream
+    verify; the serving engine runs the window as K+1 chained decode
+    steps in one dispatch (``serve/engine.py`` ``verify_slots``).
+
+    ``acceptance`` a is the per-position acceptance rate: a row emits
+    E = (1 - a^(K+1)) / (1 - a) tokens a round in expectation.  Returns
+    the round's time, the per-token time t_round / E, a plain step's
+    per-token time at the target precision and their ratio (> 1:
+    speculation wins)."""
+    assert k >= 1 and 0.0 <= acceptance < 1.0
+    eng_d = gemv_engine_for(draft_scheme, fpga) if use_engine_model else None
+    eng_t = gemv_engine_for(target_scheme, fpga) if use_engine_model else None
+    draft = decode_latency(
+        cfg, draft_scheme, batch=batch, context=context, design=design,
+        fpga=fpga, kv_bytes_per_token=draft_kv_bytes_per_token,
+        engine_model=eng_d)
+    target = decode_latency(
+        cfg, target_scheme, batch=batch, context=context, design=design,
+        fpga=fpga, kv_bytes_per_token=kv_bytes_per_token,
+        engine_model=eng_t)
+    t_draft = k * draft["t_total_s"]
+    t_verify = max(target["t_mem_s"], (k + 1) * target["t_compute_s"])
+    t_round = t_draft + t_verify
+    a = acceptance
+    e_tokens = (1.0 - a ** (k + 1)) / (1.0 - a) if a > 0 else 1.0
+    t_plain = target["t_total_s"]
+    return {
+        "t_draft_s": t_draft, "t_verify_s": t_verify,
+        "t_round_s": t_round,
+        "expected_tokens_per_row": e_tokens,
+        "t_per_token_s": t_round / e_tokens,
+        "t_plain_per_token_s": t_plain,
+        "speedup": t_plain / (t_round / e_tokens),
+        "verify_bound": "memory"
+        if target["t_mem_s"] >= (k + 1) * target["t_compute_s"]
+        else "compute",
+    }

@@ -5,6 +5,11 @@ unmatched leaf keeps its config default.  ``kv``: the KV-cache tier
 ('bf16' | 'int8' | 'fp8').  The reference's ``kernel`` field has no
 counterpart: the port always runs its kernels on a CUDA device.
 
+JSON form (``to_dict`` / ``to_json`` / ``from_dict`` / ``from_json``): the
+reference's, so a policy file moves between the two packages.  The port
+writes ``kernel`` as the reference's default, ``'auto'``, and on reading
+checks it against the reference's modes and drops it.
+
 Validation is eager: unknown names raise at construction, and
 ``validate_for(cfg)`` raises the config incompatibilities (a pattern that
 matches no leaf, a K that the scheme's packing word or scale group does not
@@ -14,13 +19,16 @@ serves the packed schemes, w8a8 (raw int8 codes) and bf16.
 from __future__ import annotations
 
 import dataclasses
+import json
 from fnmatch import fnmatchcase
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 from .pack import codes_per_word
 from .schemes import KV_SCHEMES, SCHEMES, effective_group, get_scheme
 
 KV_TIERS = ("bf16",) + tuple(sorted(KV_SCHEMES))
+# the reference's kernel routes, read from a policy file and dropped
+KERNEL_MODES = ("auto", "jnp", "pallas")
 
 
 def validate_kv_tier(tier, cfg=None) -> str:
@@ -87,6 +95,32 @@ class PrecisionPolicy:
                     f"{codes_per_word(s.weight_bits)}-per-int32-word")
         validate_kv_tier(self.kv, cfg)
         return self
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"weights": [list(p) for p in self.weights],
+                "kv": self.kv, "kernel": "auto"}
+
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "PrecisionPolicy":
+        unknown = set(d) - {"weights", "kv", "kernel"}
+        if unknown:
+            raise ValueError(
+                f"policy dict has unknown keys {sorted(unknown)}; "
+                "expected {'weights', 'kv', 'kernel'}")
+        kernel = d.get("kernel", "auto")
+        if kernel not in KERNEL_MODES:
+            raise ValueError(
+                f"policy kernel={kernel!r}; valid modes: "
+                f"{list(KERNEL_MODES)}")
+        return cls(weights=tuple(tuple(p) for p in d.get("weights", ())),
+                   kv=d.get("kv", "bf16"))
+
+    @classmethod
+    def from_json(cls, s: str) -> "PrecisionPolicy":
+        return cls.from_dict(json.loads(s))
 
 
 def leaf_info(cfg) -> Dict[str, Tuple[int, int, str]]:

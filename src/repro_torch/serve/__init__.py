@@ -4,7 +4,8 @@ tables, copy-on-write prefix sharing, LRU eviction), a scheduler with one
 pool per KV tier, priority preemption, chunked prefill and mid-flight
 admission, greedy and seeded temperature sampling (``threefry.py``), an
 SLO policy (typed admission, KV-tier downgrade priced by the paper's cost
-model, deadlines), a fault-fenced dispatch, metrics."""
+model, deadlines), a fault-fenced dispatch, speculative decoding with a
+low-precision draft twin, metrics."""
 from repro_torch.runtime.fault_tolerance import (RetryBudget,  # noqa: F401
                                                  StepFault)
 
@@ -15,3 +16,4 @@ from .kv_pool import (KVCachePool, PagedKVPool, PageAllocator,  # noqa: F401
 from .request import Request, RequestState, SamplingParams  # noqa: F401
 from .scheduler import Scheduler  # noqa: F401
 from .slo import Rejection, SLOPolicy  # noqa: F401
+from .spec import DraftEngine, SpecConfig, SpecPlanner  # noqa: F401

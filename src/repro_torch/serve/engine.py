@@ -14,6 +14,10 @@ slab path of ``repro/serve/engine.py``).
     with the keys of row t of the [K, n_slots, 2] schedule, and one
     transfer at the end brings the [K, n_slots] ids and emit mask to the
     host.
+  * ``verify_slots`` — a speculative window [last, d_1..d_K] of every slot
+    as S = K+1 chained decode steps in one dispatch, each the burst's
+    step; lengths advance on the device, one transfer brings the [S,
+    n_slots] samples back, and ``pool.lengths`` is left to the caller.
 
 ``new_pool`` builds a slot pool at any KV tier; one engine's parameters
 serve every tier's pool (the scheduler holds one pool per tier).  With
@@ -29,8 +33,9 @@ tensors live on ``ServeConfig.device`` ("cuda" by default; the tests pass
 in place.
 
 Fault injection (``ServeConfig.fault_injector``): a hook consulted once per
-dispatch, before it runs, as ``(kind, seq)`` with kind 'prefill', 'decode'
-or 'burst' and ``seq`` the engine's dispatch count since it was built.  It
+dispatch, before it runs, as ``(kind, seq)`` with kind 'prefill', 'decode',
+'burst' or 'verify' and ``seq`` the engine's dispatch count since it was
+built.  It
 returns None (no fault), 'nan' (a decode step or burst runs and returns
 ids of -1, as a poisoned sampler would; a prefill chunk raises instead) or
 any other tag, raised as ``StepFault(tag)`` in place of the dispatch.  The
@@ -136,6 +141,9 @@ class ServingEngine:
         # dispatches seen by the fault injector (advances whenever one is
         # configured)
         self._fault_seq = 0
+        # speculative decoding's draft twins over these parameters, by
+        # draft policy JSON (``spec.DraftEngine``)
+        self.draft_engines: Dict[str, "ServingEngine"] = {}
 
     # ------------------------------------------------------------------
     def new_pool(self, n_slots: Optional[int] = None,
@@ -340,6 +348,49 @@ class ServingEngine:
             toks_h = np.full_like(toks_h, -1)
         pool.lengths += valid.sum(axis=0).astype(np.int32)
         return toks_h, valid
+
+    @torch.no_grad()
+    def verify_slots(self, pool: KVCachePool, tokens: np.ndarray,
+                     key_schedule: np.ndarray,
+                     temperatures: np.ndarray) -> np.ndarray:
+        """Speculative verify over every slot: ``tokens`` [n_slots, S] is
+        row i's window [last_committed, d_1..d_K], written at
+        ``pool.lengths[i]`` .. +S-1; ``key_schedule`` [S, n_slots, 2] holds
+        each row's keys for tokens n_generated .. +K.  Returns the target's
+        samples [S, n_slots] int32, g_j at position j.
+
+        The window runs as S chained decode steps, each the burst's step
+        (the decode forward at M = n_slots, then the sampler with
+        ``key_schedule[j]``), so every g_j takes the kernels and the
+        summation order of the plain decode step.  Scoring the window as
+        one S-wide prefill pass would route to the prefill matmul and
+        another attention order, whose last-bit differences temperature
+        rows turn into other tokens.  ``pool.lengths`` is not committed:
+        the caller commits the emitted count, which is the rollback (the
+        positions past it are masked at every later read).  A paged pool's
+        S-wide window must be pinned first (``ensure_decode(slots, S,
+        rems)``); the table holds for the whole window."""
+        n = pool.n_slots
+        tokens = np.asarray(tokens, np.int32).reshape(n, -1)
+        s = tokens.shape[1]
+        if key_schedule.shape != (s, n, 2):
+            raise ValueError(
+                f"key schedule {key_schedule.shape} is not [{s}, {n}, 2]")
+        poison = self._inject_fault("verify")
+        keys, t_dev, hot = sampler_inputs(key_schedule, temperatures, n,
+                                          self.device)
+        window = self._tensor(np.ascontiguousarray(tokens.T))   # [S, n]
+        lengths = self._tensor(pool.lengths)
+        table = self._page_table(pool)
+        out = torch.empty((s, n), dtype=torch.int32, device=self.device)
+        for j in range(s):
+            out[j] = sample_on_device(
+                self._decode_logits(pool, window[j], lengths + j, table),
+                None if keys is None else keys[j], t_dev, hot)
+        sampled = out.cpu().numpy()              # the window's one sync
+        if poison is not None:
+            sampled = np.full_like(sampled, -1)
+        return sampled
 
     # ------------------------------------------------------------------
     def generate(self, tokens: np.ndarray, *, max_new_tokens: int,

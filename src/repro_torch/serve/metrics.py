@@ -8,6 +8,12 @@
             tier when the scheduler serves several (a tier can starve
             while the total looks healthy).
   * decode dispatches / token-steps — how amortized the decode loop ran.
+  * speculation — rounds, draft / verify / catch-up dispatches, tokens
+            drafted, accepted, rejected, bonus and emitted, and
+            ``dispatches_per_token`` over both decode paths.  Identities:
+            drafted == accepted + rejected, emitted == accepted + bonus,
+            and at drain total_new_tokens == first tokens (len(ttft)) +
+            decode_tokens_emitted + spec_tokens_emitted.
   * queue wait — admission minus the latest enqueue, per priority class
             (a preempted request's second wait is charged to its requeue).
   * preemptions — slots evicted for a higher class or by a faulted
@@ -111,6 +117,16 @@ class ServeMetrics:
         self.decode_tokens_emitted = 0
         self.burst_hist: Dict[int, int] = {}
         self.tier_dispatches: Dict[str, int] = {}
+        self.spec_rounds = 0
+        self.spec_draft_dispatches = 0
+        self.spec_verify_dispatches = 0
+        self.spec_catchup_dispatches = 0   # draft-KV replay prefill chunks
+        self.spec_tokens_drafted = 0
+        self.spec_tokens_accepted = 0      # emitted tokens matching drafts
+        self.spec_tokens_rejected = 0
+        self.spec_bonus_tokens = 0         # the verify's own samples
+        self.spec_tokens_emitted = 0
+        self.spec_accept_hist: Dict[int, int] = {}  # accepted a round -> n
 
     def on_arrival(self, now: float) -> None:
         self.n_arrived += 1
@@ -190,6 +206,29 @@ class ServeMetrics:
         if tier is not None:
             self.tier_dispatches[tier] = self.tier_dispatches.get(tier, 0) + 1
 
+    def on_spec_round(self, k: int, rows: int, drafted: int, accepted: int,
+                      emitted: int, catchup_dispatches: int = 0,
+                      tier: Optional[str] = None) -> None:
+        """One speculative round of ``rows`` cohort rows: a K-step draft
+        burst and one verify dispatch, after ``catchup_dispatches`` draft
+        prefill chunks.  ``drafted``: K a row; ``accepted``: emitted
+        tokens that matched drafts; ``emitted``: every token that
+        surfaced (accepted plus at most one bonus a row)."""
+        bonus = emitted - accepted
+        assert 0 <= accepted <= drafted and 0 <= bonus <= rows, \
+            (drafted, accepted, emitted, rows)
+        self.spec_rounds += 1
+        self.spec_draft_dispatches += 1
+        self.spec_verify_dispatches += 1
+        self.spec_catchup_dispatches += catchup_dispatches
+        self.spec_tokens_drafted += drafted
+        self.spec_tokens_accepted += accepted
+        self.spec_tokens_rejected += drafted - accepted
+        self.spec_bonus_tokens += bonus
+        self.spec_tokens_emitted += emitted
+        self.spec_accept_hist[accepted] = \
+            self.spec_accept_hist.get(accepted, 0) + 1
+
     def on_finish(self, req) -> None:
         self.n_requests += 1
         self.total_new_tokens += req.n_generated
@@ -248,6 +287,36 @@ class ServeMetrics:
             if self.tiers is not None:
                 out["decode_dispatches_by_tier"] = dict(
                     sorted(self.tier_dispatches.items()))
+        if self.spec_rounds:
+            out["spec"] = {
+                "rounds": self.spec_rounds,
+                "draft_dispatches": self.spec_draft_dispatches,
+                "verify_dispatches": self.spec_verify_dispatches,
+                "catchup_dispatches": self.spec_catchup_dispatches,
+                "tokens_drafted": self.spec_tokens_drafted,
+                "tokens_accepted": self.spec_tokens_accepted,
+                "tokens_rejected": self.spec_tokens_rejected,
+                "bonus_tokens": self.spec_bonus_tokens,
+                "tokens_emitted": self.spec_tokens_emitted,
+                "acceptance_rate":
+                    self.spec_tokens_accepted / self.spec_tokens_drafted
+                    if self.spec_tokens_drafted else None,
+                "accepted_per_verify_dispatch":
+                    self.spec_tokens_accepted / self.spec_verify_dispatches,
+                "emitted_per_verify_dispatch":
+                    self.spec_tokens_emitted / self.spec_verify_dispatches,
+                "accept_hist": {str(a): c for a, c in
+                                sorted(self.spec_accept_hist.items())},
+                "plain_tokens_emitted": self.decode_tokens_emitted,
+            }
+        if (self.spec_rounds or self.decode_dispatches) \
+                and self.total_new_tokens:
+            # every dispatch that advanced decode state (plain steps and
+            # bursts, drafts, verifies, draft catch-up chunks) per token
+            out["dispatches_per_token"] = (
+                self.decode_dispatches + self.spec_draft_dispatches
+                + self.spec_verify_dispatches
+                + self.spec_catchup_dispatches) / self.total_new_tokens
         if self.prefix_hits:
             out["prefix_hits"] = self.prefix_hits
             out["prefix_misses"] = self.prefix_misses

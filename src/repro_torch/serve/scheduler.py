@@ -32,7 +32,11 @@ Each ``step()``:
      to 1 while a request waits or a prefill is in flight (so admission
      latency and prefill interleaving match a burst-free scheduler).  EOS
      cannot be planned; rows that sample it stop on the device.  An SLO
-     policy may cap K further from its cost model.
+     policy may cap K further from its cost model.  With speculation on
+     and under the same conditions (nothing waiting, no prefill in
+     flight), a cohort's round is instead a speculative round when the
+     planner gives it a K >= 1: a K-step draft burst on the draft twin and
+     one verify dispatch (``spec.py``, ``_decode_spec``).
   4. **E2e deadlines** — running requests past theirs retire with
      ``deadline_exceeded``, keeping the tokens they emitted.
 
@@ -69,6 +73,18 @@ a prompt's whole pages are published to the prefix cache when its
 prefill completes, and a preempted request's registered pages stay
 cached, so its resume re-prefills only what is not.
 
+Speculation: ``Scheduler(engine, spec=SpecConfig(...))`` drafts on an
+int8-KV twin over the same weights and emits, every round, the longest
+prefix of the drafts the target agrees with plus the target's next
+sample: each emitted token is the plain decode's, bit for bit, at any
+acceptance rate.  A killed or poisoned verify goes to the fault path
+with the lengths uncommitted; a freed slot's draft state is released.
+``n_host_syncs`` counts host syncs where the reference counts them: two
+for a prompt's first token, one per decode dispatch, a draft burst and a
+verify one each, and one per key schedule of a round with temperature
+rows (the reference's comes from the device; the port computes it on the
+host, and counts it all the same so that the two tallies compare).
+
 Retirement (EOS / max-new-tokens / slot capacity) frees the slot at once.
 A token is a pure function of (seed, id, step, logits): the keys of a
 round's temperature rows come from the per-(request, step) schedule, so a
@@ -96,6 +112,7 @@ from .kv_pool import KVCachePool
 from .metrics import ServeMetrics
 from .request import Request, RequestState
 from .sampling import batched_step_keys, sample_one
+from .spec import DraftEngine, SpecConfig, SpecPlanner, accept_longest_prefix
 
 
 class Scheduler:
@@ -103,12 +120,14 @@ class Scheduler:
                  tiers: Union[None, Sequence[str],
                               Mapping[str, Optional[int]]] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 slo=None):
+                 slo=None, spec: Optional[SpecConfig] = None):
         """``tiers``: the KV tiers served, as names (each pool sized by the
         engine's config) or {tier: n_slots} (None: the config's sizing);
         default one pool at the engine policy's tier.  ``slo``: an
         ``SLOPolicy`` (admission control, tier downgrade, cost-model burst
-        and chunk planning); None admits everything."""
+        and chunk planning); None admits everything.  ``spec``: a
+        ``SpecConfig`` (speculative decoding with a low-precision draft
+        twin); None changes nothing."""
         self.engine = engine
         if tiers is None:
             items = [(None, None)]
@@ -147,6 +166,9 @@ class Scheduler:
         self._next_id = 0
         self.n_steps = 0
         self._dispatch_seq = 0      # engine dispatches (prefill and decode)
+        self.n_host_syncs = 0       # the reference's tally (module doc)
+        self.draft = DraftEngine(engine, spec) if spec is not None else None
+        self.spec_planner = SpecPlanner(spec) if spec is not None else None
 
     @property
     def pool(self) -> KVCachePool:
@@ -235,9 +257,19 @@ class Scheduler:
 
         dec = sorted((r for r in self.running.values()
                       if r.state is RequestState.DECODE), key=lambda r: r.id)
+        spec_ok = (self.spec_planner is not None and not self.waiting
+                   and not any(r.state is RequestState.PREFILL
+                               for r in self.running.values()))
         for tier in sorted({r.tier for r in dec}):
             cohort = [r for r in dec if r.tier == tier]
             pool = self.pools[tier]
+            if spec_ok:
+                ks = self.spec_planner.plan([(r, r.slot) for r in cohort],
+                                            pool)
+                if ks >= 1:
+                    self._decode_spec(cohort, pool, ks, emitted,
+                                      finished_now)
+                    continue
             k = self._plan_burst(cohort, pool)
             if k <= 1:
                 self._decode_single(cohort, pool, emitted, finished_now)
@@ -348,6 +380,8 @@ class Scheduler:
         paged pool its registered prompt pages stay in the prefix cache
         for the resume."""
         del self.running[(req.tier, req.slot)]
+        if self.draft is not None:
+            self.draft.release(req.tier, req.slot)
         self.pools[req.tier].free(req.slot)
         req.slot = None
         req.state = RequestState.WAITING
@@ -470,6 +504,8 @@ class Scheduler:
             # n_generated with the last token as its input
             req.resume_prompt = None
             return False
+        # two blocking transfers: the final chunk's logits, the first token
+        self.n_host_syncs += 2
         tok = sample_one(logits[(plen - 1) % c], req.step_key(),
                          req.sampling.temperature)
         self._emit(req, tok, emitted, finished_now)
@@ -485,6 +521,7 @@ class Scheduler:
         sched = batched_step_keys([r.sampling.seed for r in hot],
                                   [r.id or 0 for r in hot],
                                   [r.n_generated for r in hot], k)
+        self.n_host_syncs += 1
         for r, row in zip(hot, sched):
             temps[r.slot] = r.sampling.temperature
             keys[:, r.slot] = row
@@ -506,6 +543,7 @@ class Scheduler:
         except StepFault as f:
             self._on_fault(dec, f, finished_now)
             return
+        self.n_host_syncs += 1
         if self._ft_check \
                 and self._tokens_poisoned(toks[[r.slot for r in dec]]):
             self._on_fault(dec, StepFault("nan", "decode ids out of vocab"),
@@ -544,6 +582,7 @@ class Scheduler:
         except StepFault as f:
             self._on_fault(dec, f, finished_now)
             return
+        self.n_host_syncs += 1
         if self._ft_check and self._tokens_poisoned(toks[valid]):
             # the burst committed the lengths; the requeue frees the slots
             # (and pages), so no poisoned write reaches a served token
@@ -558,6 +597,77 @@ class Scheduler:
             for r, slot in rows:
                 if valid[t, slot]:
                     self._emit(r, int(toks[t, slot]), emitted, finished_now)
+
+    def _decode_spec(self, dec: List[Request], pool: KVCachePool, k: int,
+                     emitted: List, finished_now: List[Request]) -> None:
+        """One speculative round for one tier cohort: catch the draft up,
+        draft K tokens a row, verify the [last, d_1..d_K] window in one
+        target dispatch, and emit the longest agreeing prefix plus the
+        target's next sample.  A fully rejected round emits the verify's
+        position-0 sample, the plain step's token."""
+        tier = pool.kv_dtype
+        n = pool.n_slots
+        s = k + 1
+        rows = [(r, r.slot) for r in dec]
+        n_catchup = self.draft.catch_up(tier, pool, rows)
+        # one key schedule for the round: draft step t and verify position
+        # t take keys[t], the key of token n_generated + t
+        keys = np.zeros((s, n, 2), np.uint32)
+        temps = np.zeros((n,), np.float32)
+        self._key_schedule(dec, s, keys, temps)
+        self._dispatch_seq += 1
+        drafts = self.draft.draft_burst(tier, pool, rows, k, keys[:k], temps)
+        self.n_host_syncs += 1
+        window = np.zeros((n, s), np.int32)
+        rems = np.zeros((n,), np.int32)
+        for r, slot in rows:
+            window[slot, 0] = r.last_token
+            window[slot, 1:] = drafts[:, slot]
+            rems[slot] = r.sampling.max_new_tokens - r.n_generated
+        if pool.paged:
+            # the S-wide window of each row (the planner kept K below each
+            # row's budget, so every position the round may commit)
+            pool.ensure_decode([slot for _, slot in rows], s,
+                               [int(rems[slot]) for _, slot in rows])
+        self._dispatch_seq += 1
+        try:
+            verified = self.engine.verify_slots(pool, window, keys, temps)
+        except StepFault as f:
+            self._on_fault(dec, f, finished_now)
+            return
+        self.n_host_syncs += 1
+        if self._ft_check and self._tokens_poisoned(
+                verified[:, [slot for _, slot in rows]]):
+            # the lengths were never committed: the poisoned writes stay
+            # masked, and the requeue recomputes them
+            self._on_fault(dec, StepFault("nan", "verify ids out of vocab"),
+                           finished_now)
+            return
+        plan: List[Tuple[Request, int, int]] = []
+        drafted = accepted = emitted_total = 0
+        for r, slot in rows:
+            n_emit, n_acc = accept_longest_prefix(
+                drafts[:, slot], verified[:, slot], r.sampling.eos_id,
+                int(rems[slot]))
+            plan.append((r, slot, n_emit))
+            drafted += k
+            accepted += n_acc
+            emitted_total += n_emit
+        # commit the target's lengths (the rollback), then the draft's
+        for r, slot, n_emit in plan:
+            pool.lengths[slot] += n_emit
+        self.draft.sync_lengths(tier, pool, rows)
+        self.spec_planner.observe(drafted, accepted)
+        self.metrics.on_spec_round(
+            k=k, rows=len(dec), drafted=drafted, accepted=accepted,
+            emitted=emitted_total, catchup_dispatches=n_catchup, tier=tier)
+        # replay in step-major order, the order single steps emit in;
+        # slots captured first because _emit may retire a request
+        for t in range(s):
+            for r, slot, n_emit in plan:
+                if t < n_emit:
+                    self._emit(r, int(verified[t, slot]), emitted,
+                               finished_now)
 
     def _emit(self, req: Request, tok: int, emitted: List,
               finished_now: List[Request]) -> None:
@@ -582,6 +692,8 @@ class Scheduler:
         req.finish_reason = reason
         req.finish_time = now
         del self.running[(req.tier, req.slot)]
+        if self.draft is not None:
+            self.draft.release(req.tier, req.slot)
         self.pools[req.tier].free(req.slot)
         req.slot = None
         self._retry.clear(req.id)

@@ -119,8 +119,10 @@ class SLOPolicy:
         """Modeled time to drain everything in the system: outstanding
         decode tokens amortize over every slot of every tier, outstanding
         prefill tokens serialize one chunk a round on top.  Monotone in
-        the backlog.  (The speculative-decoding slice adds the draft /
-        verify pricing of the reference's spec branch here.)"""
+        the backlog.  While the scheduler's speculation planner is active,
+        decode drains in rounds of K draft steps (at the draft pool's KV
+        bytes) and one verify step, each emitting the planner's expected
+        tokens a row."""
         engine = sched.engine
         pool = sched.pool
         n_slots = sum(p.n_slots for p in sched.pools.values())
@@ -140,9 +142,20 @@ class SLOPolicy:
         context = ctx_sum // ctx_n if ctx_n else pool.max_len // 2
         t_tok = self._model_step_s(engine, n_slots, context,
                                    pool.bytes_per_token)
-        rounds = dec_toks / max(n_slots, 1) \
-            + pre_toks / engine.scfg.prefill_chunk
-        est = rounds * t_tok
+        c = engine.scfg.prefill_chunk
+        planner = sched.spec_planner
+        if planner is not None and planner.active:
+            dpool = sched.draft.pools.get(sched.default_tier)
+            draft_bpt = dpool.bytes_per_token if dpool is not None \
+                else pool.bytes_per_token
+            t_draft = self._model_step_s(engine, n_slots, context,
+                                         draft_bpt)
+            t_round = planner.k * t_draft + t_tok
+            e_tokens = max(planner.expected_tokens_per_round(), 1.0)
+            est = (dec_toks / max(n_slots, 1)) / e_tokens * t_round \
+                + (pre_toks / c) * t_tok
+        else:
+            est = (dec_toks / max(n_slots, 1) + pre_toks / c) * t_tok
         self.last_estimate_s = est
         return est
 
