@@ -30,7 +30,15 @@ non-zero after the last phase; exceptions are not caught):
      row tiles; K1 / K2 also on mxfp4 at starcoder2-15b's four linear
      shapes and on fp8 at its two attention shapes, K1 at M = 8 on
      nemotron-4-340b's 73728 x 18432 leaf (53 splits), and decode
-     attention on starcoder2's 48 / 4 heads (Dh 128);
+     attention on starcoder2's 48 / 4 heads (Dh 128); the expert-grouped
+     K1 / K2 (one launch over a stack of 128 experts, ids and row counts
+     read on the card) on qwen3-moe's awq_int4 expert leaves (2048 x 768,
+     768 x 2048): grouped K1 at the decode step's 64 (row, expert) pairs
+     of one row and at a 64-token chunk's 128 capacity buffers of 5 rows,
+     grouped K2 at a 128-token chunk's buffers of 10, both at 40 groups of
+     3 rows over 8 experts (repeated experts, empty groups); rows past a
+     group's count must be exactly zero, and the bound counts the bytes of
+     the distinct experts the groups read;
   2b. the weight quantizer: ``quantize_weights`` (mxfp4, fp8) on the card
      against the same function on the CPU, words and scales bit for bit,
      on starcoder2's widest leaf (6144 x 24576) and on a leaf whose every
@@ -47,15 +55,20 @@ non-zero after the last phase; exceptions are not caught):
      (latency 4, II 1, every result checked); K6 must launch exactly once
      per ``xtramac_packed`` call and once per pipeline issue;
   then, for granite-8b (AWQ-int4, 36 layers), minitron-8b (W8A8,
-  squared-ReLU FFN, 32 layers) and starcoder2-15b (MXFP4, non-gated GELU
-  FFN, 40 layers), each at full width with random weights from a seed
-  quantized on the card, one model after the other:
+  squared-ReLU FFN, 32 layers), starcoder2-15b (MXFP4, non-gated GELU
+  FFN, 40 layers) and qwen3-moe-30b-a3b (MoE: 128 experts, top-8,
+  AWQ-int4, 48 layers), each at full width with random weights from a
+  seed quantized on the card, one model after the other:
   4. the model: one prefill chunk and 4 decode steps through the kernels
      and through the plain versions, bf16 and int8 KV, logits within 5 %
      of the logit scale (``launch/logit_spread.logit_check``); where the
      kernels miss 5 %, the plain path with decode attention summed in the
      kernel's split-KV order is the witness that decides
-     (``logit_spread.witness_check``; PERF.md);
+     (``logit_spread.witness_check``; PERF.md).  For qwen3-moe a routing
+     flip between the paths is not a kernel fault: it prints how many
+     (token, layer) expert sets a free plain run picks differently, and
+     holds the kernel path to the plain path replaying the kernel path's
+     routes (``models/moe.Routes``);
   5. serving: ServingEngine + Scheduler (8 slots, max_len 512, prefill
      chunk 64, bursts of up to 8) serve 6 seeded requests with staggered
      arrivals, once with bf16 KV and once with int8 KV; the kernels'
@@ -64,7 +77,10 @@ non-zero after the last phase; exceptions are not caught):
      against a repeat of the same run (under W8A8 a row's activations are
      quantized with one scale per call, over its batch-mates too, so a
      request served alone may differ); starcoder2's against each request
-     served alone, with K1 / K2 launched on its mxfp4 leaves;
+     served alone, with K1 / K2 launched on its mxfp4 leaves; qwen3-moe's
+     every request against itself served alone, with grouped K1 launched
+     on its int4 expert leaves at decode (M = 1) and prefill (M = 5) and
+     K1 / K2 on its attention leaves;
   5b. after granite's serve phase, on its parameters: one engine serves
      bf16, int8 and fp8 KV side by side (``granite-8b-tiers``), each pool
      sized from 576 MiB (8 / 15 / 15 slots), 22 requests with a third at
@@ -130,7 +146,9 @@ non-zero after the last phase; exceptions are not caught):
      one verify dispatch runs per decoding tier a spec round, (5) in B, K1
      and K3 on the bf16 target, K4 on the int8 draft pool and K2 on
      prefill and on the draft's catch-up chunks;
-  6. model phases only, at full width and cut depth: starcoder2-15b at 4
+  6. model phases only, at full width and cut depth: qwen3-moe at 4
+     layers with 128-token prefill chunks (capacity buffers of 10 rows:
+     grouped K2), starcoder2-15b at 4
      layers under fp8 attention / mxfp4 FFN weights with fp8 KV (K1 / K2
      must launch on both formats, K4 on fp8 KV), and nemotron-4-340b at 2
      of its 96 layers (d_model 18432, d_ff 73728, vocab 256000), bf16 and
@@ -170,7 +188,8 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, gqa_decode_attention)
 from repro_torch.kernels.packed_matmul import (  # noqa: E402
-    gemv_plan, packed_gemv, packed_matmul, packed_matmul_plain)
+    gemv_plan, packed_gemv, packed_gemv_grouped, packed_grouped_plain,
+    packed_matmul, packed_matmul_grouped, packed_matmul_plain)
 from repro_torch.kernels.w8a8_matmul import (  # noqa: E402
     w8a8_matmul, w8a8_matmul_plain)
 from repro_torch.kernels.xtramac_mac import (  # noqa: E402
@@ -180,6 +199,7 @@ from repro_torch.launch import logit_spread as LS  # noqa: E402
 from repro_torch.launch.serve import build_fault_injector  # noqa: E402
 from repro_torch.launch.profile_datapath import (  # noqa: E402
     DATAPATH_COMBOS, TABLE_VII_LANE_MACS, random_operands)
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.perfmodel.analytical import (  # noqa: E402
     decode_latency, gemv_engine_for)
@@ -209,6 +229,12 @@ KERNELS = {
                     "src/repro/kernels/packed_matmul.py:84"),
     "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
                       "src/repro/kernels/packed_matmul.py:84"),
+    # the same Pallas kernel, reached through jax.vmap over the experts
+    # (src/repro/models/moe.py:93-98)
+    "packed_gemv_grouped": ("src/repro_torch/csrc/packed_matmul.cu",
+                            "src/repro/kernels/packed_matmul.py:84"),
+    "packed_matmul_grouped": ("src/repro_torch/csrc/packed_matmul.cu",
+                              "src/repro/kernels/packed_matmul.py:84"),
     "w8a8_matmul": ("src/repro_torch/csrc/w8a8_matmul.cu",
                     "src/repro/kernels/packed_matmul.py:203"),
     "decode_attention_bf16": ("src/repro_torch/csrc/decode_attention.cu",
@@ -239,6 +265,14 @@ PATH_KERNELS = {
                              "decode_attention_quant"),
     "nemotron-4-340b": ("packed_gemv", "packed_matmul",
                         "decode_attention_bf16", "decode_attention_quant"),
+    "qwen3-moe-30b-a3b": ("packed_gemv", "packed_matmul",
+                          "packed_gemv_grouped", "decode_attention_bf16",
+                          "decode_attention_quant"),
+    "qwen3-moe-30b-a3b-chunk128": ("packed_gemv", "packed_matmul",
+                                   "packed_gemv_grouped",
+                                   "packed_matmul_grouped",
+                                   "decode_attention_bf16",
+                                   "decode_attention_quant"),
 }
 # the launches by format (``ops.format_launch_counts``) each path must make
 PATH_FORMATS = {
@@ -257,6 +291,21 @@ PATH_FORMATS = {
         "packed_gemv:fp8_e4m3", "packed_matmul:fp8_e4m3",
         "decode_attention_quant:fp8"),
     "nemotron-4-340b": ("packed_gemv:fp4_e2m1", "packed_matmul:fp4_e2m1"),
+    "qwen3-moe-30b-a3b": ("packed_gemv:int4", "packed_matmul:int4",
+                          "packed_gemv_grouped:int4",
+                          "decode_attention_bf16:bf16",
+                          "decode_attention_quant:int8"),
+    "qwen3-moe-30b-a3b-chunk128": ("packed_gemv_grouped:int4",
+                                   "packed_matmul_grouped:int4"),
+}
+# the grouped launches by the rows of a group (``ops.grouped_launch_counts``)
+# each MoE path must make: decode pairs (M = 1) and the capacity buffers of
+# a 64-token chunk (C = 5, grouped K1) or a 128-token one (C = 10, K2)
+PATH_GROUPED_ROWS = {
+    "qwen3-moe-30b-a3b": ("packed_gemv_grouped:M=1",
+                          "packed_gemv_grouped:M=5"),
+    "qwen3-moe-30b-a3b-chunk128": ("packed_gemv_grouped:M=1",
+                                   "packed_matmul_grouped:M=10"),
 }
 # the model runs: (path, arch, layers (None: all), policy weights, KV
 # tiers of the model phase, witness variant, serve phase, the serving
@@ -269,12 +318,19 @@ MODEL_RUNS = [
      "plain_splitkv", True, ()),
     ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
+    ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", None, (), ("bf16", "int8"),
+     "plain_splitkv", True, ()),
+    ("qwen3-moe-30b-a3b-chunk128", "qwen3-moe-30b-a3b", 4, (),
+     ("bf16", "int8"), "plain_splitkv", False, ()),
     ("starcoder2-15b-mixed", "starcoder2-15b", 4,
      (("attn.*", "fp8"), ("ffn.*", "mxfp4")), ("fp8",), "plain_splitkv",
      False, ()),
     ("nemotron-4-340b", "nemotron-4-340b", 2, (), ("bf16", "int8"),
      "plain_splitkv", False, ()),
 ]
+# the prefill chunk of a model run where it is not 64: qwen3-moe at 4
+# layers with 128-token chunks, whose capacity buffers (C = 10) take K2
+MODEL_CHUNKS = {"qwen3-moe-30b-a3b-chunk128": 128}
 # the mixed-tier path: one engine, one pool per KV tier, each sized from
 # 576 MiB (36 layers x 8 KV heads x Dh 128 at capacity 512: 8 bf16 slots
 # of 75,497,472 B, 15 int8 / fp8 slots of 38,928,384 B); bf16 requests
@@ -367,6 +423,19 @@ VDSP_RAGGED = 987
 # N % 4 != 0 that the dispatch sends to K2
 RAGGED_LEAVES = [("awq_int4", 64, 1000), ("awq_int4", 8, 1022),
                  ("fp8", 8, 1022)]
+# qwen3-moe-30b-a3b's expert leaves (awq_int4, 128 experts): gate / up
+# (2048 x 768) and down (768 x 2048); grouped cases (label, G, M, rows a
+# group holds, expert ids): the decode step's pairs (8 rows x top-8, M = 1,
+# every pair one row), a 64-token chunk's capacity buffers (128 x C = 5,
+# K1) and a 128-token chunk's (128 x C = 10, K2), each buffer holding 0-C
+# rows; and 40 groups of M = 3 over 8 experts (repeated pairs, empty
+# groups), through K1 and K2
+QWEN3_EXPERTS, QWEN3_TOP_K, QWEN3_ROWS = 128, 8, 8
+QWEN3_EXPERT_SHAPES = [(2048, 768), (768, 2048)]
+GROUPED_CASES = [("decode", QWEN3_ROWS * QWEN3_TOP_K, 1),
+                 ("prefill64", QWEN3_EXPERTS, 5),
+                 ("prefill128", QWEN3_EXPERTS, 10),
+                 ("repeats", 40, 3)]
 # K = 4100 (not a multiple of 16): the int8 kernel's 4-byte copy body
 W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
                (4100, 4096)]
@@ -556,6 +625,7 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
         cases.append(packed_case(timer, "packed_matmul", leaf_matmul, scheme,
                                  packed, scales, w_bf16, m, gen, dev,
                                  "packed_matmul"))
+    cases += grouped_cases(timer, gen, dev)
     cases += w8a8_cases(timer, gen, dev, chunk)
     for layout in ATTN_LAYOUTS:
         cases += attention_cases(timer, gen, dev, **layout)
@@ -564,6 +634,100 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
                                  tiers=(tier,), lens=TIERS_ATTN_LENS[:b])
     cases += empty_row_cases(gen, dev)
     cases += vdsp_cases(timer, gen, dev)
+    return cases
+
+
+def grouped_layout(label, g, m, gen, dev):
+    """(expert ids [G], rows [G]) of a grouped case, int32 on the card."""
+    if label == "decode":       # each row's top-8: 8 distinct experts
+        experts = torch.stack([
+            torch.randperm(QWEN3_EXPERTS, generator=gen, device=dev)
+            [:QWEN3_TOP_K] for _ in range(QWEN3_ROWS)]).reshape(-1)
+        rows = torch.ones(g, dtype=torch.int64, device=dev)
+    elif label == "repeats":    # 8 experts over 40 groups, some empty
+        experts = torch.randint(0, 8, (g,), generator=gen, device=dev)
+        rows = torch.randint(0, m + 1, (g,), generator=gen, device=dev)
+        rows[:4] = 0
+    else:                       # capacity buffers, expert e in group e
+        experts = torch.arange(g, device=dev)
+        rows = torch.randint(0, m + 1, (g,), generator=gen, device=dev)
+    return experts.to(torch.int32), rows.to(torch.int32)
+
+
+def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
+                 rows):
+    """One expert-grouped launch against ``packed_grouped_plain`` at the
+    packed matmul's tolerance, rows past each group's count exactly zero,
+    timed beside its bound (the distinct experts' words and scales that
+    groups with rows read, the rows of x that hold data, the whole output;
+    2 x rows x K x N operations), its plain version and ``torch.bmm`` over
+    the groups' experts pre-gathered as bf16.  ``fn`` must launch ``name``
+    once."""
+    g, m, k = x.shape
+    n = leaf.packed.shape[2]
+    args = (x, leaf.packed, leaf.scales, leaf.scheme, experts, rows)
+    before = ops.launch_counts()[name]
+    got = fn(*args)
+    launched = ops.launch_counts()[name] - before
+    want = packed_grouped_plain(*args)
+    torch.cuda.synchronize()
+    live = torch.arange(m, device=x.device)[None, :] < rows[:, None]
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL))
+    zeros = bool((got[~live] == 0).all())
+    used = torch.unique(experts[rows > 0])
+    n_rows = int(rows.sum())
+    per_expert = nbytes(leaf.packed[0], leaf.scales[0])
+    moved = (len(used) * per_expert + n_rows * k * x.element_size()
+             + nbytes(got, experts, rows))
+    b, by = bound_ms(moved, 2.0 * n_rows * k * n)
+    sel = w_bf16[experts.long()]
+    case = {
+        "name": name, "case": label, "scheme": leaf.scheme.name, "g": g,
+        "m": m, "k": k, "n": n, "rows": n_rows, "experts": len(used),
+        "max_abs_err": err, "max_rel_err": err / float(want.abs().max()),
+        "max_abs_out": float(want.abs().max()), "ok": ok,
+        "rows_past_count_zero": zeros,
+        "ms": timer.ms(lambda: fn(*args)),
+        "plain_ms": timer.ms(lambda: packed_grouped_plain(*args)),
+        "library_ms": timer.ms(lambda: torch.bmm(x, sel)),
+        "library": "torch.bmm(x bf16, the groups' experts as bf16)",
+        "bound_ms": b, "bound_by": by, "bound_bytes": moved}
+    del sel
+    log(json.dumps(case))
+    what = f"{name} {label} G={g} M={m} K={k} N={n}"
+    require(ok, f"{what}: max |err| {err}")
+    require(zeros, f"{what}: rows past a group's count are not zero")
+    require(launched == 1, f"{what}: {launched} {name} launches, not 1")
+    return case
+
+
+def grouped_cases(timer: Timer, gen, dev):
+    """Grouped K1 / K2 on qwen3-moe's expert stacks at the MoE path's
+    shapes (``GROUPED_CASES``)."""
+    cases = []
+    mk = QuantMaker(5, device=dev)
+    for k, n in QWEN3_EXPERT_SHAPES:
+        with torch.no_grad():
+            leaf = mk.dense("moe.w_up", k, n, "awq_int4",
+                            experts=QWEN3_EXPERTS)
+        w_bf16 = torch.stack([dequantize(leaf.scheme, leaf.packed[e],
+                                         leaf.scales[e], (k, n))
+                              .to(torch.bfloat16)
+                              for e in range(QWEN3_EXPERTS)])
+        for label, g, m in GROUPED_CASES:
+            experts, rows = grouped_layout(label, g, m, gen, dev)
+            x = torch.randn((g, m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            kernels = (("packed_gemv_grouped", packed_gemv_grouped),
+                       ("packed_matmul_grouped", packed_matmul_grouped))
+            if label != "repeats":
+                kernels = kernels[:1] if m <= 8 else kernels[1:]
+            for name, fn in kernels:
+                cases.append(grouped_case(timer, label, name, fn, leaf,
+                                          w_bf16, x, experts, rows))
+        del leaf, w_bf16
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -1037,19 +1201,37 @@ def model_phase(path, cfg, params, dev, chunk: int, tiers=("bf16", "int8"),
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(1, cfg.vocab, (rows, chunk)),
                               device=dev)
+    moe = cfg.family == "moe"
     out = {}
     for tier in tiers:
+        routes = MOE.Routes() if moe else None
         got, ids = LS.teacher_forced(cfg, params, prompts, steps, kv=tier,
-                                     plain=False)
+                                     plain=False, routes=routes)
+        if moe:
+            # a routing flip between the paths is not a kernel fault: count
+            # the flips of a free plain run, then hold the kernel path to
+            # the plain path on the kernel path's routes
+            free = MOE.Routes()
+            free_logits, _ = LS.teacher_forced(cfg, params, prompts, steps,
+                                               kv=tier, plain=True, feed=ids,
+                                               routes=free)
+            flips = route_flips(routes, free, cfg.n_layers)
+            flips["free_run"] = LS.logit_check(got, free_logits)
+            del free_logits
+        replay = MOE.Routes(routes.ids) if moe else None
         want, _ = LS.teacher_forced(cfg, params, prompts, steps, kv=tier,
-                                    plain=True, feed=ids)
+                                    plain=True, feed=ids, routes=replay)
         out[tier] = res = LS.logit_check(got, want)
+        if moe:
+            res["routing"] = flips
         ok = res["logits_ok"]
         if not ok and witness is not None:
             plain, replace = LS.RUNS[witness]
+            replay = MOE.Routes(routes.ids) if moe else None
             with LS.plain_ops(replace):
                 wit, _ = LS.teacher_forced(cfg, params, prompts, steps,
-                                           kv=tier, plain=plain, feed=ids)
+                                           kv=tier, plain=plain, feed=ids,
+                                           routes=replay)
             res["witness"] = {"variant": witness, **LS.logit_check(wit, want)}
             ok = res["witness_rule_ok"] = LS.witness_check(res,
                                                            res["witness"])
@@ -1060,6 +1242,19 @@ def model_phase(path, cfg, params, dev, chunk: int, tiers=("bf16", "int8"),
         require(res["greedy_agree"],
                 f"{path}: greedy tokens disagree ({tier})")
     return out
+
+
+def route_flips(a: "MOE.Routes", b: "MOE.Routes", n_layers: int) -> dict:
+    """How many (token, layer) expert sets differ between two recorded
+    runs of the same calls, in all and by layer."""
+    by_layer = [0] * n_layers
+    total = 0
+    for i, (x, y) in enumerate(zip(a.ids, b.ids)):
+        differ = (x.sort(-1).values != y.sort(-1).values).any(-1)
+        by_layer[i % n_layers] += int(differ.sum())
+        total += differ.numel()
+    return {"token_layer_sets": total, "differ": sum(by_layer),
+            "differ_by_layer": by_layer}
 
 
 # ---------------------------------------------------------------------------
@@ -1115,6 +1310,7 @@ def serve_phase(cfg, params, chunk, dev):
             for tier in ("bf16", "int8")]
     launches = ops.launch_counts()
     formats = ops.format_launch_counts()
+    grouped = ops.grouped_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     plan = PrecisionPolicy().resolved_plan(cfg)
     n_w8a8 = sum(s == "w8a8" for s in plan.values())
@@ -1140,7 +1336,8 @@ def serve_phase(cfg, params, chunk, dev):
                     "other tokens")
         else:
             # greedy output must not depend on batch-mates or admission
-            for r in reqs[-2:]:
+            # (MoE: every request, since its routing is per row)
+            for r in (reqs if cfg.family == "moe" else reqs[-2:]):
                 solo = engine.generate(r.prompt[None],
                                        max_new_tokens=new_tokens)
                 require(list(solo["generated"][0]) == r.output_tokens,
@@ -1148,8 +1345,8 @@ def serve_phase(cfg, params, chunk, dev):
                         "solo run")
         reports.append(rep)
     log(json.dumps({"serve_launches": launches, "by_format": formats,
-                    "arch": cfg.name}))
-    check_path_launches(cfg.name, launches, formats)
+                    "grouped_by_rows": grouped, "arch": cfg.name}))
+    check_path_launches(cfg.name, launches, formats, grouped)
     # every W8A8 leaf call of every forward (prefill chunk or decode step)
     # went through the int8 kernel
     want = n_w8a8 * cfg.n_layers * forwards
@@ -2139,9 +2336,11 @@ def spec_phase(cfg, params, chunk, dev):
     return out, launches, formats
 
 
-def check_path_launches(path: str, launches, formats=None) -> None:
-    """Every kernel of ``path`` launched in its run, and no other; and on
-    every weight / KV format ``PATH_FORMATS`` names for it."""
+def check_path_launches(path: str, launches, formats=None,
+                        grouped=None) -> None:
+    """Every kernel of ``path`` launched in its run, and no other; on
+    every weight / KV format ``PATH_FORMATS`` names for it; and at every
+    group height ``PATH_GROUPED_ROWS`` names for it."""
     for name in KERNELS:
         if name in PATH_KERNELS[path]:
             require(launches[name] > 0, f"{path}: {name} was not launched")
@@ -2150,6 +2349,8 @@ def check_path_launches(path: str, launches, formats=None) -> None:
                     f"{path}: {name} ran on a path it is not on")
     for key in PATH_FORMATS.get(path, ()):
         require(formats.get(key, 0) > 0, f"{path}: no {key} launch")
+    for key in PATH_GROUPED_ROWS.get(path, ()):
+        require((grouped or {}).get(key, 0) > 0, f"{path}: no {key} launch")
 
 
 # ---------------------------------------------------------------------------
@@ -2232,7 +2433,8 @@ def main() -> None:
         t0 = time.perf_counter()
         if not serves:              # this path's run is its model phase
             ops.reset_launch_counts()
-        model = model_phase(path, cfg, params, dev, chunk, tiers=tiers,
+        model = model_phase(path, cfg, params, dev,
+                            MODEL_CHUNKS.get(path, chunk), tiers=tiers,
                             witness=witness)
         result[path] = {"layers": cfg.n_layers, "policy_weights": weights,
                         "model": model}
@@ -2242,9 +2444,10 @@ def main() -> None:
         else:
             launches = ops.launch_counts()
             formats = ops.format_launch_counts()
+            grouped = ops.grouped_launch_counts()
             log(json.dumps({"model_launches": launches, "by_format": formats,
-                            "path": path}))
-            check_path_launches(path, launches, formats)
+                            "grouped_by_rows": grouped, "path": path}))
+            check_path_launches(path, launches, formats, grouped)
         launches_by_path[path] = launches
         result[path].update(launches=launches, launches_by_format=formats,
                             seconds=time.perf_counter() - t0)
@@ -2274,6 +2477,9 @@ def main() -> None:
     rep_case = {"packed_gemv": dict(scheme="awq_int4", m=8, k=4096, n=14336),
                 "packed_matmul": dict(scheme="awq_int4", m=chunk, k=4096,
                                       n=14336),
+                "packed_gemv_grouped": dict(case="decode", k=2048, n=768),
+                "packed_matmul_grouped": dict(case="prefill128", k=2048,
+                                              n=768),
                 "w8a8_matmul": dict(m=8, k=4096, n=16384, x_offset=0),
                 "decode_attention_bf16": dict(kv="bf16", h=32, dh=128),
                 "decode_attention_quant": dict(kv="int8", h=32, dh=128),

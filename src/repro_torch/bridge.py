@@ -1,11 +1,11 @@
 """Parameter conversion between the JAX package's tree and the port.
 
-``params_from_numpy(cfg, tree)`` takes the reference's dense-family
-parameter tree with every array already converted to numpy (e.g.
-``jax.tree_util.tree_map(np.asarray, params)``): a nested dict whose
-layer leaves are stacked along a leading [L] axis, and whose quantized
-leaves are objects with ``packed``, ``scales``, ``scheme_name``, ``shape``
-and ``name`` attributes.  Packed int32 words and f32 scales are copied bit
+``params_from_numpy(cfg, tree)`` takes the reference's dense- or
+MoE-family parameter tree with every array already converted to numpy
+(e.g. ``jax.tree_util.tree_map(np.asarray, params)``): a nested dict whose
+layer leaves are stacked along a leading [L] axis (expert stacks along
+[L, E]), and whose quantized leaves are objects with ``packed``,
+``scales``, ``scheme_name``, ``shape`` and ``name`` attributes.  Packed int32 words and f32 scales are copied bit
 for bit in the same ``[K/per, N]`` layout, w8a8's raw int8 codes bit for
 bit from ``[K, N]`` (``QLinear`` keeps them transposed); bf16 arrays (numpy's
 ``bfloat16`` extension dtype) are copied by their 16-bit patterns.
@@ -67,15 +67,16 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
     check_supported(cfg)
     lay = tree["layers"]
     layers = []
+    mlp = "moe" if "moe" in lay else "ffn"
     for l in range(cfg.n_layers):
         attn = {k: _leaf(v, l, f"attn.{k}", device)
                 for k, v in lay["attn"].items()}
-        ffn = {k: _leaf(v, l, f"ffn.{k}", device)
-               for k, v in lay["ffn"].items()}
+        ffn = {k: _leaf(v, l, f"{mlp}.{k}", device)
+               for k, v in lay[mlp].items()}
         layers.append(Block(_tensor(np.asarray(lay["ln1"]["g"])[l], device),
                             attn,
                             _tensor(np.asarray(lay["ln2"]["g"])[l], device),
-                            ffn))
+                            **{mlp: ffn}))
     return DenseLM(_tensor(tree["embed"], device), layers,
                    _tensor(tree["ln_f"]["g"], device),
                    _leaf(tree["lm_head"], None, "lm_head", device))
@@ -93,12 +94,14 @@ def params_to_numpy(params: DenseLM) -> Dict[str, Any]:
         return np.stack([_array(m.weight) for m in mods])
 
     blocks = list(params.layers)
+    mlp = "moe" if hasattr(blocks[0], "moe") else "ffn"
     layers = {
         "ln1": {"g": np.stack([_array(b.ln1) for b in blocks])},
         "attn": {k: leaf_of([b.attn[k] for b in blocks])
                  for k in blocks[0].attn},
         "ln2": {"g": np.stack([_array(b.ln2) for b in blocks])},
-        "ffn": {k: leaf_of([b.ffn[k] for b in blocks]) for k in blocks[0].ffn},
+        mlp: {k: leaf_of([getattr(b, mlp)[k] for b in blocks])
+              for k in getattr(blocks[0], mlp)},
     }
     head = params.lm_head
     lm_head = NumpyQLinear(_array(head.reference_codes()),

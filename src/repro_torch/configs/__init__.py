@@ -1,8 +1,8 @@
 """Model configurations served by the port (``--arch <id>`` resolves here).
 
 ``ModelConfig`` is the subset of ``repro.models.transformer.ModelConfig``
-the dense serving path reads, with the same field names and defaults, so a
-config of the reference maps onto this one field for field.
+the dense and MoE serving paths read, with the same field names and
+defaults, so a config of the reference maps onto this one field for field.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Dict, List, Optional
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # only "dense" is served by the port so far
+    family: str                 # "dense" or "moe" (the port's families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,7 +29,14 @@ class ModelConfig:
     use_rope: bool = True
     tie_embeddings: bool = True
     scheme_proj: Optional[str] = None    # attention projection weights
-    scheme_ffn: Optional[str] = None     # FFN weights
+    scheme_ffn: Optional[str] = None     # FFN / expert weights
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0           # per-expert hidden dim (0 -> d_ff)
+    capacity_factor: float = 1.25
+    use_mla: bool = False       # DeepSeek-V2's latent attention (not ported)
     kv_chunk: int = 512
 
     @property
@@ -42,6 +49,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "minitron-8b": "minitron_8b",
     "starcoder2-15b": "starcoder2_15b",
     "nemotron-4-340b": "nemotron_4_340b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -37,6 +37,21 @@
 //    summed in a fixed order by a second kernel) only where the grid would
 //    hold fewer than two blocks per SM, as at N = 4096 and 1024.
 //
+// Expert-grouped forms (packed_gemv_grouped, packed_matmul_grouped) run
+// the same two kernels over a stack of expert leaves, as the reference's
+// repro/models/moe.py:_expert_ffn reaches _packed_matmul_kernel through
+// jax.vmap over the expert axis: one launch per leaf, a grid axis over G
+// groups, group g multiplying its own M rows of x by the leaf of expert
+// expert[g].  Expert ids and row counts are read on the device, so the
+// host neither learns which experts hold tokens nor launches per expert.
+// A group's rows past rows[g] read no x and are written as zeros; a group
+// with no rows reads no weight byte.  Every (group, row) result is the
+// one the ungrouped kernel gives that row: groups share no sum.  What
+// bounds them is what bounds K1 / K2, over the bytes of the distinct
+// experts the groups name (decode: 64 pairs of M = 1 name at most 64 of
+// 128 experts; a prefill chunk's 128 buffers of M = 5 name those that
+// hold tokens).
+//
 // C interface: every entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError().
 
@@ -50,6 +65,33 @@ enum Format { INT4 = 0, FP4_E2M1 = 1, FP8_E4M3 = 2 };
 
 template <int FMT> struct FormatBits { static constexpr int value = 4; };
 template <> struct FormatBits<FP8_E4M3> { static constexpr int value = 8; };
+
+// The expert grouping of a grouped launch (unused by the ungrouped
+// instantiations): grid axis z runs over n_groups groups (K2: times its
+// K splits, split-major); group g multiplies x rows [g M, g M + M) by the
+// words and scales of expert expert[g] into output rows [g M, g M + M),
+// of which its first rows[g] hold data.
+struct ExpertGroups {
+  const int32_t* expert;   // [G] expert of each group, in [0, n_experts)
+  const int32_t* rows;     // [G] rows of each group that hold data (<= M)
+  int n_groups;            // G
+  int n_experts;           // experts in the leaf's stack
+  long long w_stride;      // int32 words of one expert
+  long long s_stride;      // f32 scales of one expert
+};
+
+// Group gi's expert (trapping on an id outside the stack, which would
+// read past the weights) and its rows that hold data, clamped to [0, M].
+__device__ __forceinline__ int group_expert(const ExpertGroups& eg, int gi) {
+  const int e = eg.expert[gi];
+  if (e < 0 || e >= eg.n_experts) __trap();
+  return e;
+}
+
+__device__ __forceinline__ int group_rows(const ExpertGroups& eg, int gi,
+                                          int M) {
+  return min(M, max(0, eg.rows[gi]));
+}
 
 // The fixed-order sum of K2's split-K partials: out = p[0] + p[1] + ...
 __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
@@ -207,13 +249,18 @@ __device__ __forceinline__ void decode_pairs(
 // itself when there is one split).  x rows are ldx apart (ldx % 8 == 0,
 // zero past K); vec: N % 4 == 0 and w, scales 16-byte aligned; fold_mode:
 // when a group's f32 partial is scaled into the sum (FoldMode).
-template <int FMT, int MT, int NT>
+//
+// GROUPED: blockIdx.z = split * G + g, and out is [splits][G][M][N]; the
+// block moves x, the weights and the scales to group g's and loads only
+// its rows that hold data (rows[g]); an m-tile past them writes zeros and
+// reads nothing.
+template <int FMT, int MT, int NT, bool GROUPED>
 __global__ void __launch_bounds__(kMmThreads, 2)
 packed_mma_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                   const int32_t* __restrict__ w,
                   const float* __restrict__ scales, float* __restrict__ out,
                   int M, int K, int N, int group, int k_per_split, int vec,
-                  int fold_mode) {
+                  int fold_mode, ExpertGroups eg) {
   using T = MmTile<FMT, MT, NT>;
   constexpr int PER = T::PER, UNIT = MmFmt<FMT>::UNIT;
   constexpr int BM = T::BM, BN = T::BN, XLD = T::XLD, WLD = T::WLD;
@@ -226,7 +273,25 @@ packed_mma_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int kbeg = blockIdx.z * k_per_split;
+  float* o = out + static_cast<size_t>(blockIdx.z) * M * N;
+  int split = blockIdx.z, rows = M;   // rows of x that hold data
+  if constexpr (GROUPED) {
+    const int gi = blockIdx.z % eg.n_groups;
+    const int e = group_expert(eg, gi);
+    split = blockIdx.z / eg.n_groups;
+    rows = group_rows(eg, gi, M);
+    x += static_cast<size_t>(gi) * M * ldx;
+    w += e * eg.w_stride;
+    scales += e * eg.s_stride;
+    if (m0 >= rows) {                  // no data in this tile: zeros
+      for (int c = tid; c < BM * BN; c += kMmThreads) {
+        const int row = m0 + c / BN, col = n0 + c % BN;
+        if (row < M && col < N) o[static_cast<size_t>(row) * N + col] = 0.f;
+      }
+      return;
+    }
+  }
+  const int kbeg = split * k_per_split;
   const int kend = min(K, kbeg + k_per_split);
   const int kwend = kend / PER;       // K and split ends are whole words
   const int nk = (kend - kbeg + kMmBK - 1) / kMmBK;
@@ -253,7 +318,7 @@ packed_mma_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
 #pragma unroll
     for (int i = 0; i < XCH; ++i) {
       const int r = xr0 + (kMmThreads / (kMmBK / 8)) * i;
-      const bool ok = kin && m0 + r < M;
+      const bool ok = kin && m0 + r < rows;
       cp_async16(st + (r * XLD + xkc) * 2,
                  ok ? xsrc + static_cast<size_t>(r - xr0) * ldx + k0 : x, ok);
     }
@@ -392,7 +457,6 @@ packed_mma_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
       }
   }
 
-  float* o = out + static_cast<size_t>(blockIdx.z) * M * N;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -427,37 +491,42 @@ cudaError_t set_smem_attributes(Kernel* kernel, int smem,
   return e;
 }
 
-template <int FMT, int MT, int NT>
+template <int FMT, int MT, int NT, bool GROUPED>
 cudaError_t launch_mma(const __nv_bfloat16* x, int ldx, const int32_t* w,
                        const float* scales, float* out, int M, int K, int N,
                        int group, int k_per_split, int splits, int vec,
-                       cudaStream_t stream) {
+                       const ExpertGroups& eg, cudaStream_t stream) {
   using T = MmTile<FMT, MT, NT>;
   const int fold_mode = group == K ? kFoldEnd
                         : group == kMmBK ? kFoldStage
                         : group == MmFmt<FMT>::UNIT ? kFoldUnit : -1;
-  if (fold_mode < 0) return cudaErrorInvalidValue;
+  const long long gz = static_cast<long long>(splits) * eg.n_groups;
+  if (fold_mode < 0 || gz < 1 || gz > 65535) return cudaErrorInvalidValue;
   static bool ready[kMaxDevices] = {};
-  cudaError_t e =
-      set_smem_attributes(packed_mma_kernel<FMT, MT, NT>, T::SMEM, ready);
+  cudaError_t e = set_smem_attributes(packed_mma_kernel<FMT, MT, NT, GROUPED>,
+                                      T::SMEM, ready);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
-  packed_mma_kernel<FMT, MT, NT><<<grid, kMmThreads, T::SMEM, stream>>>(
-      x, ldx, w, scales, out, M, K, N, group, k_per_split, vec, fold_mode);
+  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM,
+            static_cast<unsigned>(gz));
+  packed_mma_kernel<FMT, MT, NT, GROUPED>
+      <<<grid, kMmThreads, T::SMEM, stream>>>(x, ldx, w, scales, out, M, K,
+                                              N, group, k_per_split, vec,
+                                              fold_mode, eg);
   return cudaGetLastError();
 }
 
 // m_tiles: 16-row tiles of the block (1 or 4), n_tiles: 64-column tiles
-template <int FMT>
+template <int FMT, bool GROUPED>
 cudaError_t launch_mma_fmt(const __nv_bfloat16* x, int ldx, const int32_t* w,
                            const float* scales, float* out, int M, int K,
                            int N, int group, int m_tiles, int n_tiles,
                            int k_per_split, int splits, int vec,
-                           cudaStream_t s) {
+                           const ExpertGroups& eg, cudaStream_t s) {
 #define MMA_CASE(MTL, NTL)                                                   \
   if (m_tiles == MTL && n_tiles == NTL)                                      \
-    return launch_mma<FMT, 2 * MTL, NTL>(x, ldx, w, scales, out, M, K, N,    \
-                                         group, k_per_split, splits, vec, s);
+    return launch_mma<FMT, 2 * MTL, NTL, GROUPED>(                           \
+        x, ldx, w, scales, out, M, K, N, group, k_per_split, splits, vec,    \
+        eg, s);
   MMA_CASE(1, 1) MMA_CASE(4, 1) MMA_CASE(4, 2)
 #undef MMA_CASE
   return cudaErrorInvalidValue;
@@ -501,7 +570,7 @@ cudaError_t launch_mma_fmt(const __nv_bfloat16* x, int ldx, const int32_t* w,
 // the last block of a column tile to finish (a counter per tile, reset by
 // that block) sums the tile's partials in split order 0, 1, ... and
 // writes the output, so one launch does all and results do not depend on
-// which block finishes last.  kernels/packed_matmul.py:packed_gemv_grouped
+// which block finishes last.  kernels/packed_matmul.py:packed_gemv_ordered
 // is its plain twin in that association and order.
 // ---------------------------------------------------------------------------
 constexpr int kGvThreads = 128;
@@ -598,14 +667,20 @@ __device__ __forceinline__ void decode_split_pairs(
 // K rows [z * k_per_split, min(K, (z + 1) * k_per_split)); k_per_split is a
 // multiple of the stage's K and, unless group == K, of group, which is a
 // multiple of the unit's K (a group spans group_units units).
-template <int FMT>
+//
+// GROUPED: blockIdx.z is the group g; the block moves x, the weights, the
+// scales, the output, its partials ([G][splits][M][N]) and its column
+// tiles' counters ([G][column tiles]) to group g's, and stages only the
+// rows[g] rows of x that hold data (the rest read as zero, as rows past M
+// do); a group with no rows writes zeros and reads no weight.
+template <int FMT, bool GROUPED>
 __global__ void __launch_bounds__(kGvThreads)
 packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                    const int32_t* __restrict__ w,
                    const float* __restrict__ scales,
                    float* __restrict__ partial, float* __restrict__ out,
                    int* __restrict__ counters, int M, int K, int N, int group,
-                   int k_per_split) {
+                   int k_per_split, ExpertGroups eg) {
   constexpr int PER = MmFmt<FMT>::PER, UNIT = 4 * PER;
   constexpr int STAGE_K = kGvUnits * UNIT;
   extern __shared__ __align__(128) unsigned char gv_smem[];
@@ -620,6 +695,26 @@ packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int c0 = blockIdx.x * kGvCols;
+  int rows = M;                       // rows of x that hold data
+  if constexpr (GROUPED) {
+    const int gi = blockIdx.z;
+    const int e = group_expert(eg, gi);
+    rows = group_rows(eg, gi, M);
+    x += static_cast<size_t>(gi) * M * ldx;
+    out += static_cast<size_t>(gi) * M * N;
+    partial += static_cast<size_t>(gi) * gridDim.y * M * N;
+    counters += static_cast<size_t>(gi) * gridDim.x;
+    w += e * eg.w_stride;
+    scales += e * eg.s_stride;
+    if (rows == 0) {                   // no data: zeros, from split 0
+      if (blockIdx.y == 0)
+        for (int c = tid; c < M * kGvCols; c += kGvThreads) {
+          const int row = c / kGvCols, cc = c0 + c % kGvCols;
+          if (cc < N) out[static_cast<size_t>(row) * N + cc] = 0.f;
+        }
+      return;
+    }
+  }
   const int col = c0 + warp * 32 + 4 * g;
   const bool colok = col < N;
   const unsigned col_bytes = 4u * min(kGvCols, N - c0);
@@ -671,13 +766,13 @@ packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&xbar, 2u * M * xcopy);
-    for (int m = 0; m < M; ++m)
+    mbar_expect_tx(&xbar, 2u * rows * xcopy);
+    for (int m = 0; m < rows; ++m)
       bulk_copy(xs + m * xld, x + static_cast<size_t>(m) * ldx + kbeg,
                 2u * xcopy, &xbar);
     for (int s = 0; s < kGvStages - 1 && s < nst; ++s) copy_stage(s);
   }
-  for (int i = tid; i < M * (k_per_split - xcopy); i += kGvThreads) {
+  for (int i = tid; i < rows * (k_per_split - xcopy); i += kGvThreads) {
     const int m = i / (k_per_split - xcopy);
     xs[m * xld + xcopy + (i - m * (k_per_split - xcopy))] =
         __float2bfloat16(0.f);
@@ -720,14 +815,14 @@ packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
       uint32_t xb[PER / 2];
       const __nv_bfloat16* xr = xrow + (k0 - kbeg) + u * UNIT;
       if constexpr (PER == 8) {
-        const uint4 v = g < M ? *reinterpret_cast<const uint4*>(xr)
+        const uint4 v = g < rows ? *reinterpret_cast<const uint4*>(xr)
                               : make_uint4(0u, 0u, 0u, 0u);
         xb[0] = __byte_perm(v.x, v.z, 0x5410);
         xb[1] = __byte_perm(v.x, v.z, 0x7632);
         xb[2] = __byte_perm(v.y, v.w, 0x5410);
         xb[3] = __byte_perm(v.y, v.w, 0x7632);
       } else {
-        const uint2 v = g < M ? *reinterpret_cast<const uint2*>(xr)
+        const uint2 v = g < rows ? *reinterpret_cast<const uint2*>(xr)
                               : make_uint2(0u, 0u);
         xb[0] = __byte_perm(v.x, v.y, 0x5410);
         xb[1] = __byte_perm(v.x, v.y, 0x7632);
@@ -800,26 +895,113 @@ packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   if (tid == 0) counters[blockIdx.x] = 0;
 }
 
-template <int FMT>
+template <int FMT, bool GROUPED>
 cudaError_t launch_gemv(const __nv_bfloat16* x, int ldx, const int32_t* w,
                         const float* scales, float* partial, float* out,
                         int* counters, int M, int K, int N, int group,
-                        int k_per_split, int splits, cudaStream_t stream) {
+                        int k_per_split, int splits, const ExpertGroups& eg,
+                        cudaStream_t stream) {
   constexpr int UNIT = MmFmt<FMT>::UNIT;
   const int smem = kGvWordBytes + kGvScaleBytes +
                    2 * M * (k_per_split + MmFmt<FMT>::XPAD);
   if (M < 1 || M > 8 || N % 4 != 0 || k_per_split % (kGvUnits * UNIT) != 0 ||
       (group != K && (group % UNIT != 0 || k_per_split % group != 0)) ||
-      smem > kGvMaxSmem || (K + k_per_split - 1) / k_per_split != splits)
+      smem > kGvMaxSmem || (K + k_per_split - 1) / k_per_split != splits ||
+      eg.n_groups < 1 || eg.n_groups > 65535)
     return cudaErrorInvalidValue;
   static bool ready[kMaxDevices] = {};
-  cudaError_t e =
-      set_smem_attributes(packed_gemv_kernel<FMT>, kGvMaxSmem, ready);
+  cudaError_t e = set_smem_attributes(packed_gemv_kernel<FMT, GROUPED>,
+                                      kGvMaxSmem, ready);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + kGvCols - 1) / kGvCols, splits);
-  packed_gemv_kernel<FMT><<<grid, kGvThreads, smem, stream>>>(
-      x, ldx, w, scales, partial, out, counters, M, K, N, group, k_per_split);
+  dim3 grid((N + kGvCols - 1) / kGvCols, splits, eg.n_groups);
+  packed_gemv_kernel<FMT, GROUPED><<<grid, kGvThreads, smem, stream>>>(
+      x, ldx, w, scales, partial, out, counters, M, K, N, group, k_per_split,
+      eg);
   return cudaGetLastError();
+}
+
+// The ungrouped launches: one group, no expert stack.
+constexpr ExpertGroups kOneGroup = {nullptr, nullptr, 1, 1, 0, 0};
+
+template <bool GROUPED>
+int gemv_entry(const void* x, int ldx, const void* w, const void* scales,
+               void* partial, void* out, void* counters, int M, int K, int N,
+               int fmt, int group, int k_per_split, int splits,
+               const ExpertGroups& eg, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const int32_t*>(w);
+  const auto* sp = static_cast<const float*>(scales);
+  auto* pp = static_cast<float*>(partial);
+  auto* op = static_cast<float*>(out);
+  auto* cp = static_cast<int*>(counters);
+  switch (fmt) {
+    case INT4:
+      return launch_gemv<INT4, GROUPED>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
+                                        group, k_per_split, splits, eg, s);
+    case FP4_E2M1:
+      return launch_gemv<FP4_E2M1, GROUPED>(xb, ldx, wp, sp, pp, op, cp, M, K,
+                                            N, group, k_per_split, splits, eg,
+                                            s);
+    case FP8_E4M3:
+      return launch_gemv<FP8_E4M3, GROUPED>(xb, ldx, wp, sp, pp, op, cp, M, K,
+                                            N, group, k_per_split, splits, eg,
+                                            s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool GROUPED>
+int matmul_entry(const void* x, int ldx, const void* w, const void* scales,
+                 void* partial, void* out, int M, int K, int N, int fmt,
+                 int group, int m_tiles, int n_tiles, int k_per_split,
+                 int splits, int vec, const ExpertGroups& eg, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const int32_t*>(w);
+  const auto* sp = static_cast<const float*>(scales);
+  float* dst = static_cast<float*>(splits > 1 ? partial : out);
+  cudaError_t e;
+  switch (fmt) {
+    case INT4:
+      e = launch_mma_fmt<INT4, GROUPED>(xb, ldx, wp, sp, dst, M, K, N, group,
+                                        m_tiles, n_tiles, k_per_split, splits,
+                                        vec, eg, s);
+      break;
+    case FP4_E2M1:
+      e = launch_mma_fmt<FP4_E2M1, GROUPED>(xb, ldx, wp, sp, dst, M, K, N,
+                                            group, m_tiles, n_tiles,
+                                            k_per_split, splits, vec, eg, s);
+      break;
+    case FP8_E4M3:
+      e = launch_mma_fmt<FP8_E4M3, GROUPED>(xb, ldx, wp, sp, dst, M, K, N,
+                                            group, m_tiles, n_tiles,
+                                            k_per_split, splits, vec, eg, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess || splits == 1) return e;
+  const int mn = eg.n_groups * M * N;
+  splitk_reduce_kernel<<<(mn + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), mn, splits);
+  return cudaGetLastError();
+}
+
+// The expert grouping of a stack of n_experts leaves [K/per, N] words and
+// [K/group, N] scales each; null for a format or group that does not tile K.
+bool expert_groups(const void* expert, const void* rows, int n_groups,
+                   int n_experts, int K, int N, int fmt, int group,
+                   ExpertGroups* eg) {
+  const int per = fmt == FP8_E4M3 ? 4 : 8;
+  if (fmt < INT4 || fmt > FP8_E4M3 || K % per || group < 1 || K % group ||
+      n_experts < 1)
+    return false;
+  *eg = {static_cast<const int32_t*>(expert), static_cast<const int32_t*>(rows),
+         n_groups, n_experts, static_cast<long long>(K / per) * N,
+         static_cast<long long>(K / group) * N};
+  return true;
 }
 
 }  // namespace
@@ -842,26 +1024,26 @@ int packed_gemv(const void* x, int ldx, const void* w, const void* scales,
                 void* partial, void* out, void* counters, int M, int K, int N,
                 int fmt, int group, int k_per_split, int splits,
                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const int32_t*>(w);
-  const auto* sp = static_cast<const float*>(scales);
-  auto* pp = static_cast<float*>(partial);
-  auto* op = static_cast<float*>(out);
-  auto* cp = static_cast<int*>(counters);
-  switch (fmt) {
-    case INT4:
-      return launch_gemv<INT4>(xb, ldx, wp, sp, pp, op, cp, M, K, N, group,
-                               k_per_split, splits, s);
-    case FP4_E2M1:
-      return launch_gemv<FP4_E2M1>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
-                                   group, k_per_split, splits, s);
-    case FP8_E4M3:
-      return launch_gemv<FP8_E4M3>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
-                                   group, k_per_split, splits, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return gemv_entry<false>(x, ldx, w, scales, partial, out, counters, M, K, N,
+                           fmt, group, k_per_split, splits, kOneGroup, stream);
+}
+
+// K1 over G groups of an expert stack: x bf16 [G, M, ldx] (as above, per
+// group); w int32 [E, K/per, N] and scales f32 [E, ceil(K/group), N],
+// contiguous; expert int32 [G] (each in [0, E)) and rows int32 [G] on the
+// device; partial f32 [G, splits, M, N] scratch (unused for one split);
+// out f32 [G, M, N]; counters int32 [G * ceil(N / 128)], zero.  Other
+// arguments as packed_gemv's.
+int packed_gemv_grouped(const void* x, int ldx, const void* w,
+                        const void* scales, void* partial, void* out,
+                        void* counters, const void* expert, const void* rows,
+                        int G, int E, int M, int K, int N, int fmt, int group,
+                        int k_per_split, int splits, void* stream) {
+  ExpertGroups eg;
+  if (!expert_groups(expert, rows, G, E, K, N, fmt, group, &eg))
+    return cudaErrorInvalidValue;
+  return gemv_entry<true>(x, ldx, w, scales, partial, out, counters, M, K, N,
+                          fmt, group, k_per_split, splits, eg, stream);
 }
 
 // x bf16 [M, ldx] (ldx % 8 == 0, 16-byte aligned, zero in columns
@@ -875,35 +1057,28 @@ int packed_matmul(const void* x, int ldx, const void* w, const void* scales,
                   void* partial, void* out, int M, int K, int N, int fmt,
                   int group, int m_tiles, int n_tiles, int k_per_split,
                   int splits, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const int32_t*>(w);
-  const auto* sp = static_cast<const float*>(scales);
-  float* dst = static_cast<float*>(splits > 1 ? partial : out);
-  cudaError_t e;
-  switch (fmt) {
-    case INT4:
-      e = launch_mma_fmt<INT4>(xb, ldx, wp, sp, dst, M, K, N, group, m_tiles,
-                               n_tiles, k_per_split, splits, vec, s);
-      break;
-    case FP4_E2M1:
-      e = launch_mma_fmt<FP4_E2M1>(xb, ldx, wp, sp, dst, M, K, N, group,
-                                   m_tiles, n_tiles, k_per_split, splits, vec,
-                                   s);
-      break;
-    case FP8_E4M3:
-      e = launch_mma_fmt<FP8_E4M3>(xb, ldx, wp, sp, dst, M, K, N, group,
-                                   m_tiles, n_tiles, k_per_split, splits, vec,
-                                   s);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess || splits == 1) return e;
-  const int mn = M * N;
-  splitk_reduce_kernel<<<(mn + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), mn, splits);
-  return cudaGetLastError();
+  return matmul_entry<false>(x, ldx, w, scales, partial, out, M, K, N, fmt,
+                             group, m_tiles, n_tiles, k_per_split, splits, vec,
+                             kOneGroup, stream);
+}
+
+// K2 over G groups of an expert stack: x bf16 [G, M, ldx]; w, scales,
+// expert and rows as packed_gemv_grouped's; partial f32 [splits, G, M, N]
+// scratch (unused for one split); out f32 [G, M, N]; vec: N % 4 == 0 and
+// 16-byte aligned stacks (every expert's slice is then aligned too).
+// Other arguments as packed_matmul's.
+int packed_matmul_grouped(const void* x, int ldx, const void* w,
+                          const void* scales, void* partial, void* out,
+                          const void* expert, const void* rows, int G, int E,
+                          int M, int K, int N, int fmt, int group,
+                          int m_tiles, int n_tiles, int k_per_split,
+                          int splits, int vec, void* stream) {
+  ExpertGroups eg;
+  if (!expert_groups(expert, rows, G, E, K, N, fmt, group, &eg))
+    return cudaErrorInvalidValue;
+  return matmul_entry<true>(x, ldx, w, scales, partial, out, M, K, N, fmt,
+                            group, m_tiles, n_tiles, k_per_split, splits, vec,
+                            eg, stream);
 }
 
 }  // extern "C"

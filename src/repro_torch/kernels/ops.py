@@ -7,7 +7,11 @@ the leaf, and to the tensor-core matmul kernel otherwise (any M, N and
 alignment), and a w8a8 linear to the int8 matmul kernel after quantizing
 all of its input rows with one per-tensor scale (``ops.py:327``: under
 W8A8 a row's output depends on the other rows of the call, by design);
-``fused_decode_attention`` routes Sq == 1 attention to the
+``grouped_quantized_matmul`` is the counterpart of the reference's
+``jax.vmap(apply_linear)`` over an expert stack (``repro/models/moe.py``):
+one launch of the expert-grouped GEMV kernel for M <= 8 rows a group, of
+the expert-grouped matmul kernel otherwise (the same ``ops.py:336``
+predicate); ``fused_decode_attention`` routes Sq == 1 attention to the
 flash-decode kernel.  Dense bf16 leaves (the ``lm_head``) are not kernels:
 ``models/common.apply_linear`` gives them to ``torch.matmul``.
 
@@ -27,8 +31,9 @@ from . import packed_matmul as _pm
 from . import w8a8_matmul as _w8
 from . import xtramac_mac as _xm
 from .decode_attention import decode_attention_plain, gqa_decode_attention
-from .packed_matmul import (gemv_takes, packed_gemv, packed_matmul,
-                            packed_matmul_plain)
+from .packed_matmul import (gemv_takes, packed_gemv, packed_gemv_grouped,
+                            packed_grouped_plain, packed_matmul,
+                            packed_matmul_grouped, packed_matmul_plain)
 from .w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
 from .xtramac_mac import (virtual_dsp_multiply,  # noqa: F401  (re-export)
                           virtual_dsp_plain)
@@ -69,6 +74,33 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
     return out.reshape(*lead, -1).to(out_dtype)
 
 
+def grouped_quantized_matmul(x: torch.Tensor, leaf, expert_idx: torch.Tensor,
+                             rows: torch.Tensor, *,
+                             out_dtype=torch.bfloat16,
+                             plain: bool = False) -> torch.Tensor:
+    """x [G, M, K] @ the expert stack ``leaf`` (a ``QLinear`` of words [E,
+    K/per, N] and scales [E, K/G, N]) -> [G, M, N] in ``out_dtype``: group
+    g through expert ``expert_idx[g]`` ([G] int32 on x's device), rows
+    past ``rows[g]`` ([G] int32) zero.  One launch: grouped K1 for M <= 8
+    where K1 takes the leaf, grouped K2 otherwise."""
+    scheme = getattr(leaf, "scheme", None)      # None: a dense bf16 stack
+    if scheme is None or not scheme.packed:
+        raise NotImplementedError(
+            f"{leaf.name}: the port runs expert stacks in the packed "
+            f"schemes, not {getattr(scheme, 'name', 'bf16')!r}")
+    x3 = x.to(torch.bfloat16).contiguous()
+    args = (x3, leaf.packed, leaf.scales, scheme, expert_idx, rows)
+    if plain:
+        out = packed_grouped_plain(*args)
+    elif linear_route(scheme, x3.shape[1], x3.shape[2], leaf.packed.shape[2],
+                      leaf.packed.data_ptr(),
+                      leaf.scales.data_ptr()) == "gemv":
+        out = packed_gemv_grouped(*args)
+    else:
+        out = packed_matmul_grouped(*args)
+    return out.to(out_dtype)
+
+
 def fused_decode_attention(q: torch.Tensor, k_cache, v_cache,
                            kv_valid_len: torch.Tensor, *,
                            plain: bool = False) -> torch.Tensor:
@@ -90,9 +122,17 @@ def format_launch_counts() -> Dict[str, int]:
             for (name, fmt), n in counts.items()}
 
 
+def grouped_launch_counts() -> Dict[str, int]:
+    """Expert-grouped K1 / K2 launches by the rows M of a group since the
+    last reset, keyed "wrapper:M=<M>"."""
+    return {f"{name}:M={m}": n
+            for (name, m), n in _pm.grouped_row_launches.items()}
+
+
 def reset_launch_counts() -> None:
     for counts in (_pm.launches, _w8.launches, _da.launches, _xm.launches):
         for name in counts:
             counts[name] = 0
     _pm.format_launches.clear()
+    _pm.grouped_row_launches.clear()
     _da.format_launches.clear()

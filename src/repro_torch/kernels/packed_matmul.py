@@ -12,10 +12,21 @@ int32 words [K/per, N] and f32 group scales.
     prefill chunks and the decode shapes K1 does not take;
   * ``packed_matmul_plain`` — the same math in plain torch: dequantize to
     f32, then one f32 matmul;
-  * ``packed_matmul_grouped`` / ``packed_gemv_grouped`` — plain torch in
+  * ``packed_matmul_ordered`` / ``packed_gemv_ordered`` — plain torch in
     K2's / K1's association and order: per scale group, x @ codes (the
     codes as the kernels' bf16 operand) in f32, times the group's scale,
     summed in the order the kernel sums the groups and its K splits.
+
+The expert-grouped forms run one launch over a stack of expert leaves
+(words [E, K/per, N], scales [E, K/G, N]): group g of x [G, M, K] times
+expert ``expert_idx[g]``'s leaf, of which only the first ``rows[g]`` rows
+of x hold data (the rest come out zero) -> f32 [G, M, N].  Expert ids and
+row counts stay on the device.
+  * ``packed_gemv_grouped``   — K1 per group (M <= 8: decode pairs and
+    small capacity buffers);
+  * ``packed_matmul_grouped`` — K2 per group (any M);
+  * ``packed_grouped_plain``  — the same in plain torch: each group's
+    expert dequantized to f32, then one batched f32 matmul.
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
 it launches its kernel (or raises).  ``launches`` counts kernel launches
@@ -33,18 +44,26 @@ import torch
 
 from repro_torch.quant.pack import codes_per_word, unpack_codes
 from repro_torch.quant.schemes import (PACKED_FORMAT_IDS, QuantScheme,
-                                       dequantize, effective_group)
+                                       decode_codes, dequantize,
+                                       effective_group)
 
 from . import build, scratch
 
-launches: Dict[str, int] = {"packed_gemv": 0, "packed_matmul": 0}
+launches: Dict[str, int] = {"packed_gemv": 0, "packed_matmul": 0,
+                            "packed_gemv_grouped": 0,
+                            "packed_matmul_grouped": 0}
 # the same launches by (wrapper, weight format): which leaves a path ran on
 format_launches: Counter = Counter()
+# the grouped launches by (wrapper, rows M of a group): which of a MoE
+# layer's shapes (decode pairs, prefill capacity buffers) a path ran
+grouped_row_launches: Counter = Counter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "packed_gemv": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "packed_matmul": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    "packed_gemv_grouped": [_P, _I] + [_P] * 7 + [_I] * 9 + [_P],
+    "packed_matmul_grouped": [_P, _I] + [_P] * 6 + [_I] * 12 + [_P],
 }
 GEMV_MAX_M = 8
 _GV_COLS = 128            # columns per GEMV block (4 warps x 32)
@@ -103,7 +122,7 @@ def bf16_from_bits(bits: torch.Tensor) -> torch.Tensor:
         torch.int16).view(torch.bfloat16)
 
 
-def packed_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
+def packed_matmul_ordered(x: torch.Tensor, packed: torch.Tensor,
                           scales: torch.Tensor,
                           scheme: QuantScheme) -> torch.Tensor:
     """Plain torch in K2's association and order: per scale group, x @
@@ -148,7 +167,8 @@ def packed_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme) -> Tuple[int, int]:
+def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme,
+              groups: int = 1) -> Tuple[int, int]:
     """(k_per_split, splits) for K1: K cut into splits of whole ring stages
     (128 K for 4-bit codes, 64 for fp8) and whole scale groups, as many as
     keep the grid of 128-column tiles within one resident wave of four
@@ -158,14 +178,15 @@ def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme) -> Tuple[int, int]:
     splits, it wins: nemotron-4-340b's 73728 x 18432 leaf at M = 8 runs 53
     splits (more than one wave of blocks).  The last block of a column
     tile sums however many splits there are, in order 0, 1, ...
-    (``packed_gemv_grouped``)."""
+    (``packed_gemv_ordered``).  A grouped launch of ``groups`` groups
+    counts every group's column tiles against the wave."""
     per = codes_per_word(scheme.weight_bits)
     group = effective_group(scheme.group_size, k)
     q = _GV_STAGE_WORDS * per
     if group != k:
         q = q * group // math.gcd(q, group)
     steps = -(-k // q)
-    want = max(1, _GV_BLOCKS // -(-n // _GV_COLS))
+    want = max(1, _GV_BLOCKS // (groups * -(-n // _GV_COLS)))
     per_split = max(1, min(max(-(-steps // want), -(-steps // _GV_MAX_SPLITS)),
                            _GV_X_ELEMS // (m * q)))
     kps = per_split * q
@@ -179,7 +200,7 @@ def gemv_smem_bytes(m: int, k_per_split: int, scheme: QuantScheme) -> int:
     return _GV_RING_BYTES + 2 * m * (k_per_split + xpad)
 
 
-def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
+def packed_gemv_ordered(x: torch.Tensor, packed: torch.Tensor,
                         scales: torch.Tensor,
                         scheme: QuantScheme) -> torch.Tensor:
     """Plain torch in K1's association and order: each split of
@@ -209,17 +230,17 @@ def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def matmul_plan(m: int, k: int, n: int,
-                bits: int) -> Tuple[int, int, int, int]:
+def matmul_plan(m: int, k: int, n: int, bits: int,
+                groups: int = 1) -> Tuple[int, int, int, int]:
     """(m_tiles, n_tiles, k_per_split, splits) for K2 on ``bits``-bit
     codes: blocks of 16 m_tiles rows (1 for M <= 16, else 4) by 64 n_tiles
     columns (2 for 4-bit codes in 64-row blocks, whose tile of packed words
     is half as many bytes, else 1); K split in whole stages of 128, at
-    least 4 stages a split, while the grid holds fewer than two blocks per
-    SM (264)."""
+    least 4 stages a split, while the grid (every group's blocks, for a
+    grouped launch) holds fewer than two blocks per SM (264)."""
     mt = 1 if m <= 16 else 4
     nt = 2 if mt == 4 and bits == 4 else 1
-    blocks = -(-n // (64 * nt)) * -(-m // (16 * mt))
+    blocks = -(-n // (64 * nt)) * -(-m // (16 * mt)) * groups
     steps = -(-k // _MM_BK)
     splits = max(1, min(_TARGET_BLOCKS // blocks, steps // _MM_MIN_STEPS))
     kps = -(-steps // splits) * _MM_BK
@@ -306,8 +327,8 @@ def packed_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _gemv_launch_plan(m: int, k: int, n: int,
-                      scheme: QuantScheme) -> Tuple[int, int]:
+def _gemv_launch_plan(m: int, k: int, n: int, scheme: QuantScheme,
+                      groups: int = 1) -> Tuple[int, int]:
     """``gemv_plan``, after checking that K1 takes the leaf's scale groups
     and that the plan's x slice fits a block."""
     per = codes_per_word(scheme.weight_bits)
@@ -315,7 +336,7 @@ def _gemv_launch_plan(m: int, k: int, n: int,
     if group != k and group % (4 * per):
         raise ValueError(f"packed_gemv: scale group {group} is neither K nor "
                          f"a multiple of {4 * per}")
-    kps, splits = gemv_plan(m, k, n, scheme)
+    kps, splits = gemv_plan(m, k, n, scheme, groups)
     if gemv_smem_bytes(m, kps, scheme) > _GV_MAX_SMEM:
         raise ValueError(f"packed_gemv: scale group {group} needs a split of "
                          f"{kps} rows of K, more x than a block stages")
@@ -343,10 +364,7 @@ def packed_matmul(x: torch.Tensor, packed: torch.Tensor,
     if dims is None:
         return packed_matmul_plain(x, packed, scales, scheme)
     m, k, n, group = dims
-    unit = 4 * codes_per_word(scheme.weight_bits)
-    if group not in (k, _MM_BK) and not group == unit == 32:
-        raise ValueError(f"packed_matmul: scale group {group} is neither K, "
-                         f"{_MM_BK}, nor 32 for 4-bit codes")
+    _check_matmul_group(group, k, scheme, "packed_matmul")
     mt, nt, kps, splits = matmul_plan(m, k, n, scheme.weight_bits)
     xk = matmul_x_operand(x)
     vec = int(n % 4 == 0 and packed.data_ptr() % 16 == 0
@@ -364,4 +382,169 @@ def packed_matmul(x: torch.Tensor, packed: torch.Tensor,
     build.check(lib, "packed_matmul", err)
     launches["packed_matmul"] += 1
     format_launches["packed_matmul", scheme.weight_format] += 1
+    return out
+
+
+def _check_matmul_group(group: int, k: int, scheme: QuantScheme, what: str):
+    unit = 4 * codes_per_word(scheme.weight_bits)
+    if group not in (k, _MM_BK) and not group == unit == 32:
+        raise ValueError(f"{what}: scale group {group} is neither K, "
+                         f"{_MM_BK}, nor 32 for 4-bit codes")
+
+
+# ---------------------------------------------------------------------------
+# Expert-grouped K1 / K2: one launch over a stack of expert leaves
+# ---------------------------------------------------------------------------
+def packed_grouped_plain(x: torch.Tensor, packed: torch.Tensor,
+                         scales: torch.Tensor, scheme: QuantScheme,
+                         expert_idx: torch.Tensor,
+                         rows: torch.Tensor) -> torch.Tensor:
+    """Plain torch: group g's expert dequantized to f32 (code x group
+    scale, as ``dequantize``), x[g].f32 @ W; rows past ``rows[g]`` zero."""
+    g, m, k = x.shape
+    n = packed.shape[-1]
+    bits = scheme.weight_bits
+    per = codes_per_word(bits)
+    words = packed[expert_idx.long()]                       # [G, K/per, N]
+    shifts = torch.arange(0, 32, bits, device=x.device, dtype=torch.int32)
+    codes = (words[:, :, None, :] >> shifts[None, None, :, None]) \
+        & ((1 << bits) - 1)                                 # [G, K/per, per, N]
+    vals = decode_codes(scheme, codes.reshape(g, k // per * per, n))
+    group = effective_group(scheme.group_size, k)
+    w = (vals.reshape(g, k // group, group, n)
+         * scales[expert_idx.long()][:, :, None, :]).reshape(g, k, n)
+    out = torch.bmm(x.to(torch.float32), w)
+    live = torch.arange(m, device=x.device)[None, :] < rows[:, None]
+    return torch.where(live[..., None], out, torch.zeros_like(out))
+
+
+def _check_grouped(x, packed, scales, scheme, expert_idx, rows, what):
+    """(G, E, M, K, N, group) of a grouped call, after checking devices,
+    types, shapes and contiguity."""
+    if not scheme.packed or scheme.weight_format not in PACKED_FORMAT_IDS:
+        raise ValueError(f"{what}: {scheme.name!r} is not a packed scheme")
+    for name, t, dtype, dim in (("x", x, torch.bfloat16, 3),
+                                ("packed", packed, torch.int32, 3),
+                                ("scales", scales, torch.float32, 3),
+                                ("expert_idx", expert_idx, torch.int32, 1),
+                                ("rows", rows, torch.int32, 1)):
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected {dtype}")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dim}-D "
+                             "tensor")
+    g, m, k = x.shape
+    e, n = packed.shape[0], packed.shape[2]
+    per = codes_per_word(scheme.weight_bits)
+    if packed.shape[1] * per != k:
+        raise ValueError(f"{what}: x has K={k}, packed holds "
+                         f"{packed.shape[1] * per} rows")
+    group = effective_group(scheme.group_size, k)
+    if k % group or group % per or scales.shape != (e, k // group, n):
+        raise ValueError(f"{what}: scales {tuple(scales.shape)} do not tile "
+                         f"{e} experts of K={k} in groups of {group}")
+    if expert_idx.shape != (g,) or rows.shape != (g,):
+        raise ValueError(f"{what}: expert_idx and rows must be [{g}]")
+    if not 1 <= g <= 65535 or m < 1:
+        raise ValueError(f"{what}: {g} groups of {m} rows")
+    return g, e, m, k, n, group
+
+
+def _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows, what):
+    """None for CPU tensors (take the plain version); raises for a device
+    the kernels do not run on."""
+    if x.device.type == "cpu":
+        if any(t.device.type != "cpu"
+               for t in (packed, scales, expert_idx, rows)):
+            raise ValueError(f"{what}: x on the CPU, the rest elsewhere")
+        return None
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    return _check_grouped(x, packed, scales, scheme, expert_idx, rows, what)
+
+
+def _grouped_x(x: torch.Tensor) -> torch.Tensor:
+    """x [G, M, K] as the grouped kernels load it: ``matmul_x_operand`` of
+    its [G M, K] rows (every group's rows then start 16-byte aligned)."""
+    g, m, k = x.shape
+    return matmul_x_operand(x.reshape(g * m, k))
+
+
+def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
+                        scales: torch.Tensor, scheme: QuantScheme,
+                        expert_idx: torch.Tensor,
+                        rows: torch.Tensor) -> torch.Tensor:
+    """K1 over G groups: x [G, M, K] bf16 with 1 <= M <= 8."""
+    dims = _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows,
+                             "packed_gemv_grouped")
+    if dims is None:
+        return packed_grouped_plain(x, packed, scales, scheme, expert_idx,
+                                    rows)
+    g, e, m, k, n, group = dims
+    if not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"packed_gemv_grouped takes 1 <= M <= {GEMV_MAX_M}, "
+                         f"got {m}")
+    if not gemv_takes(m, n, packed.data_ptr(), scales.data_ptr()):
+        raise ValueError("packed_gemv_grouped needs N % 4 == 0 and 16-byte "
+                         "aligned packed / scales (packed_matmul_grouped "
+                         "takes any)")
+    kps, splits = _gemv_launch_plan(m, k, n, scheme, g)
+    xk = _grouped_x(x)
+    out = torch.empty((g, m, n), dtype=torch.float32, device=x.device)
+    partial = out if splits == 1 else torch.empty(
+        (g, splits, m, n), dtype=torch.float32, device=x.device)
+    lib = build.load("packed_matmul", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        counters = scratch.zeroed("packed_gemv.counters", x.device, stream,
+                                  g * -(-n // _GV_COLS))
+        err = lib.packed_gemv_grouped(
+            xk.data_ptr(), xk.shape[1], packed.data_ptr(), scales.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), counters.data_ptr(),
+            expert_idx.data_ptr(), rows.data_ptr(), g, e, m, k, n,
+            PACKED_FORMAT_IDS[scheme.weight_format], group, kps, splits,
+            stream)
+    build.check(lib, "packed_gemv_grouped", err)
+    launches["packed_gemv_grouped"] += 1
+    format_launches["packed_gemv_grouped", scheme.weight_format] += 1
+    grouped_row_launches["packed_gemv_grouped", m] += 1
+    return out
+
+
+def packed_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
+                          scales: torch.Tensor, scheme: QuantScheme,
+                          expert_idx: torch.Tensor,
+                          rows: torch.Tensor) -> torch.Tensor:
+    """K2 over G groups: x [G, M, K] bf16, any M >= 1 and any N."""
+    dims = _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows,
+                             "packed_matmul_grouped")
+    if dims is None:
+        return packed_grouped_plain(x, packed, scales, scheme, expert_idx,
+                                    rows)
+    g, e, m, k, n, group = dims
+    _check_matmul_group(group, k, scheme, "packed_matmul_grouped")
+    mt, nt, kps, splits = matmul_plan(m, k, n, scheme.weight_bits, g)
+    if g * splits > 65535:
+        raise ValueError(f"packed_matmul_grouped: {g} groups x {splits} "
+                         "splits exceed the grid")
+    xk = _grouped_x(x)
+    vec = int(n % 4 == 0 and packed.data_ptr() % 16 == 0
+              and scales.data_ptr() % 16 == 0)
+    out = torch.empty((g, m, n), dtype=torch.float32, device=x.device)
+    partial = torch.empty((splits, g, m, n) if splits > 1 else (0,),
+                          dtype=torch.float32, device=x.device)
+    lib = build.load("packed_matmul", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.packed_matmul_grouped(
+            xk.data_ptr(), xk.shape[1], packed.data_ptr(), scales.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), expert_idx.data_ptr(),
+            rows.data_ptr(), g, e, m, k, n,
+            PACKED_FORMAT_IDS[scheme.weight_format], group, mt, nt, kps,
+            splits, vec, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, "packed_matmul_grouped", err)
+    launches["packed_matmul_grouped"] += 1
+    format_launches["packed_matmul_grouped", scheme.weight_format] += 1
+    grouped_row_launches["packed_matmul_grouped", m] += 1
     return out

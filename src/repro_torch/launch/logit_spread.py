@@ -31,6 +31,12 @@ differ), and the logit check that ``chip_smoke.py`` applies
 (``logit_check``).  Writes ``chiprun_out/logit_spread.json``.
 ``--smoke --device cpu`` runs the 2-layer config on the CPU, where the
 kernels' wrappers take their plain versions.
+
+On a MoE model every version replays the kernel run's expert ids
+(``models/moe.Routes``), as ``chip_smoke.py`` does: a routing flip at a
+near tie is not a summation-order effect.  The versions replace the plain
+versions of the ungrouped linears and the attention; the expert stacks
+keep their plain grouped version in every one.
 """
 from __future__ import annotations
 
@@ -47,10 +53,11 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
 from repro_torch.kernels.packed_matmul import (GEMV_MAX_M,
-                                               packed_gemv_grouped,
-                                               packed_matmul_grouped)
+                                               packed_gemv_ordered,
+                                               packed_matmul_ordered)
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
+from repro_torch.models.moe import Routes
 from repro_torch.quant.kv_cache import cache_read
 from repro_torch.quant.pack import codes_per_word
 from repro_torch.quant.schemes import dequantize, effective_group
@@ -100,11 +107,12 @@ def witness_check(res: dict, witness: dict,
 
 def teacher_forced(cfg, params, prompts: torch.Tensor, steps: int, *,
                    kv: str, plain: bool, max_len: int = 512, feed=None,
-                   layer_out=None):
+                   layer_out=None, routes=None):
     """One prefill chunk per row (``prompts`` [rows, chunk], each row in its
     own cache slot), then ``steps`` decode steps over all rows, fed
-    ``feed`` when given, else each step's greedy ids.  Returns (logits
-    [1 + steps, rows, V] f32, the ids fed)."""
+    ``feed`` when given, else each step's greedy ids.  ``routes`` (MoE)
+    records or replays every MoE layer's expert ids (``models/moe.Routes``).
+    Returns (logits [1 + steps, rows, V] f32, the ids fed)."""
     rows, chunk = prompts.shape
     dev = prompts.device
     cache = T.init_cache(cfg, rows, max_len, kv_dtype=kv, device=dev)
@@ -112,14 +120,15 @@ def teacher_forced(cfg, params, prompts: torch.Tensor, steps: int, *,
         last = [T.forward(cfg, params, prompts[r:r + 1],
                           cache=tuple(s[:, r:r + 1] for s in cache),
                           cache_index=0, mode="prefill_chunk", plain=plain,
-                          layer_out=layer_out)[0, -1] for r in range(rows)]
+                          layer_out=layer_out, routes=routes)[0, -1]
+                for r in range(rows)]
         seq = [torch.stack(last)]
         ids = [seq[0].argmax(-1) if feed is None else feed[0]]
         lengths = torch.full((rows,), chunk, dtype=torch.int64, device=dev)
         for t in range(steps):
             lg = T.forward(cfg, params, ids[-1][:, None], cache=cache,
                            cache_index=lengths, mode="decode", plain=plain,
-                           layer_out=layer_out)[:, -1]
+                           layer_out=layer_out, routes=routes)[:, -1]
             seq.append(lg)
             lengths = lengths + 1
             ids.append(lg.argmax(-1) if feed is None else feed[t + 1])
@@ -157,8 +166,8 @@ def grouped_matmul(x, packed, scales, scheme):
     == 0; the alignment is the card's, and the model's leaves are
     aligned), K2 otherwise."""
     if x.shape[0] <= GEMV_MAX_M and packed.shape[1] % 4 == 0:
-        return packed_gemv_grouped(x, packed, scales, scheme)
-    return packed_matmul_grouped(x, packed, scales, scheme)
+        return packed_gemv_ordered(x, packed, scales, scheme)
+    return packed_matmul_ordered(x, packed, scales, scheme)
 
 
 def drop_group_plain(x, packed, scales, scheme):
@@ -306,15 +315,19 @@ def main(argv=None) -> None:
               "runs": []}
     for kv in ("bf16", "int8"):
         logits, layers, feed = {}, {}, None
-        # the kernel run first: its greedy ids feed every other run
+        moe = Routes() if cfg.family == "moe" else None
+        # the kernel run first: its greedy ids (and its expert ids) feed
+        # every other run
         for name in ("kernels", "plain",
                      *(v for v in VARIANTS if v != "kernels")):
             plain, replace = RUNS[name]
             layers[name] = []
+            routes = moe if moe is None or name == "kernels" \
+                else Routes(moe.ids)
             with plain_ops(replace):
                 logits[name], ids = teacher_forced(
                     cfg, params, prompts, STEPS, kv=kv, plain=plain,
-                    feed=feed, layer_out=layers[name])
+                    feed=feed, layer_out=layers[name], routes=routes)
             feed = feed or ids
         for name in VARIANTS:
             run = {"kv": kv, "variant": name,

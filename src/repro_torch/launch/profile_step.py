@@ -4,6 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch minitron-8b
   PYTHONPATH=src python -m repro_torch.launch.profile_step --temperature 0.8
   PYTHONPATH=src python -m repro_torch.launch.profile_step --paged
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch qwen3-moe-30b-a3b
 
 Builds the model on the card, fills every slot with one prefill chunk,
 then times (a) prefill chunks and (b) decode steps over all slots: host
@@ -21,9 +23,13 @@ same way, beside (g) the page gather alone: every layer's K and V virtual
 slabs gathered through the full page table, as a decode step gathers
 them.  ``paged_minus_slab_ms`` lists, by kernel name, the device time per
 step that a paged step adds to the slab one (the gather's indexing
-kernels and the writes through the table).  Device numbers come
-only from the profiler's CUDA activity; when it reports none they are
-null.
+kernels and the writes through the table).  For a MoE model (h) one
+layer's MoE block alone, at the decode step's rows and at one prefill
+chunk, splits its device time between the expert-grouped K1 / K2 kernels
+and the torch ops around them (router matmul, routing, dispatch,
+combine), and ``moe_share`` is the layers' MoE blocks' part of the whole
+step's device time.  Device numbers come only from the profiler's CUDA
+activity; when it reports none they are null.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
 from repro_torch.quant.policy import PrecisionPolicy
@@ -152,7 +159,47 @@ def main(argv=None) -> None:
                    sampler=measure(sampler, args.steps, dev))
     if args.paged:
         out.update(paged_steps(cfg, params, args, prompt, tokens, dev, slab))
+    if cfg.family == "moe":
+        out["moe_layer"] = moe_layer_steps(cfg, params, args, dev, slab)
     print(json.dumps(out))
+
+
+# the expert-grouped kernels' names in the profiler: K1's and K2's bodies
+# (their grouped instantiations) and K2's split-K reduce
+GROUPED_KERNELS = ("packed_gemv_kernel", "packed_mma_kernel",
+                   "splitk_reduce_kernel")
+
+
+def moe_layer_steps(cfg, params, args, dev, slab):
+    """(h) layer 0's MoE block alone on random bf16 inputs at the decode
+    step's [n_slots, 1, D] and a prefill chunk's [1, chunk, D]: device ms
+    of the grouped kernels and of the other (torch) ops, and the MoE
+    blocks' share (n_layers x the block) of ``slab``'s whole steps."""
+    mcfg = MOE.moe_cfg(cfg)
+    blk = params.layers[0].moe
+    gen = torch.Generator(dev).manual_seed(args.seed)
+    out = {}
+    for kind, shape in (("decode_step", (args.n_slots, 1)),
+                        ("prefill_chunk", (1, args.chunk))):
+        x = torch.randn((*shape, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+
+        def step():
+            with torch.no_grad():
+                MOE.moe_forward(blk, mcfg, x)
+
+        step()
+        res = measure(step, args.steps, dev, top=None)
+        kern = _by_name(res["kernels"])
+        grouped = sum(t for n, t in kern.items()
+                      if any(g in n for g in GROUPED_KERNELS))
+        busy, whole = res["device_busy_ms"], slab[kind]["device_busy_ms"]
+        out[kind] = dict(
+            res, kernels=res["kernels"][:12], grouped_kernels_ms=grouped,
+            torch_ops_ms=None if busy is None else busy - grouped,
+            moe_share=(None if busy is None or not whole
+                       else cfg.n_layers * busy / whole))
+    return out
 
 
 def paged_steps(cfg, params, args, prompt, tokens, dev, slab):

@@ -4,7 +4,11 @@ Linear leaves keep the reference's ``[K, N]`` layout (x @ W):
   * ``QLinear``     packed int32 codes [K/per, N] + f32 scales as buffers
                     (w8a8: raw int8 codes, stored transposed [N, K] for
                     the int8 kernel); applied through
-                    ``kernels.ops.quantized_matmul``;
+                    ``kernels.ops.quantized_matmul``.  An expert stack
+                    holds [E, K/per, N] words and [E, K/G, N] scales,
+                    contiguous (each expert's slice 16-byte aligned when
+                    N % 4 == 0), applied through
+                    ``kernels.ops.grouped_quantized_matmul``;
   * ``DenseLinear`` a bf16 [K, N] weight (``lm_head``); applied with
                     ``torch.matmul``, as the reference leaves it to XLA.
 
@@ -42,6 +46,8 @@ class QLinear(nn.Module):
         self.scheme_name = scheme_name
         self.scheme = get_scheme(scheme_name)
         if not self.scheme.packed:
+            if packed.dim() != 2:
+                raise ValueError(f"{name}: w8a8 leaves are not stacked")
             packed = packed.t().contiguous()
         self.register_buffer("packed", packed)
         self.register_buffer("scales", scales)
@@ -91,13 +97,37 @@ class QuantMaker:
         return torch.randn(shape, generator=self.gen, device=self.device,
                            dtype=torch.float32)
 
-    def dense(self, name: str, k: int, n: int, scheme: Optional[str] = None):
+    def dense(self, name: str, k: int, n: int, scheme: Optional[str] = None,
+              experts: int = 0):
+        """One [K, N] leaf, or with ``experts`` a stack of that many,
+        each quantized as its own [K, N] leaf (the reference's per-slice
+        loop, ``repro/models/common.py:QuantMaker.dense``)."""
         scheme = self.plan.get(name, scheme) or "bf16"
+        if experts:
+            return self._expert_stack(name, experts, k, n, scheme)
         w = self._normal(k, n).div_(math.sqrt(k))   # in place: one f32 copy
         if scheme == "bf16":
             return DenseLinear(w.to(torch.bfloat16), name)
         packed, scales = quantize_weights(get_scheme(scheme), w)
         return QLinear(packed, scales, scheme, (k, n), name)
+
+    def _expert_stack(self, name: str, e: int, k: int, n: int, scheme: str):
+        """[E, K, N] draws quantized in one call as the [K, E N] leaf of
+        the experts side by side: the quantizer's groups run along K
+        within one column, so each expert's codes and scales are those of
+        its own [K, N] leaf, bit for bit."""
+        sch = get_scheme(scheme)
+        if not sch.packed:
+            raise NotImplementedError(
+                f"{name}: the port stacks experts in the packed schemes, "
+                f"not {scheme!r}")
+        w = self._normal(e, k, n).div_(math.sqrt(k))
+        packed, scales = quantize_weights(
+            sch, w.transpose(0, 1).reshape(k, e * n))
+        del w
+        return QLinear(packed.reshape(-1, e, n).transpose(0, 1).contiguous(),
+                       scales.reshape(-1, e, n).transpose(0, 1).contiguous(),
+                       scheme, (k, n), name)
 
     def table(self, name: str, rows: int, cols: int, scale: float = 0.02):
         return self._normal(rows, cols).mul_(scale).to(torch.bfloat16)

@@ -1,5 +1,7 @@
-"""The dense transformer family: parameters, forward, KV cache (torch twin
-of the dense path of ``repro/models/transformer.py``).
+"""The dense and MoE transformer families: parameters, forward, KV cache
+(torch twin of the dense / MoE path of ``repro/models/transformer.py``; a
+MoE block holds ``moe`` — router and expert stacks, ``models/moe.py`` —
+in place of ``ffn``).
 
 ``forward`` runs the reference's serving modes as a loop over layers:
   * ``prefill_chunk`` — S new positions written at an int ``cache_index``;
@@ -26,6 +28,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.quant.kv_cache import kv_slab
 
 from . import attention as A
+from . import moe as MOE
 from .common import QuantMaker, activate, apply_linear, rms_norm
 
 MODES = ("prefill_chunk", "decode")
@@ -38,29 +41,43 @@ def attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
+    if cfg.family == "moe" and (cfg.use_mla or cfg.n_shared_experts):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves MoE models with GQA attention and "
+            "routed experts only; MLA (latent attention) and shared experts "
+            "are not ported yet")
     ffn = (cfg.gated_ffn, cfg.activation)
-    if (cfg.family != "dense" or cfg.norm != "rms" or cfg.tie_embeddings
-            or ffn not in ((True, "silu"), (False, "relu2"),
-                           (False, "gelu"))):
+    moe = cfg.family == "moe" and cfg.n_experts > 0 and cfg.top_k > 0
+    if (cfg.family not in ("dense", "moe") or (cfg.family == "moe") != moe
+            or cfg.norm != "rms" or cfg.tie_embeddings
+            or ffn not in ((True, "silu"), (False, "relu2"), (False, "gelu"))
+            or (moe and ffn != (True, "silu"))):
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family with RMS norm, a "
-            "gated SiLU or non-gated squared-ReLU / GELU FFN and an untied "
-            "lm_head so far")
+            "gated SiLU or non-gated squared-ReLU / GELU FFN, and the MoE "
+            "family with gated SiLU experts, both with an untied lm_head")
 
 
 class Block(nn.Module):
-    """One transformer block: RMS norm, GQA attention, RMS norm, FFN."""
+    """One transformer block: RMS norm, GQA attention, RMS norm, then the
+    FFN (``ffn``) or the MoE layer (``moe``: router and expert stacks)."""
 
-    def __init__(self, ln1, attn: dict, ln2, ffn: dict):
+    def __init__(self, ln1, attn: dict, ln2, ffn: Optional[dict] = None,
+                 moe: Optional[dict] = None):
         super().__init__()
+        if (ffn is None) == (moe is None):
+            raise ValueError("a block holds an FFN or a MoE layer")
         self.register_buffer("ln1", ln1)
         self.attn = nn.ModuleDict(attn)
         self.register_buffer("ln2", ln2)
-        self.ffn = nn.ModuleDict(ffn)
+        if moe is None:
+            self.ffn = nn.ModuleDict(ffn)
+        else:
+            self.moe = nn.ModuleDict(moe)
 
 
 class DenseLM(nn.Module):
-    """Parameters of a dense model: embedding, blocks, final norm, head."""
+    """Parameters of a model: embedding, blocks, final norm, head."""
 
     def __init__(self, embed, layers, ln_f, lm_head: nn.Module):
         super().__init__()
@@ -71,7 +88,7 @@ class DenseLM(nn.Module):
 
 
 def build_params(cfg: ModelConfig, mk: QuantMaker) -> DenseLM:
-    """Walk the dense family's leaves (same logical names as the reference's
+    """Walk the family's leaves (same logical names as the reference's
     Maker walk) with ``mk``, one layer at a time."""
     check_supported(cfg)
     d, h, hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -84,6 +101,10 @@ def build_params(cfg: ModelConfig, mk: QuantMaker) -> DenseLM:
                 "wk": mk.dense("attn.wk", d, hk * dh, sp),
                 "wv": mk.dense("attn.wv", d, hk * dh, sp),
                 "wo": mk.dense("attn.wo", h * dh, d, sp)}
+        if cfg.family == "moe":
+            layers.append(Block(mk.norm("ln1", d), attn, mk.norm("ln2", d),
+                                moe=MOE.moe_params(mk, cfg)))
+            continue
         if cfg.gated_ffn:
             ffn = {"w_gate": mk.dense("ffn.w_gate", d, f, sf),
                    "w_up": mk.dense("ffn.w_up", d, f, sf),
@@ -118,14 +139,19 @@ def _logits(params: DenseLM, x, plain: bool):
 def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
             cache: Tuple, cache_index, mode: str, need_logits: bool = True,
             plain: bool = False, page_table: Optional[torch.Tensor] = None,
-            layer_out: Optional[list] = None) -> Optional[torch.Tensor]:
+            layer_out: Optional[list] = None,
+            routes: Optional[MOE.Routes] = None) -> Optional[torch.Tensor]:
     """tokens [B, S] -> logits [B, S, V] f32 (None when ``need_logits`` is
     False: the lm-head is skipped).  ``cache`` is updated in place.  A
     ``layer_out`` list gets the residual stream [B, S, D] after every layer
-    appended (a diagnostic: ``launch/logit_spread.py``)."""
+    appended (a diagnostic: ``launch/logit_spread.py``); ``routes`` (MoE)
+    records every layer's expert ids, or replays those it holds (a
+    diagnostic: ``chip_smoke.py`` holds the kernel path to the plain path
+    on the kernel path's routes)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; the port runs {MODES}")
     acfg = attn_cfg(cfg)
+    mcfg = MOE.moe_cfg(cfg) if cfg.family == "moe" else None
     x = params.embed[tokens].to(torch.bfloat16)
     k_all, v_all = cache
     for l, blk in enumerate(params.layers):
@@ -133,7 +159,12 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
         x = x + A.gqa_forward(blk.attn, acfg, h, cache=(k_all[l], v_all[l]),
                               cache_index=cache_index, plain=plain,
                               page_table=page_table)
-        x = x + _ffn(cfg, blk.ffn, rms_norm(x, blk.ln2), plain)
+        h = rms_norm(x, blk.ln2)
+        if mcfg is not None:
+            x = x + MOE.moe_forward(blk.moe, mcfg, h, plain=plain,
+                                    routes=routes)
+        else:
+            x = x + _ffn(cfg, blk.ffn, h, plain)
         if layer_out is not None:
             layer_out.append(x)
     return _logits(params, x, plain) if need_logits else None

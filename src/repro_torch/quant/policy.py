@@ -124,16 +124,23 @@ class PrecisionPolicy:
 
 
 def leaf_info(cfg) -> Dict[str, Tuple[int, int, str]]:
-    """{logical leaf name -> (K, N, config-default scheme)} of the dense
-    family the port serves (gated or non-gated FFN, untied ``lm_head``) —
-    the names ``repro``'s Maker walk gives the same leaves."""
+    """{logical leaf name -> (K, N, config-default scheme)} of the families
+    the port serves (dense: gated or non-gated FFN; MoE: a bf16 router and
+    per-expert gated FFN stacks, each expert's leaf [K, N]; untied
+    ``lm_head``) — the names ``repro``'s Maker walk gives the same
+    leaves."""
     d, h, hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     sp = cfg.scheme_proj or "bf16"
     sf = cfg.scheme_ffn or "bf16"
     info = {"attn.wq": (d, h * dh, sp), "attn.wk": (d, hk * dh, sp),
             "attn.wv": (d, hk * dh, sp), "attn.wo": (h * dh, d, sp)}
-    if cfg.gated_ffn:
+    if cfg.n_experts:
+        fe = cfg.moe_d_ff or f
+        info.update({"moe.router": (d, cfg.n_experts, "bf16"),
+                     "moe.w_gate": (d, fe, sf), "moe.w_up": (d, fe, sf),
+                     "moe.w_down": (fe, d, sf)})
+    elif cfg.gated_ffn:
         info.update({"ffn.w_gate": (d, f, sf), "ffn.w_up": (d, f, sf),
                      "ffn.w_down": (f, d, sf)})
     else:

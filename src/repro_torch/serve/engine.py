@@ -103,8 +103,8 @@ def leaf_schemes(params: T.DenseLM) -> Dict[str, str]:
     the layers disagree."""
     found: Dict[str, set] = {"lm_head": {_scheme(params.lm_head)}}
     for blk in params.layers:
-        for group in ("attn", "ffn"):
-            for name, leaf in getattr(blk, group).items():
+        for group in ("attn", "ffn", "moe"):
+            for name, leaf in getattr(blk, group, {}).items():
                 found.setdefault(f"{group}.{name}", set()).add(_scheme(leaf))
     mixed = sorted(n for n, s in found.items() if len(s) > 1)
     if mixed:

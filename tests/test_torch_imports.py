@@ -49,7 +49,8 @@ def test_every_port_module_imports_without_cuda():
         assert f"repro_torch.core.{core}" in names
     assert "repro_torch.kernels.xtramac_mac" in names
     for mod in ("perfmodel.analytical", "perfmodel.hardware",
-                "runtime.fault_tolerance", "serve.slo", "launch.roofline"):
+                "runtime.fault_tolerance", "serve.slo", "launch.roofline",
+                "models.moe"):
         assert f"repro_torch.{mod}" in names
     for name in names:
         importlib.import_module(name)

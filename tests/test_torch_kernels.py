@@ -154,7 +154,7 @@ def test_gemv_grouped_association_vs_reference_kernel(scheme, m, k, n):
     xj = jnp.asarray(x, jnp.bfloat16)
     want_kernel = np.asarray(ref_gemv(xj, qw, interpret=True))
     want_oracle = np.asarray(ref.packed_matmul_ref(xj, qw))
-    got = PM.packed_gemv_grouped(_bf16(x), _t(qw.packed), _t(qw.scales),
+    got = PM.packed_gemv_ordered(_bf16(x), _t(qw.packed), _t(qw.scales),
                                  S.get_scheme(scheme)).numpy()
     np.testing.assert_allclose(got, want_kernel, **MM_TOL)
     np.testing.assert_allclose(got, want_oracle, **MM_TOL)
@@ -188,9 +188,9 @@ def test_gemv_grouped_sums_splits_in_fixed_order(scheme):
             part += scales[g0 // group] * (xf[:, g0:g0 + group]
                                            @ vals[g0:g0 + group])
         want += part
-    got = PM.packed_gemv_grouped(x, packed, scales, sch)
+    got = PM.packed_gemv_ordered(x, packed, scales, sch)
     assert torch.equal(got, want)
-    assert torch.equal(got, PM.packed_gemv_grouped(x, packed, scales, sch))
+    assert torch.equal(got, PM.packed_gemv_ordered(x, packed, scales, sch))
 
 
 @pytest.mark.parametrize("scheme,splits", [("mxfp4", 53), ("fp8", 51)])
@@ -216,7 +216,7 @@ def test_gemv_grouped_sums_53_splits_like_the_reference(scheme):
     qw = _weights(scheme, k, n)
     x = RNG.normal(size=(m, k)).astype(np.float32)
     want = np.asarray(ref.packed_matmul_ref(jnp.asarray(x, jnp.bfloat16), qw))
-    got = PM.packed_gemv_grouped(_bf16(x), _t(qw.packed), _t(qw.scales),
+    got = PM.packed_gemv_ordered(_bf16(x), _t(qw.packed), _t(qw.scales),
                                  S.get_scheme(scheme)).numpy()
     np.testing.assert_allclose(got, want, **MM_TOL)
 
@@ -259,7 +259,7 @@ def test_grouped_association_vs_reference_kernel(scheme, m, k, n):
     x = RNG.normal(size=(m, k)).astype(np.float32)
     want = np.asarray(ref_matmul(jnp.asarray(x, jnp.bfloat16), qw,
                                  interpret=True))
-    got = PM.packed_matmul_grouped(_bf16(x), _t(qw.packed), _t(qw.scales),
+    got = PM.packed_matmul_ordered(_bf16(x), _t(qw.packed), _t(qw.scales),
                                    S.get_scheme(scheme)).numpy()
     np.testing.assert_allclose(got, want, **MM_TOL)
 
@@ -836,7 +836,7 @@ def test_gemv_kernel_matches_plain_on_card_at_every_m(cuda_device, scheme, m):
     assert ops.launch_counts()["packed_gemv"] == before + 1
     again = PM.packed_gemv(x, packed, scales, sch)
     want = PM.packed_matmul_plain(x, packed, scales, sch)
-    twin = PM.packed_gemv_grouped(x, packed, scales, sch)
+    twin = PM.packed_gemv_ordered(x, packed, scales, sch)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **MM_TOL)
     torch.testing.assert_close(got, twin, rtol=1e-5, atol=1e-5)
@@ -859,7 +859,7 @@ def test_gemv_kernel_past_32_splits_on_card(cuda_device, scheme, n):
     got = PM.packed_gemv(x, packed, scales, sch)
     assert ops.launch_counts()["packed_gemv"] == before + 1
     want = PM.packed_matmul_plain(x, packed, scales, sch)
-    twin = PM.packed_gemv_grouped(x, packed, scales, sch)
+    twin = PM.packed_gemv_ordered(x, packed, scales, sch)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **MM_TOL)
     torch.testing.assert_close(got, twin, rtol=1e-5, atol=1e-5)
