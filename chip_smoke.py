@@ -34,11 +34,16 @@ non-zero after the last phase; exceptions are not caught):
      K1 / K2 (one launch over a stack of 128 experts, ids and row counts
      read on the card) on qwen3-moe's awq_int4 expert leaves (2048 x 768,
      768 x 2048): grouped K1 at the decode step's 64 (row, expert) pairs
-     of one row and at a 64-token chunk's 128 capacity buffers of 5 rows,
-     grouped K2 at a 128-token chunk's buffers of 10, both at 40 groups of
-     3 rows over 8 experts (repeated experts, empty groups); rows past a
-     group's count must be exactly zero, and the bound counts the bytes of
-     the distinct experts the groups read;
+     of one row, at a 64-token chunk's 128 capacity buffers of 5 rows and
+     at 16 rows that name one expert (two items of its work list), grouped
+     K2 at a 128-token chunk's buffers of 10, both at 40 groups of 3 rows
+     over 8 experts (repeated experts, empty groups); rows past a group's
+     count must be exactly zero, and the bound counts the bytes of the
+     distinct experts the groups read; grouped K1 also against its plain
+     twin in its own association and order
+     (``packed_gemv_grouped_ordered``), and the decode pairs launched again
+     one row's 8 pairs at a time (G = 8) must give each row bit for bit;
+     ptxas' register and spill report of grouped K1 (no spills);
   2b. the weight quantizer: ``quantize_weights`` (mxfp4, fp8) on the card
      against the same function on the CPU, words and scales bit for bit,
      on starcoder2's widest leaf (6144 x 24576) and on a leaf whose every
@@ -55,10 +60,11 @@ non-zero after the last phase; exceptions are not caught):
      (latency 4, II 1, every result checked); K6 must launch exactly once
      per ``xtramac_packed`` call and once per pipeline issue;
   then, for granite-8b (AWQ-int4, 36 layers), minitron-8b (W8A8,
-  squared-ReLU FFN, 32 layers), starcoder2-15b (MXFP4, non-gated GELU
-  FFN, 40 layers) and qwen3-moe-30b-a3b (MoE: 128 experts, top-8,
-  AWQ-int4, 48 layers), each at full width with random weights from a
-  seed quantized on the card, one model after the other:
+  squared-ReLU FFN, at 16 of its 32 layers: the script's time),
+  starcoder2-15b (MXFP4, non-gated GELU FFN, 40 layers) and
+  qwen3-moe-30b-a3b (MoE: 128 experts, top-8, AWQ-int4, 48 layers), each
+  at full width with random weights from a seed quantized on the card, one
+  model after the other:
   4. the model: one prefill chunk and 4 decode steps through the kernels
      and through the plain versions, bf16 and int8 KV, logits within 5 %
      of the logit scale (``launch/logit_spread.logit_check``); where the
@@ -167,6 +173,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -188,8 +195,9 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, gqa_decode_attention)
 from repro_torch.kernels.packed_matmul import (  # noqa: E402
-    gemv_plan, packed_gemv, packed_gemv_grouped, packed_grouped_plain,
-    packed_matmul, packed_matmul_grouped, packed_matmul_plain)
+    gemv_plan, grouped_gemv_plan, packed_gemv, packed_gemv_grouped,
+    packed_gemv_grouped_ordered, packed_grouped_plain, packed_matmul,
+    packed_matmul_grouped, packed_matmul_plain)
 from repro_torch.kernels.w8a8_matmul import (  # noqa: E402
     w8a8_matmul, w8a8_matmul_plain)
 from repro_torch.kernels.xtramac_mac import (  # noqa: E402
@@ -314,7 +322,7 @@ MODEL_RUNS = [
     ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True,
      ("granite-8b-tiers", "granite-8b-paged", "granite-8b-slo",
       "granite-8b-spec")),
-    ("minitron-8b", "minitron-8b", None, (), ("bf16", "int8"),
+    ("minitron-8b", "minitron-8b", 16, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
     ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
@@ -428,14 +436,20 @@ RAGGED_LEAVES = [("awq_int4", 64, 1000), ("awq_int4", 8, 1022),
 # group holds, expert ids): the decode step's pairs (8 rows x top-8, M = 1,
 # every pair one row), a 64-token chunk's capacity buffers (128 x C = 5,
 # K1) and a 128-token chunk's (128 x C = 10, K2), each buffer holding 0-C
-# rows; and 40 groups of M = 3 over 8 experts (repeated pairs, empty
-# groups), through K1 and K2
+# rows; 16 pairs of one expert (two items of grouped K1's work list); and
+# 40 groups of M = 3 over 8 experts (repeated pairs, empty groups), through
+# K1 and K2
 QWEN3_EXPERTS, QWEN3_TOP_K, QWEN3_ROWS = 128, 8, 8
 QWEN3_EXPERT_SHAPES = [(2048, 768), (768, 2048)]
 GROUPED_CASES = [("decode", QWEN3_ROWS * QWEN3_TOP_K, 1),
                  ("prefill64", QWEN3_EXPERTS, 5),
                  ("prefill128", QWEN3_EXPERTS, 10),
+                 ("one_expert16", 16, 1),
                  ("repeats", 40, 3)]
+# grouped K1 against its twin in its own order: the same products and
+# folds, with only the tensor cores' order inside a fold's x @ codes and
+# the fold's fused multiply-add not replayed (f32 rounding)
+ORDERED_RTOL, ORDERED_ATOL = 1e-4, 1e-5
 # K = 4100 (not a multiple of 16): the int8 kernel's 4-byte copy body
 W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
                (4100, 4096)]
@@ -648,6 +662,9 @@ def grouped_layout(label, g, m, gen, dev):
         experts = torch.randint(0, 8, (g,), generator=gen, device=dev)
         rows = torch.randint(0, m + 1, (g,), generator=gen, device=dev)
         rows[:4] = 0
+    elif label == "one_expert16":   # 16 rows of one expert: two items
+        experts = torch.full((g,), 7, device=dev)
+        rows = torch.ones(g, dtype=torch.int64, device=dev)
     else:                       # capacity buffers, expert e in group e
         experts = torch.arange(g, device=dev)
         rows = torch.randint(0, m + 1, (g,), generator=gen, device=dev)
@@ -694,12 +711,43 @@ def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
         "library": "torch.bmm(x bf16, the groups' experts as bf16)",
         "bound_ms": b, "bound_by": by, "bound_bytes": moved}
     del sel
-    log(json.dumps(case))
     what = f"{name} {label} G={g} M={m} K={k} N={n}"
+    if name == "packed_gemv_grouped":
+        case.update(grouped_gemv_checks(what, label, fn, args, got))
+    log(json.dumps(case))
     require(ok, f"{what}: max |err| {err}")
     require(zeros, f"{what}: rows past a group's count are not zero")
     require(launched == 1, f"{what}: {launched} {name} launches, not 1")
     return case
+
+
+def grouped_gemv_checks(what, label, fn, args, got):
+    """Grouped K1 beyond the plain version: against its twin in its own
+    order of sums (``packed_gemv_grouped_ordered``), and, for the decode
+    pairs, each row's 8 pairs launched alone (G = 8) equal to the same rows
+    of the G = 64 launch bit for bit (the order is the leaf's, so
+    batch-mates move no sum)."""
+    x, packed, scales, scheme, experts, rows = args
+    ordered = packed_gemv_grouped_ordered(*args)
+    torch.cuda.synchronize()
+    err = float((got - ordered).abs().max())
+    ok = bool(torch.allclose(got, ordered, rtol=ORDERED_RTOL,
+                             atol=ORDERED_ATOL))
+    require(ok, f"{what}: max |err| {err} against its ordered twin")
+    out = {"ordered_max_abs_err": err, "ordered_ok": ok,
+           "plan": list(grouped_gemv_plan(x.shape[2], packed.shape[2],
+                                          scheme))}
+    if label == "decode":
+        alone = torch.cat([fn(x[i:i + QWEN3_TOP_K], packed, scales, scheme,
+                              experts[i:i + QWEN3_TOP_K],
+                              rows[i:i + QWEN3_TOP_K])
+                           for i in range(0, x.shape[0], QWEN3_TOP_K)])
+        torch.cuda.synchronize()
+        same = bool(torch.equal(alone, got))
+        require(same, f"{what}: rows launched 8 pairs at a time differ from "
+                      "the G = 64 launch")
+        out["rows_alone_bit_equal"] = same
+    return out
 
 
 def grouped_cases(timer: Timer, gen, dev):
@@ -2354,6 +2402,20 @@ def check_path_launches(path: str, launches, formats=None,
 
 
 # ---------------------------------------------------------------------------
+def grouped_gemv_registers(ptxas_log: str) -> None:
+    """ptxas' register and spill report of grouped K1's instantiations
+    (``packed_matmul.cu`` built with ``-Xptxas=-v``): no spills."""
+    report = {fn: r for fn, r in build.ptxas_report(ptxas_log).items()
+              if "grouped_gemv_kernel" in fn}
+    log(json.dumps({"grouped_gemv_ptxas": report}))
+    require(len(report) == 12, f"grouped K1: {len(report)} instantiations "
+                               "in ptxas' report, not 12 (3 formats x 2 "
+                               "stage heights x 2 unit widths)")
+    for fn, r in report.items():
+        require(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0,
+                f"grouped K1 {fn}: spills {r}")
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2372,8 +2434,15 @@ def main() -> None:
     log(smi)
 
     t0 = time.perf_counter()
+    ptxas_logs = {}                 # grouped K1's register report, built
+    verbose = threading.Thread(     # apart beside the libraries
+        target=build.build, args=(["packed_matmul"],),
+        kwargs=dict(extra=("-Xptxas=-v",), logs=ptxas_logs))
+    verbose.start()
     build.build()
+    verbose.join()
     log(json.dumps({"build_s": time.perf_counter() - t0}))
+    grouped_gemv_registers(ptxas_logs.get("packed_matmul", ""))
 
     chunk = 64
     gen = torch.Generator(device=dev).manual_seed(0)

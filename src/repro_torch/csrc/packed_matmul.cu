@@ -37,27 +37,28 @@
 //    summed in a fixed order by a second kernel) only where the grid would
 //    hold fewer than two blocks per SM, as at N = 4096 and 1024.
 //
-// Expert-grouped forms (packed_gemv_grouped, packed_matmul_grouped) run
-// the same two kernels over a stack of expert leaves, as the reference's
-// repro/models/moe.py:_expert_ffn reaches _packed_matmul_kernel through
-// jax.vmap over the expert axis: one launch per leaf, a grid axis over G
-// groups, group g multiplying its own M rows of x by the leaf of expert
-// expert[g].  Expert ids and row counts are read on the device, so the
-// host neither learns which experts hold tokens nor launches per expert.
-// A group's rows past rows[g] read no x and are written as zeros; a group
-// with no rows reads no weight byte.  Every (group, row) result is the
-// one the ungrouped kernel gives that row: groups share no sum.  What
-// bounds them is what bounds K1 / K2, over the bytes of the distinct
-// experts the groups name (decode: 64 pairs of M = 1 name at most 64 of
-// 128 experts; a prefill chunk's 128 buffers of M = 5 name those that
-// hold tokens).
+// Expert-grouped forms run over a stack of expert leaves, as the
+// reference's repro/models/moe.py:_expert_ffn reaches _packed_matmul_kernel
+// through jax.vmap over the expert axis: one launch per leaf, group g
+// multiplying its own M rows of x by the leaf of expert expert[g].  Expert
+// ids and row counts are read on the device, so the host neither learns
+// which experts hold tokens nor launches per expert; a group's rows past
+// rows[g] are written as zeros.  packed_matmul_grouped (grouped K2) is K2
+// with a grid axis over the groups: a group with no rows reads no weight
+// byte, and every (group, row) result is the one the ungrouped kernel
+// gives that row.  packed_gemv_grouped (grouped K1, M <= 8) is a body of
+// its own (below): it merges the rows that name one expert, so a decode
+// step's repeated experts are read once per item, and walks the work
+// persistently with whole-tile TMA copies.
 //
 // C interface: every entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -67,10 +68,11 @@ template <int FMT> struct FormatBits { static constexpr int value = 4; };
 template <> struct FormatBits<FP8_E4M3> { static constexpr int value = 8; };
 
 // The expert grouping of a grouped launch (unused by the ungrouped
-// instantiations): grid axis z runs over n_groups groups (K2: times its
-// K splits, split-major); group g multiplies x rows [g M, g M + M) by the
-// words and scales of expert expert[g] into output rows [g M, g M + M),
-// of which its first rows[g] hold data.
+// instantiations): group g multiplies x rows [g M, g M + M) by the words
+// and scales of expert expert[g] into output rows [g M, g M + M), of which
+// its first rows[g] hold data.  Grouped K2 runs grid axis z over the
+// groups (times its K splits, split-major); grouped K1 reads expert and
+// rows into its work list.
 struct ExpertGroups {
   const int32_t* expert;   // [G] expert of each group, in [0, n_experts)
   const int32_t* rows;     // [G] rows of each group that hold data (<= M)
@@ -667,20 +669,14 @@ __device__ __forceinline__ void decode_split_pairs(
 // K rows [z * k_per_split, min(K, (z + 1) * k_per_split)); k_per_split is a
 // multiple of the stage's K and, unless group == K, of group, which is a
 // multiple of the unit's K (a group spans group_units units).
-//
-// GROUPED: blockIdx.z is the group g; the block moves x, the weights, the
-// scales, the output, its partials ([G][splits][M][N]) and its column
-// tiles' counters ([G][column tiles]) to group g's, and stages only the
-// rows[g] rows of x that hold data (the rest read as zero, as rows past M
-// do); a group with no rows writes zeros and reads no weight.
-template <int FMT, bool GROUPED>
+template <int FMT>
 __global__ void __launch_bounds__(kGvThreads)
 packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                    const int32_t* __restrict__ w,
                    const float* __restrict__ scales,
                    float* __restrict__ partial, float* __restrict__ out,
                    int* __restrict__ counters, int M, int K, int N, int group,
-                   int k_per_split, ExpertGroups eg) {
+                   int k_per_split) {
   constexpr int PER = MmFmt<FMT>::PER, UNIT = 4 * PER;
   constexpr int STAGE_K = kGvUnits * UNIT;
   extern __shared__ __align__(128) unsigned char gv_smem[];
@@ -695,26 +691,7 @@ packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int c0 = blockIdx.x * kGvCols;
-  int rows = M;                       // rows of x that hold data
-  if constexpr (GROUPED) {
-    const int gi = blockIdx.z;
-    const int e = group_expert(eg, gi);
-    rows = group_rows(eg, gi, M);
-    x += static_cast<size_t>(gi) * M * ldx;
-    out += static_cast<size_t>(gi) * M * N;
-    partial += static_cast<size_t>(gi) * gridDim.y * M * N;
-    counters += static_cast<size_t>(gi) * gridDim.x;
-    w += e * eg.w_stride;
-    scales += e * eg.s_stride;
-    if (rows == 0) {                   // no data: zeros, from split 0
-      if (blockIdx.y == 0)
-        for (int c = tid; c < M * kGvCols; c += kGvThreads) {
-          const int row = c / kGvCols, cc = c0 + c % kGvCols;
-          if (cc < N) out[static_cast<size_t>(row) * N + cc] = 0.f;
-        }
-      return;
-    }
-  }
+  const int rows = M;                 // rows of x that hold data
   const int col = c0 + warp * 32 + 4 * g;
   const bool colok = col < N;
   const unsigned col_bytes = 4u * min(kGvCols, N - c0);
@@ -895,39 +872,31 @@ packed_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   if (tid == 0) counters[blockIdx.x] = 0;
 }
 
-template <int FMT, bool GROUPED>
+template <int FMT>
 cudaError_t launch_gemv(const __nv_bfloat16* x, int ldx, const int32_t* w,
                         const float* scales, float* partial, float* out,
                         int* counters, int M, int K, int N, int group,
-                        int k_per_split, int splits, const ExpertGroups& eg,
-                        cudaStream_t stream) {
+                        int k_per_split, int splits, cudaStream_t stream) {
   constexpr int UNIT = MmFmt<FMT>::UNIT;
   const int smem = kGvWordBytes + kGvScaleBytes +
                    2 * M * (k_per_split + MmFmt<FMT>::XPAD);
   if (M < 1 || M > 8 || N % 4 != 0 || k_per_split % (kGvUnits * UNIT) != 0 ||
       (group != K && (group % UNIT != 0 || k_per_split % group != 0)) ||
-      smem > kGvMaxSmem || (K + k_per_split - 1) / k_per_split != splits ||
-      eg.n_groups < 1 || eg.n_groups > 65535)
+      smem > kGvMaxSmem || (K + k_per_split - 1) / k_per_split != splits)
     return cudaErrorInvalidValue;
   static bool ready[kMaxDevices] = {};
-  cudaError_t e = set_smem_attributes(packed_gemv_kernel<FMT, GROUPED>,
-                                      kGvMaxSmem, ready);
+  cudaError_t e = set_smem_attributes(packed_gemv_kernel<FMT>, kGvMaxSmem,
+                                      ready);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + kGvCols - 1) / kGvCols, splits, eg.n_groups);
-  packed_gemv_kernel<FMT, GROUPED><<<grid, kGvThreads, smem, stream>>>(
-      x, ldx, w, scales, partial, out, counters, M, K, N, group, k_per_split,
-      eg);
+  dim3 grid((N + kGvCols - 1) / kGvCols, splits);
+  packed_gemv_kernel<FMT><<<grid, kGvThreads, smem, stream>>>(
+      x, ldx, w, scales, partial, out, counters, M, K, N, group, k_per_split);
   return cudaGetLastError();
 }
 
-// The ungrouped launches: one group, no expert stack.
-constexpr ExpertGroups kOneGroup = {nullptr, nullptr, 1, 1, 0, 0};
-
-template <bool GROUPED>
 int gemv_entry(const void* x, int ldx, const void* w, const void* scales,
                void* partial, void* out, void* counters, int M, int K, int N,
-               int fmt, int group, int k_per_split, int splits,
-               const ExpertGroups& eg, void* stream) {
+               int fmt, int group, int k_per_split, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const int32_t*>(w);
@@ -937,20 +906,643 @@ int gemv_entry(const void* x, int ldx, const void* w, const void* scales,
   auto* cp = static_cast<int*>(counters);
   switch (fmt) {
     case INT4:
-      return launch_gemv<INT4, GROUPED>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
-                                        group, k_per_split, splits, eg, s);
+      return launch_gemv<INT4>(xb, ldx, wp, sp, pp, op, cp, M, K, N, group,
+                               k_per_split, splits, s);
     case FP4_E2M1:
-      return launch_gemv<FP4_E2M1, GROUPED>(xb, ldx, wp, sp, pp, op, cp, M, K,
-                                            N, group, k_per_split, splits, eg,
-                                            s);
+      return launch_gemv<FP4_E2M1>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
+                                   group, k_per_split, splits, s);
     case FP8_E4M3:
-      return launch_gemv<FP8_E4M3, GROUPED>(xb, ldx, wp, sp, pp, op, cp, M, K,
-                                            N, group, k_per_split, splits, eg,
-                                            s);
+      return launch_gemv<FP8_E4M3>(xb, ldx, wp, sp, pp, op, cp, M, K, N,
+                                   group, k_per_split, splits, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Expert-grouped GEMV (grouped K1), 1 <= M <= 8 rows a group: a body of its
+// own, persistent, over a work list built on the device.  It replaces the
+// Pallas kernel's body as the reference reaches it through jax.vmap over
+// the experts (repro/models/moe.py:_expert_ffn, lines 92-110: every
+// decode (row, expert) pair and every small capacity buffer of a prefill
+// chunk, one launch per expert leaf).  What bounds it on the H100: the
+// bytes of the distinct experts' words and scales (3.35 TB/s; at most 16
+// flops a weight byte at M <= 8, far below the tensor cores' ~295).
+//
+// Work list.  Every block reads expert[G] and rows[G] once and builds the
+// same list in shared memory: the (group, row) sources that hold data,
+// sorted by expert (stable: group, then row, order), cut into items of at
+// most 8 sources of one expert (an expert of n rows takes ceil(n / 8)
+// items, an expert with none takes none).  A unit of work is an item's 32
+// columns (64 on leaves of N >= 1536) over the whole of K, numbered
+// item-major, so the units of one expert are adjacent; an expert's words
+// are read once per item, not once per group.  The sources of an item are
+// the 8 columns of the mma's B operand, so merging groups into an item
+// changes no row's sum: each output element is its own dot product.  Rows
+// past rows[g] are written as zeros.
+//
+// Walk.  Two blocks per SM (kGkBlocksPerSm), block b taking units b, b +
+// grid, ...: the grid is one wave, no block waits on another, and the
+// blocks in flight read one expert's neighbouring tiles (taking units from
+// a counter in device memory instead measured no faster).  Warp 4 is the
+// producer: for each ring stage of a unit it waits for a free slot, writes
+// the stage's unit to shared memory and issues, from its lanes at once,
+// Tensor Memory Accelerator copies of the words' SR-row x 32-column boxes
+// (a tensor map over the stack viewed as [E K / per, N] words, 128-byte
+// rows swizzled), one of the stage's scale rows (a map over [E K / group,
+// N]) and a bulk copy of each source's x slice.  Warps 0-3 are the
+// consumers: CW column boxes by KW = 4 / CW chunks of the stage's rows,
+// each running K1's decode and mma.sync (m16n8k16, the rows as B) on its
+// chunk, then freeing the slot.  At a unit's end a column's KW warps' sums
+// meet in shared memory and are added in warp order.  The ring holds 256
+// word rows of a unit (32 KB of 32-column words), so ~64 KB a SM are in
+// flight and the next unit's first stages load while the current one is
+// summed and stored.  The int4 decode spends one lop3 a code pair (mask,
+// sign flip and bf16 offset together), the swizzled box gives each thread
+// its 16 bytes in one load, and a whole chunk runs without a branch.
+//
+// Why: K1's body with a grid axis over the groups (the first grouped
+// form) moved ~1.25 TB/s of requested bytes whatever they were: dropping
+// the repeated experts, or reading 64 distinct ones, left its time as it
+// was, and a deeper ring did not help.  Persistent forms that split K
+// across blocks spent 2-4 us of each unit in the cross-block sum (an
+// acquire-release counter, then the partials), starving their rings; here
+// no unit waits on another block.  Without its math the kernel takes
+// 2-12 % less time, without its copies 10-25 % less
+// (launch/grouped_ablation.py): the copies bind, the math close behind,
+// over ~11 us of fixed cost (launch, the work list, one unit's chain).
+//
+// Order.  Fixed by the leaf alone (kernels/packed_matmul.py:
+// grouped_gemv_plan): a warp folds scale x partial every min(group, chunk)
+// of K, in K order (a per-channel scale multiplies the warp's whole sum
+// once), and a column's output is its warps' sums added in order.  So a
+// row's output does not depend on what shares its launch.
+// kernels/packed_matmul.py:packed_gemv_grouped_ordered is the plain twin
+// in this order.
+// ---------------------------------------------------------------------------
+constexpr int kGkConsumerWarps = 4;
+constexpr int kGkThreads = 32 * (kGkConsumerWarps + 1);
+constexpr int kGkRingRows = 256;              // word rows the ring holds
+constexpr int kGkBlocksPerSm = 2;
+constexpr int kGkMaxExperts = 512;
+constexpr int kGkMaxSources = 6144;           // G x M of one launch, at most
+constexpr int kGkCols = 32;                   // a box's columns: 128 bytes
+constexpr int kGkRedBytes = 2 * kGkConsumerWarps * 8 * kGkCols * 4;
+constexpr int kGkMaxSmem = 225 * 1024;        // dynamic shared memory, at most
+
+// A unit is CW boxes of 32 columns (CW = 2 on wide leaves, N >= 1536,
+// where a unit of 32 columns would be short); a ring stage is SR word rows
+// of them (64, or 32 where K / per is an odd multiple of 32, so that no
+// stage runs past K).  The consumer warps split as CW column halves by KW
+// K chunks: a warp's chunk is SR / KW rows, 2-8 units of 4 rows.
+template <int FMT, int SR, int CW> struct GkFmt {
+  static constexpr int PER = MmFmt<FMT>::PER, UNIT = 4 * PER;
+  static constexpr int KW = kGkConsumerWarps / CW;
+  static constexpr int CHUNK_ROWS = SR / KW;
+  static constexpr int UNITS = CHUNK_ROWS / 4;  // units a warp's chunk holds
+  static constexpr int CHUNK_K = CHUNK_ROWS * PER, STAGE_K = SR * PER;
+  static constexpr int STAGES = kGkRingRows / (SR * CW);
+  static constexpr int BOX_BYTES = SR * kGkCols * 4;   // one box of words
+  static constexpr int WORD_BYTES = CW * BOX_BYTES;
+  // one source's x slice of a stage: STAGE_K bf16, rows padded by 64 / 32
+  // bytes (K1's XPAD) so that the B-operand reads hit all banks
+  static constexpr int X_PITCH = 2 * (STAGE_K + MmFmt<FMT>::XPAD);
+  static constexpr int X_BYTES = 8 * X_PITCH;
+  static_assert(BOX_BYTES % 1024 == 0, "the words' swizzle atoms");
+};
+
+// Scale rows a stage's box holds: none for one group (group == K); the
+// stage's groups where a group divides the stage's K (and divides, or is a
+// multiple of, a warp's chunk); one where the stage lies in one group.
+// -1: a group grouped K1 does not take.
+int gk_scale_rows(int per, int sr, int cw, int K, int group) {
+  const int unit = 4 * per, chunk = sr * cw / kGkConsumerWarps * per;
+  const int stage = sr * per;
+  if (group == K) return 0;
+  if (group % unit == 0 && stage % group == 0 &&
+      (chunk % group == 0 || group % chunk == 0))
+    return stage / group;
+  if (group % stage == 0) return 1;
+  return -1;
+}
+
+// the stage rows of a leaf of K / per word rows (kernels/packed_matmul.py:
+// grouped_gemv_plan)
+int gk_stage_rows(int rows) { return rows % 64 != 0 && rows % 32 == 0 ? 32 : 64; }
+
+// the 32-column boxes of a unit on a leaf of N columns
+int gk_col_boxes(int N) { return N >= 1536 ? 2 : 1; }
+
+// The codes of one word as bf16 pairs, as decode_split_pairs gives them;
+// int4 with each nibble pair's mask, sign flip and offset in one lop3:
+// (c & 0xF) ^ 0x4308 is 128 + (c ^ 8) in bf16, less 136 by the fma.
+template <int FMT>
+__device__ __forceinline__ void gk_decode(uint32_t w,
+                                          uint32_t (&out)[MmFmt<FMT>::PER / 2]) {
+  if constexpr (FMT == INT4) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t r, v;
+      asm("lop3.b32 %0, %1, 0x000F000F, 0x43084308, 0x6A;\n"
+          : "=r"(r)
+          : "r"(w >> (4 * p)));
+      asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+          : "=r"(v)
+          : "r"(r), "r"(0x3F803F80u), "r"(0xC308C308u));
+      out[p] = v;
+    }
+  } else {
+    decode_split_pairs<FMT>(w, out);
+  }
+}
+
+// what the producer tells the consumers about a ring slot
+struct GkStage {
+  int unit;        // -1: no more work
+  int k0;          // first K of the stage
+  int last;        // the unit's last stage
+  int expert, nsrc, src0;   // the item: expert, sources [src0, src0 + nsrc)
+  int tile;        // the unit's 32 columns: [32 tile, 32 tile + 32)
+};
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// the 2-D tile at (column c, row r) of a tensor map into shared memory,
+// completing on bar
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         int c, int r, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(r)
+      : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kGkConsumerWarps) : "memory");
+}
+
+// x: [G M, ldx] bf16 rows, ldx a multiple
+// of 8 and at least K rounded up to the unit's K (32 / 16), zero past K;
+// out: [G M, N]; scales: the stack's [E, K / group, N] f32 (read here for a
+// per-channel scale only); scale_rows: the scale map's box height.  The
+// words' map swizzles 128-byte rows (16-byte chunk j of row r lands at
+// chunk j ^ (r % 8)).
+template <int FMT, int SR, int CW>
+__global__ void __launch_bounds__(kGkThreads, kGkBlocksPerSm)
+grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap smap,
+                    const __nv_bfloat16* __restrict__ x, int ldx,
+                    const float* __restrict__ scales, float* __restrict__ out,
+                    ExpertGroups eg, int M, int K, int N, int group,
+                    int scale_rows) {
+  using F = GkFmt<FMT, SR, CW>;
+  constexpr int PER = F::PER, UNIT = F::UNIT, CHUNK_K = F::CHUNK_K;
+  constexpr int STAGE_K = F::STAGE_K, S = F::STAGES, COLS = CW * kGkCols;
+  extern __shared__ unsigned char gk_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ GkStage info[S];
+  __shared__ int n_units;
+
+  // the ring (1024-byte aligned): words, scale rows, x slices a stage;
+  // then the warps' sums at a unit's end; then the work list
+  const int scale_bytes = (scale_rows * COLS * 4 + 127) / 128 * 128;
+  const int stage_bytes =
+      (F::WORD_BYTES + scale_bytes + F::X_BYTES + 1023) / 1024 * 1024;
+  unsigned char* ring = gk_raw + ((1024 - (smem_u32(gk_raw) & 1023)) & 1023);
+  float* red = reinterpret_cast<float*>(ring + S * stage_bytes);
+  const int E = eg.n_experts, G = eg.n_groups;
+  int* s_cnt = reinterpret_cast<int*>(red) + kGkRedBytes / 4;   // [E]
+  int* s_base = s_cnt + E;          // [E + 1] first source of each expert
+  int* s_ibase = s_base + E + 1;    // [E + 1] first item of each expert
+  int* s_grp = s_ibase + E + 1;     // [G] expert | rows << 16 of each group
+  int* s_src = s_grp + G;           // sources in expert order: rows g M + r
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles = (N + COLS - 1) / COLS;
+  const bool fold_end = group == K;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kGkConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < E; i += kGkThreads) s_cnt[i] = 0;
+  __syncthreads();
+  // each group's expert and rows, once; rows per expert
+  for (int g = tid; g < G; g += kGkThreads) {
+    const int e = group_expert(eg, g), r = group_rows(eg, g, M);
+    s_grp[g] = e | r << 16;
+    if (r > 0) atomicAdd(&s_cnt[e], r);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // exclusive scans of sources and items (ceil(n / 8)) over the experts:
+    // lane l takes experts [l per, (l + 1) per)
+    const int per = (E + 31) / 32;
+    const int lo = min(E, lane * per), hi = min(E, lo + per);
+    int src = 0, items = 0;
+    for (int e = lo; e < hi; ++e) {
+      src += s_cnt[e];
+      items += (s_cnt[e] + 7) / 8;
+    }
+    int src_in = src, items_in = items;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int a = __shfl_up_sync(0xffffffffu, src_in, d);
+      const int b = __shfl_up_sync(0xffffffffu, items_in, d);
+      if (lane >= d) { src_in += a; items_in += b; }
+    }
+    src = src_in - src;
+    items = items_in - items;
+    for (int e = lo; e < hi; ++e) {
+      const int n = s_cnt[e];
+      s_base[e] = src;
+      s_ibase[e] = items;
+      src += n;
+      items += (n + 7) / 8;
+      s_cnt[e] = 0;               // from here: sources placed so far
+    }
+    if (lane == 31) {
+      s_base[E] = src_in;
+      s_ibase[E] = items_in;
+      n_units = items_in * tiles;
+    }
+    __syncwarp();
+    // each source's place: groups in order, 32 at a time; a lane's rows go
+    // after those of the lower lanes that name its expert
+    for (int c0 = 0; c0 < G; c0 += 32) {
+      const int g = c0 + lane;
+      const int v = g < G ? s_grp[g] : 0;
+      const int r = v >> 16;
+      const int e = r > 0 ? (v & 0xffff) : -1 - lane;
+      const unsigned peers = __match_any_sync(0xffffffffu, e);
+      unsigned lower = peers & ((1u << lane) - 1u);
+      const int rounds = __reduce_max_sync(0xffffffffu, __popc(lower));
+      int before = 0;
+      for (int i = 0; i < rounds; ++i) {
+        const int from = lower ? __ffs(lower) - 1 : lane;
+        const int w = __shfl_sync(0xffffffffu, r, from);
+        if (lower) {
+          before += w;
+          lower &= lower - 1u;
+        }
+      }
+      const int placed = r > 0 ? s_cnt[e] : 0;
+      __syncwarp();
+      if (r > 0) {
+        const int pos = s_base[e] + placed + before;
+        for (int j = 0; j < r; ++j) s_src[pos + j] = g * M + j;
+        if ((peers >> lane) == 1u) s_cnt[e] = placed + before + r;
+      }
+      __syncwarp();
+    }
+  } else if (warp < kGkConsumerWarps) {
+    // rows past each group's count: zeros (groups shared out over blocks)
+    for (int g = blockIdx.x; g < G; g += gridDim.x) {
+      const int r = s_grp[g] >> 16;
+      float4* dst = reinterpret_cast<float4*>(
+          out + (static_cast<size_t>(g) * M + r) * N);
+      const int n4 = (M - r) * N / 4;
+      for (int i = tid - 32; i < n4; i += 32 * (kGkConsumerWarps - 1))
+        dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+  const int total = n_units;
+  const int nst = (K + STAGE_K - 1) / STAGE_K;
+
+  if (warp == kGkConsumerWarps) {
+    // ---- producer: units blockIdx.x, + gridDim.x, ... ----
+    // a stage's scale rows: scale_rows a stage where a group divides the
+    // stage's K, else one row every group / STAGE_K stages
+    const int groups_k = fold_end ? 0 : K / group;
+    const int stages_per_row =
+        fold_end || STAGE_K % group == 0 ? 1 : group / STAGE_K;
+    int q = 0;                              // stages issued so far
+    for (int u = blockIdx.x; u < total; u += gridDim.x) {
+      const int item = u / tiles, tile = u - item * tiles;
+      // the item's expert: the last e with s_ibase[e] <= item
+      int lo = 0, hi = E;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) / 2;
+        if (s_ibase[mid] <= item) lo = mid; else hi = mid;
+      }
+      const int e = lo;
+      const int src0 = s_base[e] + 8 * (item - s_ibase[e]);
+      const int nsrc = min(8, s_base[e + 1] - src0);
+      const int wrow0 = e * (K / PER);
+      int srow = e * groups_k, in_row = 0;  // the stage's first scale row
+      for (int s = 0; s < nst; ++s, ++q) {
+        const int slot = q % S, k0 = s * STAGE_K;
+        // x up to K, in whole units (zero past K up to ldx)
+        const int xbytes = (min(STAGE_K, K - k0) + UNIT - 1) / UNIT * UNIT * 2;
+        mbar_wait(&empty[slot], ((q / S) & 1) ^ 1);
+        unsigned char* st = ring + slot * stage_bytes;
+        if (lane == 0) {
+          info[slot] = {u, k0, s == nst - 1, e, nsrc, src0, tile};
+          mbar_expect_tx(&full[slot], F::WORD_BYTES + nsrc * xbytes +
+                                          scale_rows * COLS * 4);
+        }
+        __syncwarp();
+        // lanes [0, CW): the word boxes; lane CW: the scale rows; then one
+        // lane a source's x
+        if (lane < CW) {
+          tma_tile(st + lane * F::BOX_BYTES, &wmap,
+                   tile * COLS + lane * kGkCols, wrow0 + k0 / PER,
+                   &full[slot]);
+        } else if (lane == CW) {
+          if (!fold_end)
+            tma_tile(st + F::WORD_BYTES, &smap, tile * COLS, srow,
+                     &full[slot]);
+        } else if (lane < CW + 1 + nsrc) {
+          const int j = lane - CW - 1;
+          bulk_copy(st + F::WORD_BYTES + scale_bytes + j * F::X_PITCH,
+                    x + static_cast<size_t>(s_src[src0 + j]) * ldx + k0,
+                    xbytes, &full[slot]);
+        }
+        if (++in_row == stages_per_row) {
+          in_row = 0;
+          srow += scale_rows;
+        }
+      }
+    }
+    // no more work: a last slot says so
+    const int slot = q % S;
+    mbar_wait(&empty[slot], ((q / S) & 1) ^ 1);
+    if (lane == 0) {
+      info[slot].unit = -1;
+      mbar_arrive(&full[slot]);
+    }
+    return;
+  }
+
+  // ---- consumers: warp (cw, kw) takes word rows [kw, kw + 1) SR / KW of
+  // box cw ----
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = warp % F::KW, cw = warp / F::KW;
+  // units a fold spans: one, or the whole chunk
+  const int fold_units = fold_end ? F::UNITS : min(group, CHUNK_K) / UNIT;
+  const int fold_shift = __ffs(fold_units) - 1;   // 1, 2 or 4 units
+  // this warp's first scale row in a stage's box (0 where the stage lies
+  // in one group)
+  const int my_srow =
+      fold_end || STAGE_K % group != 0 ? 0 : CHUNK_K * kw / group;
+  float acc[2][4], part[2][4];
+  // thread (g, t): word row kw SR / KW + 4 u + t, columns 4 g .. 4 g + 3
+  // of box cw: the row's 16-byte chunk g, swizzled to chunk g ^ ((4 u + t)
+  // % 8); eight lanes meet in two banks' worth of rows at most
+  const int wrow = cw * F::BOX_BYTES + (F::CHUNK_ROWS * kw + t) * kGkCols * 4;
+  const int wch0 = (g ^ t) * 16, wch1 = (g ^ (4 + t)) * 16;
+  int p = 0;                  // the warps' sums' buffer of this unit
+  for (int q = 0;; ++q) {
+    const int slot = q % S;
+    mbar_wait(&full[slot], (q / S) & 1);
+    const GkStage in = info[slot];
+    if (in.unit < 0) break;
+    if (in.k0 == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[j][r] = part[j][r] = 0.f;
+    }
+    const unsigned char* st = ring + slot * stage_bytes;
+    const unsigned char* ws = st + wrow;
+    const float* sw = reinterpret_cast<const float*>(st + F::WORD_BYTES) +
+                      my_srow * COLS + cw * kGkCols + 4 * g;
+    const auto* xk = reinterpret_cast<const __nv_bfloat16*>(
+                         st + F::WORD_BYTES + scale_bytes + g * F::X_PITCH) +
+                     CHUNK_K * kw + PER * t;
+    const int chunk_k0 = in.k0 + CHUNK_K * kw;
+    const bool xg = g < in.nsrc;       // B column g holds a source
+
+    // unit u of the chunk: 4 word rows, 4 PER of K
+    auto unit = [&](int u) {
+      const uint4 wv = *reinterpret_cast<const uint4*>(
+          ws + u * 4 * kGkCols * 4 + (u % 2 ? wch1 : wch0));
+      uint32_t xb[PER / 2];
+      if constexpr (PER == 8) {
+        const uint4 v = xg ? *reinterpret_cast<const uint4*>(xk + u * UNIT)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        xb[0] = __byte_perm(v.x, v.z, 0x5410);
+        xb[1] = __byte_perm(v.x, v.z, 0x7632);
+        xb[2] = __byte_perm(v.y, v.w, 0x5410);
+        xb[3] = __byte_perm(v.y, v.w, 0x7632);
+      } else {
+        const uint2 v = xg ? *reinterpret_cast<const uint2*>(xk + u * UNIT)
+                           : make_uint2(0u, 0u);
+        xb[0] = __byte_perm(v.x, v.y, 0x5410);
+        xb[1] = __byte_perm(v.x, v.y, 0x7632);
+      }
+      uint32_t d[4][PER / 2];
+      gk_decode<FMT>(wv.x, d[0]);
+      gk_decode<FMT>(wv.y, d[1]);
+      gk_decode<FMT>(wv.z, d[2]);
+      gk_decode<FMT>(wv.w, d[3]);
+#pragma unroll
+      for (int jj = 0; jj < PER / 4; ++jj)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          mma_bf16(part[j], d[2 * j][2 * jj], d[2 * j + 1][2 * jj],
+                   d[2 * j][2 * jj + 1], d[2 * j + 1][2 * jj + 1],
+                   xb[2 * jj], xb[2 * jj + 1]);
+    };
+    // the fold that ends with unit u: the i-th of the chunk takes row
+    // srow + i of the slot's scale box
+    auto fold = [&](int u) {
+      if (fold_end || ((u + 1) & (fold_units - 1)) != 0) return;
+      const float4 s4 = *reinterpret_cast<const float4*>(
+          sw + (((u + 1) >> fold_shift) - 1) * COLS);
+      const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          acc[j][r] = fmaf(sc[2 * j + (r >> 1)], part[j][r], acc[j][r]);
+          part[j][r] = 0.f;
+        }
+    };
+    if (chunk_k0 + CHUNK_K <= K) {     // the whole chunk lies in K
+#pragma unroll
+      for (int u = 0; u < F::UNITS; ++u) {
+        unit(u);
+        fold(u);
+      }
+    } else if (chunk_k0 < K) {         // K ends in the chunk
+#pragma unroll
+      for (int u = 0; u < F::UNITS; ++u) {
+        const int span0 = chunk_k0 + (u + 1 - fold_units) * UNIT;
+        if (chunk_k0 + u * UNIT < K) unit(u);
+        if (span0 < K) fold(u);        // spans past K hold nothing
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (!in.last) continue;
+
+    // ---- the unit's end: each box's K warps' sums added in order ----
+    const int col = in.tile * COLS + cw * kGkCols + 4 * g;
+    if (fold_end) {            // one group: the per-channel scale, once
+      const float4 s4 = col < N
+          ? *reinterpret_cast<const float4*>(
+                scales + static_cast<size_t>(in.expert) * N + col)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[j][r] = sc[2 * j + (r >> 1)] * part[j][r];
+    }
+    // this warp's sums of sources 2t, 2t + 1 at columns 4g .. 4g + 3
+    float* mine = red + ((p * kGkConsumerWarps + warp) * 8 + 2 * t) * kGkCols +
+                  4 * g;
+    *reinterpret_cast<float4*>(mine) =
+        make_float4(acc[0][0], acc[0][2], acc[1][0], acc[1][2]);
+    *reinterpret_cast<float4*>(mine + kGkCols) =
+        make_float4(acc[0][1], acc[0][3], acc[1][1], acc[1][3]);
+    consumer_sync();
+    // thread i: source i / 16, 2 CW columns from 2 CW (i % 16) (in box
+    // c2 / 32)
+    const int row = tid >> 4, c2 = 2 * CW * (tid & 15);
+    const float* sums =
+        red + ((p * kGkConsumerWarps + c2 / kGkCols * F::KW) * 8 + row) *
+                  kGkCols + c2 % kGkCols;
+    float sum[2 * CW];
+#pragma unroll
+    for (int i = 0; i < 2 * CW; ++i) sum[i] = sums[i];
+#pragma unroll
+    for (int w = 1; w < F::KW; ++w)
+#pragma unroll
+      for (int i = 0; i < 2 * CW; ++i) sum[i] += sums[w * 8 * kGkCols + i];
+    const int oc = in.tile * COLS + c2;
+    if (row < in.nsrc && oc < N) {
+      float* o = out + static_cast<size_t>(s_src[in.src0 + row]) * N + oc;
+      if constexpr (CW == 2)
+        *reinterpret_cast<float4*>(o) = make_float4(sum[0], sum[1], sum[2],
+                                                    sum[3]);
+      else
+        *reinterpret_cast<float2*>(o) = make_float2(sum[0], sum[1]);
+    }
+    p ^= 1;
+  }
+}
+
+// the number of SMs of the current device (looked up once per device)
+int sm_count() {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int n = dev < kMaxDevices ? count[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev < kMaxDevices) count[dev] = n;
+  }
+  return n;
+}
+
+template <int FMT, int SR, int CW>
+cudaError_t launch_grouped_gemv(const CUtensorMap& wmap,
+                                const CUtensorMap& smap,
+                                const __nv_bfloat16* x, int ldx,
+                                const float* scales, float* out,
+                                const ExpertGroups& eg, int M, int K, int N,
+                                int group, cudaStream_t stream) {
+  using F = GkFmt<FMT, SR, CW>;
+  const int scale_rows = gk_scale_rows(F::PER, SR, CW, K, group);
+  const int sources = eg.n_groups * M;
+  const int stage_bytes = (F::WORD_BYTES +
+                           (scale_rows * CW * kGkCols * 4 + 127) / 128 * 128 +
+                           F::X_BYTES + 1023) / 1024 * 1024;
+  const long long smem =
+      1024 + static_cast<long long>(F::STAGES) * stage_bytes + kGkRedBytes +
+      4ll * (3 * eg.n_experts + 2 + eg.n_groups + sources);
+  if (M < 1 || M > 8 || N % 4 != 0 || ldx % 8 != 0 ||
+      ldx < (K + F::UNIT - 1) / F::UNIT * F::UNIT || scale_rows < 0 ||
+      scale_rows > 256 || eg.n_experts > kGkMaxExperts ||
+      sources > kGkMaxSources || smem > kGkMaxSmem)
+    return cudaErrorInvalidValue;
+  static bool ready[kMaxDevices] = {};
+  cudaError_t e = set_smem_attributes(grouped_gemv_kernel<FMT, SR, CW>,
+                                      kGkMaxSmem, ready);
+  if (e != cudaSuccess) return e;
+  grouped_gemv_kernel<FMT, SR, CW><<<kGkBlocksPerSm * sm_count(), kGkThreads,
+                                     static_cast<int>(smem), stream>>>(
+      wmap, smap, x, ldx, scales, out, eg, M, K, N, group, scale_rows);
+  return cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_grouped_gemv_fmt(const CUtensorMap& wmap,
+                                    const CUtensorMap& smap,
+                                    const __nv_bfloat16* x, int ldx,
+                                    const float* scales, float* out,
+                                    const ExpertGroups& eg, int M, int K,
+                                    int N, int group, cudaStream_t stream) {
+  const bool sr32 = gk_stage_rows(K / MmFmt<FMT>::PER) == 32;
+  const bool cw2 = gk_col_boxes(N) == 2;
+#define GK_CASE(SR, CW)                                                      \
+  if (sr32 == (SR == 32) && cw2 == (CW == 2))                                \
+    return launch_grouped_gemv<FMT, SR, CW>(wmap, smap, x, ldx, scales, out, \
+                                            eg, M, K, N, group, stream);
+  GK_CASE(32, 1) GK_CASE(32, 2) GK_CASE(64, 1) GK_CASE(64, 2)
+#undef GK_CASE
+  return cudaErrorInvalidValue;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [rows, N] row-major map of 4-byte elements in boxes of box_cols
+// columns by box_rows rows (out-of-bounds elements read as zero)
+int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+               long long rows, int N, int box_cols, int box_rows,
+               CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return static_cast<int>(fn(map, type, 2, const_cast<void*>(base), dims,
+                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The ungrouped K2 launches: one group, no expert stack.
+constexpr ExpertGroups kOneGroup = {nullptr, nullptr, 1, 1, 0, 0};
 
 template <bool GROUPED>
 int matmul_entry(const void* x, int ldx, const void* w, const void* scales,
@@ -1024,26 +1616,71 @@ int packed_gemv(const void* x, int ldx, const void* w, const void* scales,
                 void* partial, void* out, void* counters, int M, int K, int N,
                 int fmt, int group, int k_per_split, int splits,
                 void* stream) {
-  return gemv_entry<false>(x, ldx, w, scales, partial, out, counters, M, K, N,
-                           fmt, group, k_per_split, splits, kOneGroup, stream);
+  return gemv_entry(x, ldx, w, scales, partial, out, counters, M, K, N, fmt,
+                    group, k_per_split, splits, stream);
 }
 
-// K1 over G groups of an expert stack: x bf16 [G, M, ldx] (as above, per
-// group); w int32 [E, K/per, N] and scales f32 [E, ceil(K/group), N],
-// contiguous; expert int32 [G] (each in [0, E)) and rows int32 [G] on the
-// device; partial f32 [G, splits, M, N] scratch (unused for one split);
-// out f32 [G, M, N]; counters int32 [G * ceil(N / 128)], zero.  Other
-// arguments as packed_gemv's.
-int packed_gemv_grouped(const void* x, int ldx, const void* w,
-                        const void* scales, void* partial, void* out,
-                        void* counters, const void* expert, const void* rows,
-                        int G, int E, int M, int K, int N, int fmt, int group,
-                        int k_per_split, int splits, void* stream) {
+// The tensor maps packed_gemv_grouped reads a stack through, written to
+// maps (2 x 128 bytes): the words w int32 [E, K/per, N] as [E K/per, N] in
+// boxes of a ring stage's rows (64, or 32) x 32 columns, 128-byte
+// swizzled, then the scales f32 [E, K/group, N] as
+// [E K/group, N] in boxes of the scale rows a ring stage holds (zeros for
+// one group, group == K, whose scales the kernel reads itself).  0, the
+// CUresult of cuTensorMapEncodeTiled, or -1 (no driver entry point, or a
+// scale group grouped K1 does not take).
+int grouped_gemv_tensor_maps(const void* w, const void* scales, int E, int K,
+                             int N, int fmt, int group, void* maps) {
+  const int per = fmt == FP8_E4M3 ? 4 : 8;
+  const int sr = gk_stage_rows(K / per), cw = gk_col_boxes(N);
+  const int scale_rows = gk_scale_rows(per, sr, cw, K, group);
+  if (scale_rows < 0 || scale_rows > 256) return -1;
+  CUtensorMap m[2];
+  memset(m, 0, sizeof m);
+  int err = encode_map(&m[0], CU_TENSOR_MAP_DATA_TYPE_INT32, w,
+                       static_cast<long long>(E) * (K / per), N, kGkCols, sr,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0 && scale_rows > 0)
+    err = encode_map(&m[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales,
+                     static_cast<long long>(E) * (K / group), N, cw * kGkCols,
+                     scale_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == 0) memcpy(maps, m, sizeof m);
+  return err;
+}
+
+// K1 over G groups of an expert stack (the persistent grouped body): x bf16
+// [G M, ldx] (ldx % 8 == 0 and at least K rounded up to 32 for 4-bit codes
+// / 16 for fp8, zero past K, 16-byte aligned); maps from
+// grouped_gemv_tensor_maps; scales the stack's f32 [E, K/group, N]; expert
+// int32 [G] (each in [0, E)) and rows int32 [G] on the device; out f32
+// [G, M, N].  1 <= M <= 8, N % 4 == 0, E <= 512, G M <= 6144; group K, or
+// as kernels/packed_matmul.py:grouped_gemv_plan takes it; fmt as
+// packed_gemv's.
+int packed_gemv_grouped(const void* x, int ldx, const void* maps,
+                        const void* scales, void* out, const void* expert,
+                        const void* rows, int G, int E, int M, int K, int N,
+                        int fmt, int group, void* stream) {
   ExpertGroups eg;
   if (!expert_groups(expert, rows, G, E, K, N, fmt, group, &eg))
     return cudaErrorInvalidValue;
-  return gemv_entry<true>(x, ldx, w, scales, partial, out, counters, M, K, N,
-                          fmt, group, k_per_split, splits, eg, stream);
+  CUtensorMap m[2];
+  memcpy(m, maps, sizeof m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* sp = static_cast<const float*>(scales);
+  auto* op = static_cast<float*>(out);
+  switch (fmt) {
+    case INT4:
+      return launch_grouped_gemv_fmt<INT4>(m[0], m[1], xb, ldx, sp, op, eg, M,
+                                           K, N, group, s);
+    case FP4_E2M1:
+      return launch_grouped_gemv_fmt<FP4_E2M1>(m[0], m[1], xb, ldx, sp, op, eg,
+                                               M, K, N, group, s);
+    case FP8_E4M3:
+      return launch_grouped_gemv_fmt<FP8_E4M3>(m[0], m[1], xb, ldx, sp, op, eg,
+                                               M, K, N, group, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // x bf16 [M, ldx] (ldx % 8 == 0, 16-byte aligned, zero in columns

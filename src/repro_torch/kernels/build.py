@@ -12,13 +12,14 @@ the compiler's output.  Nothing is built at import: the first kernel call
 
 builds every source with ``-Xptxas=-v`` and prints each kernel's register
 and spill report (those libraries are keyed apart from the ones the
-wrappers load).
+wrappers load); ``ptxas_report`` parses it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -55,11 +56,13 @@ def library_path(name: str, extra: Sequence[str] = ()) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None, *,
-          extra: Sequence[str] = (), verbose: bool = False) -> Dict[str, Path]:
+          extra: Sequence[str] = (), verbose: bool = False,
+          logs: Optional[Dict[str, str]] = None) -> Dict[str, Path]:
     """Compile the named sources (default: all) that are not built yet, one
     ``nvcc`` process per source, all started together.  Returns
     {name: library path}.  ``extra`` flags (e.g. ``-Xptxas=-v``) are added
-    to every compile; ``verbose`` prints the compiler output."""
+    to every compile; ``verbose`` prints the compiler output, ``logs``
+    (a dict) receives it by source."""
     names = tuple(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n, extra) for n in names}
@@ -75,6 +78,8 @@ def build(names: Optional[Iterable[str]] = None, *,
     failed = []
     for n, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
+        if logs is not None:
+            logs[n] = log
         if verbose and log:
             print(f"--- nvcc {n} ---\n{log}", flush=True)
         if proc.returncode != 0:
@@ -85,6 +90,28 @@ def build(names: Optional[Iterable[str]] = None, *,
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """{kernel (mangled name): {"registers", "spill_stores", "spill_loads"}}
+    from the output of a ``-Xptxas=-v`` build."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

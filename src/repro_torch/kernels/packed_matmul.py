@@ -22,11 +22,16 @@ The expert-grouped forms run one launch over a stack of expert leaves
 expert ``expert_idx[g]``'s leaf, of which only the first ``rows[g]`` rows
 of x hold data (the rest come out zero) -> f32 [G, M, N].  Expert ids and
 row counts stay on the device.
-  * ``packed_gemv_grouped``   — K1 per group (M <= 8: decode pairs and
-    small capacity buffers);
+  * ``packed_gemv_grouped``   — grouped K1 (M <= 8: decode pairs and
+    small capacity buffers), a persistent body of its own that merges the
+    groups naming one expert into items of <= 8 rows (``grouped_work_list``
+    is its work list's twin) and sums in an order fixed by the leaf alone
+    (``grouped_gemv_plan``);
   * ``packed_matmul_grouped`` — K2 per group (any M);
   * ``packed_grouped_plain``  — the same in plain torch: each group's
-    expert dequantized to f32, then one batched f32 matmul.
+    expert dequantized to f32, then one batched f32 matmul;
+  * ``packed_gemv_grouped_ordered`` — plain torch in grouped K1's order
+    of sums.
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
 it launches its kernel (or raises).  ``launches`` counts kernel launches
@@ -62,7 +67,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "packed_gemv": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "packed_matmul": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
-    "packed_gemv_grouped": [_P, _I] + [_P] * 7 + [_I] * 9 + [_P],
+    "packed_gemv_grouped": [_P, _I] + [_P] * 5 + [_I] * 7 + [_P],
+    "grouped_gemv_tensor_maps": [_P, _P] + [_I] * 5 + [_P],
     "packed_matmul_grouped": [_P, _I] + [_P] * 6 + [_I] * 12 + [_P],
 }
 GEMV_MAX_M = 8
@@ -78,6 +84,12 @@ _GV_MAX_SPLITS = 32       # splits the plan aims at most for (the x-slice
                           # any number in order)
 # K1's dynamic shared memory, at most (csrc: kGvMaxSmem)
 _GV_MAX_SMEM = _GV_RING_BYTES + 2 * (_GV_X_ELEMS + GEMV_MAX_M * 32)
+# grouped K1: 4 consumer warps split each ring stage's word rows; one
+# launch takes at most 512 experts and 6144 rows of x (csrc:
+# kGkConsumerWarps, gk_stage_rows, kGkMaxExperts, kGkMaxSources)
+_GK_WARPS = 4
+_GK_MAX_EXPERTS = 512
+_GK_MAX_ROWS = 6144
 _MM_BK = 128              # matmul K per pipeline stage
 _MM_MIN_STEPS = 4         # stages per split, at least
 _TARGET_BLOCKS = 264      # two waves over the H100's 132 SMs
@@ -167,8 +179,7 @@ def packed_matmul_ordered(x: torch.Tensor, packed: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme,
-              groups: int = 1) -> Tuple[int, int]:
+def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme) -> Tuple[int, int]:
     """(k_per_split, splits) for K1: K cut into splits of whole ring stages
     (128 K for 4-bit codes, 64 for fp8) and whole scale groups, as many as
     keep the grid of 128-column tiles within one resident wave of four
@@ -178,15 +189,14 @@ def gemv_plan(m: int, k: int, n: int, scheme: QuantScheme,
     splits, it wins: nemotron-4-340b's 73728 x 18432 leaf at M = 8 runs 53
     splits (more than one wave of blocks).  The last block of a column
     tile sums however many splits there are, in order 0, 1, ...
-    (``packed_gemv_ordered``).  A grouped launch of ``groups`` groups
-    counts every group's column tiles against the wave."""
+    (``packed_gemv_ordered``)."""
     per = codes_per_word(scheme.weight_bits)
     group = effective_group(scheme.group_size, k)
     q = _GV_STAGE_WORDS * per
     if group != k:
         q = q * group // math.gcd(q, group)
     steps = -(-k // q)
-    want = max(1, _GV_BLOCKS // (groups * -(-n // _GV_COLS)))
+    want = max(1, _GV_BLOCKS // -(-n // _GV_COLS))
     per_split = max(1, min(max(-(-steps // want), -(-steps // _GV_MAX_SPLITS)),
                            _GV_X_ELEMS // (m * q)))
     kps = per_split * q
@@ -327,8 +337,8 @@ def packed_gemv(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _gemv_launch_plan(m: int, k: int, n: int, scheme: QuantScheme,
-                      groups: int = 1) -> Tuple[int, int]:
+def _gemv_launch_plan(m: int, k: int, n: int,
+                      scheme: QuantScheme) -> Tuple[int, int]:
     """``gemv_plan``, after checking that K1 takes the leaf's scale groups
     and that the plan's x slice fits a block."""
     per = codes_per_word(scheme.weight_bits)
@@ -336,22 +346,22 @@ def _gemv_launch_plan(m: int, k: int, n: int, scheme: QuantScheme,
     if group != k and group % (4 * per):
         raise ValueError(f"packed_gemv: scale group {group} is neither K nor "
                          f"a multiple of {4 * per}")
-    kps, splits = gemv_plan(m, k, n, scheme, groups)
+    kps, splits = gemv_plan(m, k, n, scheme)
     if gemv_smem_bytes(m, kps, scheme) > _GV_MAX_SMEM:
         raise ValueError(f"packed_gemv: scale group {group} needs a split of "
                          f"{kps} rows of K, more x than a block stages")
     return kps, splits
 
 
-def matmul_x_operand(x: torch.Tensor) -> torch.Tensor:
-    """x as K2 loads it: rows a multiple of 8 bf16 long and 16-byte
-    aligned, so that every 16-byte copy is whole; a copy zero-padded along
-    K where x is not (zeros add nothing)."""
+def matmul_x_operand(x: torch.Tensor, multiple: int = 8) -> torch.Tensor:
+    """x as K2 loads it: rows a multiple of 8 bf16 long (grouped K1: of
+    its unit's K, ``multiple``) and 16-byte aligned, so that every copy is
+    whole; a copy zero-padded along K where x is not (zeros add nothing)."""
     k = x.shape[1]
-    if k % 8 == 0 and x.data_ptr() % 16 == 0:
+    if k % multiple == 0 and x.data_ptr() % 16 == 0:
         return x
-    xp = torch.zeros((x.shape[0], -(-k // 8) * 8), dtype=x.dtype,
-                     device=x.device)
+    xp = torch.zeros((x.shape[0], -(-k // multiple) * multiple),
+                     dtype=x.dtype, device=x.device)
     xp[:, :k] = x
     return xp
 
@@ -472,11 +482,143 @@ def _grouped_x(x: torch.Tensor) -> torch.Tensor:
     return matmul_x_operand(x.reshape(g * m, k))
 
 
+def grouped_gemv_plan(k: int, n: int,
+                      scheme: QuantScheme) -> Tuple[int, int, int]:
+    """(stage_k, chunk_k, fold_k): grouped K1's order of sums, a function
+    of the leaf alone (never of G, M or the routing, so a row's output is
+    the same whatever shares its launch).  A unit (an item's 32 columns)
+    walks K in stages of stage_k (64 word rows, or 32 where K / per is an
+    odd multiple of 32, so that no stage runs past K); each of its 32 (or,
+    at N >= 1536, 64) columns' 4 (or 2) consumer warps takes chunk w
+    (chunk_k) of every stage and folds scale x partial every fold_k of K
+    in K order (fold_k = min(group, chunk_k); K for a per-channel scale,
+    which multiplies the warp's whole sum once); a column's output is its
+    warps' sums added in order, w0 + w1 + ...  Raises for a scale
+    group that is neither K, a multiple of stage_k, nor a divisor of
+    stage_k (in whole 4-word units) that divides or is a multiple of
+    chunk_k."""
+    per = codes_per_word(scheme.weight_bits)
+    group = effective_group(scheme.group_size, k)
+    rows = k // per
+    stage_rows = 32 if rows % 64 and rows % 32 == 0 else 64
+    k_warps = _GK_WARPS // (2 if n >= 1536 else 1)
+    unit, chunk = 4 * per, stage_rows // k_warps * per
+    stage = stage_rows * per
+    if not (group == k or group % stage == 0
+            or (group % unit == 0 and stage % group == 0
+                and (chunk % group == 0 or group % chunk == 0))):
+        raise ValueError(f"packed_gemv_grouped: scale group {group} is "
+                         f"neither K, a multiple of {stage}, nor a divisor "
+                         f"of {stage} (in units of {unit}) that divides or "
+                         f"is a multiple of {chunk}")
+    return (stage_rows * per, chunk,
+            k if group == k else min(group, chunk))
+
+
+def grouped_work_list(expert_idx: torch.Tensor, rows: torch.Tensor,
+                      m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the work list grouped K1 builds on the card:
+    (item_expert [I], item_rows [I, 8]).  The sources — row g M + r of x
+    and of the output for each group g and r < rows[g] (clamped to [0, M])
+    — sorted by expert, ties in (group, row) order, cut into items of at
+    most 8 sources of one expert (-1 pads an item's row list).  An expert
+    of n rows takes ceil(n / 8) items, an expert with none takes none."""
+    e = expert_idx.detach().to("cpu", torch.int64)
+    r = rows.detach().to("cpu", torch.int64).clamp(0, m)
+    g = torch.arange(len(e)).repeat_interleave(r)
+    first = torch.cumsum(r, 0) - r
+    src = g * m + torch.arange(len(g)) - first[g]       # g M + row in group
+    se = e[g]
+    order = torch.sort(se, stable=True).indices
+    src, se = src[order], se[order]
+    # rank within the expert's sources, then items of 8
+    start = torch.searchsorted(se, se, right=False)
+    rank = torch.arange(len(se)) - start
+    new_item = rank % 8 == 0
+    item = torch.cumsum(new_item.to(torch.int64), 0) - 1
+    n_items = int(new_item.sum())
+    item_expert = se[new_item]
+    item_rows = torch.full((n_items, 8), -1, dtype=torch.int64)
+    item_rows[item, rank % 8] = src
+    return item_expert, item_rows
+
+
+def packed_gemv_grouped_ordered(x: torch.Tensor, packed: torch.Tensor,
+                                scales: torch.Tensor, scheme: QuantScheme,
+                                expert_idx: torch.Tensor,
+                                rows: torch.Tensor) -> torch.Tensor:
+    """Plain torch in grouped K1's order (``grouped_gemv_plan``), row by
+    row (each row's ops the same whatever shares the call, so a row's
+    output is bit for bit the same alone or in any batch): warp w's sum
+    adds, in K order, the group scale times x_row @ codes (the codes as K1
+    decodes them to bf16, exact) over each fold of its chunks (a per-channel
+    scale times the sum of its chunks' products, once); the output is the
+    warps' sums added in order.  Rows past ``rows[g]`` are zero.  Only
+    the order inside one fold's x @ codes (the tensor cores') and the fused
+    multiply-add of a fold are not replayed."""
+    g, m, k = x.shape
+    n = packed.shape[-1]
+    group = effective_group(scheme.group_size, k)
+    stage_k, chunk_k, fold_k = grouped_gemv_plan(k, n, scheme)
+    warps = stage_k // chunk_k
+    xf = x.reshape(g * m, k).to(torch.float32)
+    out = torch.zeros((g * m, n), dtype=torch.float32, device=x.device)
+    item_expert, item_rows = grouped_work_list(expert_idx, rows, m)
+    vals = {}
+    for e, srcs in zip(item_expert.tolist(), item_rows.tolist()):
+        if e not in vals:
+            vals[e] = bf16_from_bits(kernel_decode_bf16(
+                scheme, unpack_codes(packed[e], scheme.weight_bits))).to(
+                    torch.float32)
+        v, sc = vals[e], scales[e]
+        for row in (s_ for s_ in srcs if s_ >= 0):
+            xr = xf[row:row + 1]
+            total = None
+            for w in range(warps):
+                acc = torch.zeros((1, n), dtype=torch.float32,
+                                  device=x.device)
+                for c0 in range(w * chunk_k, k, stage_k):
+                    c1 = min(c0 + chunk_k, k)
+                    for f0 in range(c0, c1, fold_k):
+                        f1 = min(f0 + fold_k, c1)
+                        prod = xr[:, f0:f1] @ v[f0:f1]
+                        acc += prod if group == k else sc[f0 // group] * prod
+                if group == k:
+                    acc = sc[0] * acc
+                total = acc if total is None else total + acc
+            out[row] = total[0]
+    return out.reshape(g, m, n)
+
+
+_TENSOR_MAPS: Dict[tuple, ctypes.Array] = {}
+
+
+def _grouped_tensor_maps(lib, packed: torch.Tensor, scales: torch.Tensor,
+                         e: int, k: int, n: int, fmt: int,
+                         group: int) -> ctypes.Array:
+    """The TMA tensor maps of a stack (``grouped_gemv_tensor_maps``),
+    encoded once per leaf: a map holds no more than the addresses, shapes
+    and boxes of its key, so a cached one is right for any tensor there."""
+    key = (packed.data_ptr(), scales.data_ptr(), e, k, n, fmt, group)
+    maps = _TENSOR_MAPS.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(256)
+        err = lib.grouped_gemv_tensor_maps(packed.data_ptr(),
+                                           scales.data_ptr(), e, k, n, fmt,
+                                           group, maps)
+        if err != 0:
+            raise RuntimeError("packed_gemv_grouped: cuTensorMapEncodeTiled "
+                               f"failed (CUresult {err})")
+        _TENSOR_MAPS[key] = maps
+    return maps
+
+
 def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
                         scales: torch.Tensor, scheme: QuantScheme,
                         expert_idx: torch.Tensor,
                         rows: torch.Tensor) -> torch.Tensor:
-    """K1 over G groups: x [G, M, K] bf16 with 1 <= M <= 8."""
+    """Grouped K1: x [G, M, K] bf16 with 1 <= M <= 8.  One launch (more
+    only past 6144 rows of x, each launch taking whole groups)."""
     dims = _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows,
                              "packed_gemv_grouped")
     if dims is None:
@@ -490,26 +632,29 @@ def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("packed_gemv_grouped needs N % 4 == 0 and 16-byte "
                          "aligned packed / scales (packed_matmul_grouped "
                          "takes any)")
-    kps, splits = _gemv_launch_plan(m, k, n, scheme, g)
-    xk = _grouped_x(x)
+    if e > _GK_MAX_EXPERTS:
+        raise ValueError(f"packed_gemv_grouped takes at most "
+                         f"{_GK_MAX_EXPERTS} experts, got {e}")
+    grouped_gemv_plan(k, n, scheme)         # raises for a group it refuses
+    fmt = PACKED_FORMAT_IDS[scheme.weight_format]
+    xk = matmul_x_operand(x.reshape(g * m, k),
+                          4 * codes_per_word(scheme.weight_bits))
     out = torch.empty((g, m, n), dtype=torch.float32, device=x.device)
-    partial = out if splits == 1 else torch.empty(
-        (g, splits, m, n), dtype=torch.float32, device=x.device)
     lib = build.load("packed_matmul", _SIGNATURES)
+    step = _GK_MAX_ROWS // m
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        counters = scratch.zeroed("packed_gemv.counters", x.device, stream,
-                                  g * -(-n // _GV_COLS))
-        err = lib.packed_gemv_grouped(
-            xk.data_ptr(), xk.shape[1], packed.data_ptr(), scales.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), counters.data_ptr(),
-            expert_idx.data_ptr(), rows.data_ptr(), g, e, m, k, n,
-            PACKED_FORMAT_IDS[scheme.weight_format], group, kps, splits,
-            stream)
-    build.check(lib, "packed_gemv_grouped", err)
-    launches["packed_gemv_grouped"] += 1
-    format_launches["packed_gemv_grouped", scheme.weight_format] += 1
-    grouped_row_launches["packed_gemv_grouped", m] += 1
+        maps = _grouped_tensor_maps(lib, packed, scales, e, k, n, fmt, group)
+        for g0 in range(0, g, step):
+            gs = min(step, g - g0)
+            err = lib.packed_gemv_grouped(
+                xk[g0 * m:].data_ptr(), xk.shape[1], maps, scales.data_ptr(),
+                out[g0:].data_ptr(), expert_idx[g0:].data_ptr(),
+                rows[g0:].data_ptr(), gs, e, m, k, n, fmt, group, stream)
+            build.check(lib, "packed_gemv_grouped", err)
+            launches["packed_gemv_grouped"] += 1
+            format_launches["packed_gemv_grouped", scheme.weight_format] += 1
+            grouped_row_launches["packed_gemv_grouped", m] += 1
     return out
 
 

@@ -17,9 +17,22 @@ and at K = 4100, each beside ``torch._int_mm`` with the same epilogue
 16, as that call needs); K3 / K4 (``gqa_decode_attention``) on the bf16, int8 and fp8 slabs of the
 table case (B 8, H 32, Hk 8, Dh 128, Sk 1024, ragged lengths); K6
 (``virtual_dsp_multiply`` on int4 x bf16, int32, and ``packed_multiply``
-on fp32 x int16, int64, each at the Table VII GEMV's 50,331,648 lane MACs).
-``--kernels`` picks some of ``gemv``, ``matmul``, ``w8a8``, ``attention``,
-``vdsp``.  Each time is the
+on fp32 x int16, int64, each at the Table VII GEMV's 50,331,648 lane MACs);
+expert-grouped K1 (``packed_gemv_grouped``) on qwen3-moe-30b-a3b's awq_int4
+expert stacks (128 experts; 2048 x 768 and 768 x 2048) at the four cases
+of ``chip_smoke.py`` (``grouped``: the decode step's 64 (row, expert)
+pairs of M = 1, and a 64-token chunk's 128 capacity buffers of M = 5),
+beside grouped K2 (``packed_matmul_grouped``) at a 128-token chunk's
+buffers of M = 10, and, with ``grouped_probe``, at variants of the decode
+pairs: sorted by expert, only their distinct experts, one row's 8 pairs
+(G = 8), one pair (G = 1) and 64 distinct experts.  ``--kernels`` picks
+some of ``gemv``, ``matmul``, ``w8a8``, ``attention``, ``vdsp``,
+``grouped``, ``grouped_probe``.
+``--patch NAME=VALUE`` (repeatable) rebuilds the tree's
+``csrc/packed_matmul.cu`` with ``constexpr int NAME = VALUE;`` apart, in
+``build/ablation/``, and times that build in place of the wrapper's (e.g.
+a deeper ring; ``launch/grouped_ablation.py`` builds variants of other
+kinds the same way).  Each time is the
 median of 20 calls timed with CUDA events, the L2 cache flushed before each
 call, as in ``chip_smoke.py``; ``host_us`` is the host's time per call
 (50 calls, no sync between).  ``--profile`` adds each case's device ms
@@ -30,15 +43,24 @@ power limit.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
+import re
 import subprocess
 import time
 
 import torch
 
 from repro_torch.core import packing as P
+from repro_torch.kernels import build
+from repro_torch.kernels import packed_matmul as PM
 from repro_torch.kernels.decode_attention import gqa_decode_attention
-from repro_torch.kernels.packed_matmul import packed_gemv, packed_matmul
+from repro_torch.kernels.packed_matmul import (packed_gemv,
+                                               packed_gemv_grouped,
+                                               packed_matmul,
+                                               packed_matmul_grouped)
+from repro_torch.models.common import QuantMaker
 from repro_torch.kernels.w8a8_matmul import w8a8_matmul
 from repro_torch.kernels.xtramac_mac import virtual_dsp_multiply
 from repro_torch.quant.kv_cache import QuantizedKV
@@ -52,7 +74,13 @@ W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
 SCHEMES = ["awq_int4", "mxfp4", "fp8"]
 ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
 LANE_MACS = 50_331_648          # the paper's Table VII GEMV (1, 4096, 12288)
-KERNEL_SETS = ("gemv", "matmul", "w8a8", "attention", "vdsp")
+KERNEL_SETS = ("gemv", "matmul", "w8a8", "attention", "vdsp", "grouped")
+# qwen3-moe-30b-a3b's expert stacks and chip_smoke.py's grouped K1 cases
+QWEN3_EXPERTS, QWEN3_TOP_K, QWEN3_ROWS = 128, 8, 8
+QWEN3_EXPERT_SHAPES = [(2048, 768), (768, 2048)]
+GROUPED_CASES = [("decode", QWEN3_ROWS * QWEN3_TOP_K, 1, packed_gemv_grouped),
+                 ("prefill64", QWEN3_EXPERTS, 5, packed_gemv_grouped),
+                 ("prefill128", QWEN3_EXPERTS, 10, packed_matmul_grouped)]
 
 
 def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
@@ -117,16 +145,77 @@ def weights(scheme_name: str, k: int, n: int, gen, dev):
     return scheme, packed, scales
 
 
+def grouped_layout(label, g, m, gen, dev):
+    """(expert ids [G], rows [G]) int32 on the card, as
+    ``chip_smoke.grouped_layout`` draws them: each decode row's top-8
+    distinct experts, or capacity buffers (expert e in group e) of 0-M
+    rows."""
+    if label == "decode":
+        experts = torch.stack([
+            torch.randperm(QWEN3_EXPERTS, generator=gen, device=dev)
+            [:QWEN3_TOP_K] for _ in range(QWEN3_ROWS)]).reshape(-1)
+        rows = torch.ones(g, dtype=torch.int64, device=dev)
+    else:
+        experts = torch.arange(g, device=dev)
+        rows = torch.randint(0, m + 1, (g,), generator=gen, device=dev)
+    return experts.to(torch.int32), rows.to(torch.int32)
+
+
+def grouped_probes(experts):
+    """Variants of the decode pairs' layout ``experts`` [64] (label, ids):
+    sorted by expert, the distinct experts alone, the first row's 8 pairs,
+    one pair, and 64 distinct experts."""
+    distinct = torch.unique(experts)
+    return [("decode_sorted", torch.sort(experts).values),
+            ("decode_dedup", distinct.to(torch.int32)),
+            ("decode_row", experts[:QWEN3_TOP_K]),
+            ("single", experts[:1]),
+            ("distinct64", torch.arange(64, dtype=torch.int32,
+                                        device=experts.device))]
+
+
+def patched_library(patches, source=None):
+    """``source`` (default: the tree's ``csrc/packed_matmul.cu``) with each
+    ``constexpr int NAME = ...;`` of ``patches`` {NAME: VALUE} replaced,
+    built with ``nvcc`` into ``build/ablation/`` and installed as the
+    library the wrappers load."""
+    src = open(source or build.CSRC / "packed_matmul.cu").read()
+    for name, value in patches.items():
+        src, n = re.subn(rf"constexpr int {name} = [^;]+;",
+                         f"constexpr int {name} = {value};", src)
+        if n != 1:
+            raise SystemExit(f"kernel_times: no constexpr int {name}")
+    out = build.BUILD_DIR.parent / "ablation"
+    out.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(src.encode()).hexdigest()[:12]
+    cu, so = out / f"packed_matmul-{tag}.cu", out / f"packed_matmul-{tag}.so"
+    cu.write_text(src)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
+                    str(cu)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in PM._SIGNATURES.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    build._LOADED["packed_matmul"] = lib
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--kernels", default=",".join(KERNEL_SETS),
-                    help="comma-separated subset of " + ", ".join(KERNEL_SETS))
+                    help="comma-separated subset of " + ", ".join(
+                        KERNEL_SETS + ("grouped_probe",)))
+    ap.add_argument("--patch", action="append", default=[],
+                    metavar="NAME=VALUE")
     args = ap.parse_args(argv)
     only = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
+    if args.patch:
+        patched_library(dict(p.split("=", 1) for p in args.patch))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -206,6 +295,33 @@ def main(argv=None) -> None:
              pair="x".join(pair), dtype=str(dtype).split(".")[-1], t=t,
              p=plan.parallelism)
         del a, bm
+    probe = "grouped_probe" in only
+    mk = QuantMaker(5, device=dev)
+    for k, n in QWEN3_EXPERT_SHAPES if {"grouped", "grouped_probe"} & only \
+            else ():
+        with torch.no_grad():
+            leaf = mk.dense("moe.w_up", k, n, "awq_int4",
+                            experts=QWEN3_EXPERTS)
+        per_expert = (leaf.packed[0].numel() + leaf.scales[0].numel()) * 4
+        for label, g, m, kernel in GROUPED_CASES:
+            experts, rows = grouped_layout(label, g, m, gen, dev)
+            base = "grouped" in only or (probe and label == "decode")
+            cases = [(label, experts, rows)] if base else []
+            if probe and label == "decode":
+                cases += [(name, ids, rows[:len(ids)])
+                          for name, ids in grouped_probes(experts)]
+            for name, ids, live in cases:
+                x = torch.randn((len(ids), m, k), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                used = len(torch.unique(ids[live > 0]))
+                emit(lambda: kernel(
+                    x, leaf.packed, leaf.scales, leaf.scheme, ids, live),
+                    name=kernel.__name__, case=name, g=len(ids), m=m,
+                    k=k, n=n, experts=used, rows=int(live.sum()),
+                    expert_bytes=used * per_expert,
+                    patch=args.patch or None)
+        del leaf
+        torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)

@@ -164,9 +164,9 @@ def main(argv=None) -> None:
     print(json.dumps(out))
 
 
-# the expert-grouped kernels' names in the profiler: K1's and K2's bodies
-# (their grouped instantiations) and K2's split-K reduce
-GROUPED_KERNELS = ("packed_gemv_kernel", "packed_mma_kernel",
+# the expert-grouped kernels' names in the profiler: grouped K1's body,
+# K2's (its grouped instantiations) and K2's split-K reduce
+GROUPED_KERNELS = ("grouped_gemv_kernel", "packed_mma_kernel",
                    "splitk_reduce_kernel")
 
 

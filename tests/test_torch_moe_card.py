@@ -1,7 +1,9 @@
 """The MoE path on the card (``gpu``; this file imports no JAX): the
 expert-grouped K1 / K2 kernels against their plain version (empty groups,
 repeated experts, rows past a group's count exactly zero, one launch a
-call), and qwen3-moe-smoke with the port's own seeded weights served
+call), grouped K1 against its twin in its own order, a row's output bit
+for bit the same whatever shares its launch, and past one launch's 6144
+rows of x; and qwen3-moe-smoke with the port's own seeded weights served
 through the kernels, every request equal to itself served alone."""
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.packed_matmul import (packed_gemv_grouped,
+                                               packed_gemv_grouped_ordered,
                                                packed_grouped_plain,
                                                packed_matmul_grouped)
 from repro_torch.models import transformer as T
@@ -54,6 +57,59 @@ def test_grouped_kernels_match_plain(cuda_device, scheme, k, n, m):
         assert ops.launch_counts()[fn.__name__] == before + 1
         torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-3)
         assert (got[~live] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,k,n", [("awq_int4", 1024, 256),
+                                        ("mxfp4", 256, 96),
+                                        ("fp8", 512, 128),
+                                        ("awq_int4", 768, 2048)])
+def test_grouped_gemv_row_is_free_of_its_batch_mates(cuda_device, scheme, k,
+                                                      n):
+    """Decode-style pairs (8 rows x 4 experts, M = 1): each row's 4 pairs
+    launched alone give the G = 32 launch's rows bit for bit, and all of
+    them match the ordered twin (f32 rounding apart)."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    leaf = QuantMaker(2, device=cuda_device).dense("moe.w_up", k, n, scheme,
+                                                   experts=16)
+    experts = torch.stack([torch.randperm(16, generator=gen,
+                                          device=cuda_device)[:4]
+                           for _ in range(8)]).reshape(-1).to(torch.int32)
+    rows = torch.ones(32, dtype=torch.int32, device=cuda_device)
+    x = torch.randn((32, 1, k), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    args = (leaf.packed, leaf.scales, leaf.scheme)
+    big = packed_gemv_grouped(x, *args, experts, rows)
+    for i in range(0, 32, 4):
+        alone = packed_gemv_grouped(x[i:i + 4], *args, experts[i:i + 4],
+                                    rows[i:i + 4])
+        assert torch.equal(alone, big[i:i + 4])
+    torch.testing.assert_close(
+        big, packed_gemv_grouped_ordered(x, *args, experts, rows),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_grouped_gemv_past_one_launch_of_rows(cuda_device):
+    """800 groups of M = 8 (6400 rows of x) take two launches of whole
+    groups, and match the plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    leaf = QuantMaker(3, device=cuda_device).dense("moe.w_up", 256, 64,
+                                                   "awq_int4", experts=8)
+    g, m = 800, 8
+    experts = torch.randint(0, 8, (g,), generator=gen, device=cuda_device,
+                            dtype=torch.int64).to(torch.int32)
+    rows = torch.randint(0, m + 1, (g,), generator=gen, device=cuda_device,
+                         dtype=torch.int64).to(torch.int32)
+    x = torch.randn((g, m, 256), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    args = (x, leaf.packed, leaf.scales, leaf.scheme, experts, rows)
+    before = ops.launch_counts()["packed_gemv_grouped"]
+    got = packed_gemv_grouped(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["packed_gemv_grouped"] == before + 2
+    torch.testing.assert_close(got, packed_grouped_plain(*args), rtol=2e-3,
+                               atol=1e-3)
 
 
 @pytest.mark.gpu
