@@ -33,17 +33,20 @@ non-zero after the last phase; exceptions are not caught):
      attention on starcoder2's 48 / 4 heads (Dh 128); the expert-grouped
      K1 / K2 (one launch over a stack of 128 experts, ids and row counts
      read on the card) on qwen3-moe's awq_int4 expert leaves (2048 x 768,
-     768 x 2048): grouped K1 at the decode step's 64 (row, expert) pairs
-     of one row, at a 64-token chunk's 128 capacity buffers of 5 rows and
-     at 16 rows that name one expert (two items of its work list), grouped
-     K2 at a 128-token chunk's buffers of 10, both at 40 groups of 3 rows
-     over 8 experts (repeated experts, empty groups); rows past a group's
-     count must be exactly zero, and the bound counts the bytes of the
-     distinct experts the groups read; grouped K1 also against its plain
-     twin in its own association and order
-     (``packed_gemv_grouped_ordered``), and the decode pairs launched again
-     one row's 8 pairs at a time (G = 8) must give each row bit for bit;
-     ptxas' register and spill report of grouped K1 (no spills);
+     768 x 2048), both run by one persistent body: grouped K1 at the
+     decode step's 64 (row, expert) pairs of one row, at a 64-token
+     chunk's 128 capacity buffers of 5 rows and at 16 rows that name one
+     expert (two items of its work list), grouped K2 at the buffers of a
+     128-, 256- and 512-token chunk (10, 20, 40 rows), both at 40 groups
+     of 3 rows over 8 experts (repeated experts, empty groups); rows past
+     a group's count must be exactly zero, and the bound counts the bytes
+     of the distinct experts the groups read; every grouped case also
+     against its plain twin in the body's association and order
+     (``packed_gemv_grouped_ordered``); the decode pairs launched again
+     one row's 8 pairs at a time (G = 8), and the 128-token chunk's live
+     rows launched again one row a group (M = 1, grouped K1), must give
+     each row bit for bit; ptxas' register and spill report of the grouped
+     body's instantiations (no spills);
   2b. the weight quantizer: ``quantize_weights`` (mxfp4, fp8) on the card
      against the same function on the CPU, words and scales bit for bit,
      on starcoder2's widest leaf (6144 x 24576) and on a leaf whose every
@@ -195,9 +198,9 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, gqa_decode_attention)
 from repro_torch.kernels.packed_matmul import (  # noqa: E402
-    gemv_plan, grouped_gemv_plan, packed_gemv, packed_gemv_grouped,
-    packed_gemv_grouped_ordered, packed_grouped_plain, packed_matmul,
-    packed_matmul_grouped, packed_matmul_plain)
+    gemv_plan, grouped_fragments, grouped_gemv_plan, packed_gemv,
+    packed_gemv_grouped, packed_gemv_grouped_ordered, packed_grouped_plain,
+    packed_matmul, packed_matmul_grouped, packed_matmul_plain)
 from repro_torch.kernels.w8a8_matmul import (  # noqa: E402
     w8a8_matmul, w8a8_matmul_plain)
 from repro_torch.kernels.xtramac_mac import (  # noqa: E402
@@ -435,20 +438,22 @@ RAGGED_LEAVES = [("awq_int4", 64, 1000), ("awq_int4", 8, 1022),
 # (2048 x 768) and down (768 x 2048); grouped cases (label, G, M, rows a
 # group holds, expert ids): the decode step's pairs (8 rows x top-8, M = 1,
 # every pair one row), a 64-token chunk's capacity buffers (128 x C = 5,
-# K1) and a 128-token chunk's (128 x C = 10, K2), each buffer holding 0-C
-# rows; 16 pairs of one expert (two items of grouped K1's work list); and
-# 40 groups of M = 3 over 8 experts (repeated pairs, empty groups), through
-# K1 and K2
+# K1) and a 128-, 256- and 512-token chunk's (128 x C = 10, 20, 40, K2),
+# each buffer holding 0-C rows; 16 pairs of one expert (two items of
+# grouped K1's work list); and 40 groups of M = 3 over 8 experts (repeated
+# pairs, empty groups), through K1 and K2
 QWEN3_EXPERTS, QWEN3_TOP_K, QWEN3_ROWS = 128, 8, 8
 QWEN3_EXPERT_SHAPES = [(2048, 768), (768, 2048)]
 GROUPED_CASES = [("decode", QWEN3_ROWS * QWEN3_TOP_K, 1),
                  ("prefill64", QWEN3_EXPERTS, 5),
                  ("prefill128", QWEN3_EXPERTS, 10),
+                 ("prefill256", QWEN3_EXPERTS, 20),
+                 ("prefill512", QWEN3_EXPERTS, 40),
                  ("one_expert16", 16, 1),
                  ("repeats", 40, 3)]
-# grouped K1 against its twin in its own order: the same products and
-# folds, with only the tensor cores' order inside a fold's x @ codes and
-# the fold's fused multiply-add not replayed (f32 rounding)
+# the grouped body against its twin in its own order: the same products
+# and folds, with only the tensor cores' order inside a fold's x @ codes
+# and the fold's fused multiply-add not replayed (f32 rounding)
 ORDERED_RTOL, ORDERED_ATOL = 1e-4, 1e-5
 # K = 4100 (not a multiple of 16): the int8 kernel's 4-byte copy body
 W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
@@ -712,8 +717,7 @@ def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
         "bound_ms": b, "bound_by": by, "bound_bytes": moved}
     del sel
     what = f"{name} {label} G={g} M={m} K={k} N={n}"
-    if name == "packed_gemv_grouped":
-        case.update(grouped_gemv_checks(what, label, fn, args, got))
+    case.update(grouped_order_checks(what, label, fn, args, got))
     log(json.dumps(case))
     require(ok, f"{what}: max |err| {err}")
     require(zeros, f"{what}: rows past a group's count are not zero")
@@ -721,12 +725,14 @@ def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
     return case
 
 
-def grouped_gemv_checks(what, label, fn, args, got):
-    """Grouped K1 beyond the plain version: against its twin in its own
-    order of sums (``packed_gemv_grouped_ordered``), and, for the decode
+def grouped_order_checks(what, label, fn, args, got):
+    """The grouped body beyond the plain version: against its twin in its
+    own order of sums (``packed_gemv_grouped_ordered``); for the decode
     pairs, each row's 8 pairs launched alone (G = 8) equal to the same rows
-    of the G = 64 launch bit for bit (the order is the leaf's, so
-    batch-mates move no sum)."""
+    of the G = 64 launch bit for bit; for the 128-token chunk's buffers
+    (grouped K2, items of 16 rows), each live row launched alone in a group
+    of one row (grouped K1, items of 8) equal to its row bit for bit (the
+    order is the leaf's, so neither batch-mates nor M move a sum)."""
     x, packed, scales, scheme, experts, rows = args
     ordered = packed_gemv_grouped_ordered(*args)
     torch.cuda.synchronize()
@@ -747,6 +753,18 @@ def grouped_gemv_checks(what, label, fn, args, got):
         require(same, f"{what}: rows launched 8 pairs at a time differ from "
                       "the G = 64 launch")
         out["rows_alone_bit_equal"] = same
+    if label == "prefill128":
+        live = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < rows[:, None]).nonzero()
+        alone = packed_gemv_grouped(
+            x[live[:, 0], live[:, 1]][:, None], packed, scales, scheme,
+            experts[live[:, 0]],
+            torch.ones(len(live), dtype=torch.int32, device=x.device))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(alone[:, 0], got[live[:, 0], live[:, 1]]))
+        require(same, f"{what}: live rows launched one a group at M = 1 "
+                      "differ from the M = 10 launch")
+        out["rows_at_m1_bit_equal"] = same
     return out
 
 
@@ -2403,17 +2421,20 @@ def check_path_launches(path: str, launches, formats=None,
 
 # ---------------------------------------------------------------------------
 def grouped_gemv_registers(ptxas_log: str) -> None:
-    """ptxas' register and spill report of grouped K1's instantiations
-    (``packed_matmul.cu`` built with ``-Xptxas=-v``): no spills."""
+    """ptxas' register and spill report of the grouped body's
+    instantiations (``packed_matmul.cu`` built with ``-Xptxas=-v``): 3
+    formats x 2 stage heights x 2 K-warp splits x each item height (8, 16,
+    32 rows), no spills."""
     report = {fn: r for fn, r in build.ptxas_report(ptxas_log).items()
               if "grouped_gemv_kernel" in fn}
     log(json.dumps({"grouped_gemv_ptxas": report}))
-    require(len(report) == 12, f"grouped K1: {len(report)} instantiations "
-                               "in ptxas' report, not 12 (3 formats x 2 "
-                               "stage heights x 2 unit widths)")
+    want = 12 * len({grouped_fragments(m) for m in (1, 16, 17)})
+    require(len(report) == want, f"grouped body: {len(report)} "
+                                 f"instantiations in ptxas' report, not "
+                                 f"{want}")
     for fn, r in report.items():
         require(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0,
-                f"grouped K1 {fn}: spills {r}")
+                f"grouped body {fn}: spills {r}")
 
 
 def nvidia_smi() -> str:

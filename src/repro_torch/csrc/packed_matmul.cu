@@ -43,13 +43,12 @@
 // multiplying its own M rows of x by the leaf of expert expert[g].  Expert
 // ids and row counts are read on the device, so the host neither learns
 // which experts hold tokens nor launches per expert; a group's rows past
-// rows[g] are written as zeros.  packed_matmul_grouped (grouped K2) is K2
-// with a grid axis over the groups: a group with no rows reads no weight
-// byte, and every (group, row) result is the one the ungrouped kernel
-// gives that row.  packed_gemv_grouped (grouped K1, M <= 8) is a body of
-// its own (below): it merges the rows that name one expert, so a decode
-// step's repeated experts are read once per item, and walks the work
-// persistently with whole-tile TMA copies.
+// rows[g] are written as zeros.  Every grouped launch, decode pairs and
+// capacity buffers of any height alike (grouped K1 at M <= 8, grouped K2
+// past it), runs one persistent body (grouped_gemv_kernel, below): it
+// merges the rows that name one expert into items, so an expert's words
+// are read once per item, and walks the work with whole-tile TMA copies,
+// summing in an order fixed by the leaf alone.
 //
 // C interface: every entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError().
@@ -60,6 +59,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 namespace {
 
 enum Format { INT4 = 0, FP4_E2M1 = 1, FP8_E4M3 = 2 };
@@ -67,19 +68,15 @@ enum Format { INT4 = 0, FP4_E2M1 = 1, FP8_E4M3 = 2 };
 template <int FMT> struct FormatBits { static constexpr int value = 4; };
 template <> struct FormatBits<FP8_E4M3> { static constexpr int value = 8; };
 
-// The expert grouping of a grouped launch (unused by the ungrouped
-// instantiations): group g multiplies x rows [g M, g M + M) by the words
-// and scales of expert expert[g] into output rows [g M, g M + M), of which
-// its first rows[g] hold data.  Grouped K2 runs grid axis z over the
-// groups (times its K splits, split-major); grouped K1 reads expert and
-// rows into its work list.
+// The expert grouping of a grouped launch: group g multiplies x rows
+// [g M, g M + M) by the words and scales of expert expert[g] into output
+// rows [g M, g M + M), of which its first rows[g] hold data; the grouped
+// body reads expert and rows into its work list.
 struct ExpertGroups {
   const int32_t* expert;   // [G] expert of each group, in [0, n_experts)
   const int32_t* rows;     // [G] rows of each group that hold data (<= M)
   int n_groups;            // G
   int n_experts;           // experts in the leaf's stack
-  long long w_stride;      // int32 words of one expert
-  long long s_stride;      // f32 scales of one expert
 };
 
 // Group gi's expert (trapping on an id outside the stack, which would
@@ -251,18 +248,13 @@ __device__ __forceinline__ void decode_pairs(
 // itself when there is one split).  x rows are ldx apart (ldx % 8 == 0,
 // zero past K); vec: N % 4 == 0 and w, scales 16-byte aligned; fold_mode:
 // when a group's f32 partial is scaled into the sum (FoldMode).
-//
-// GROUPED: blockIdx.z = split * G + g, and out is [splits][G][M][N]; the
-// block moves x, the weights and the scales to group g's and loads only
-// its rows that hold data (rows[g]); an m-tile past them writes zeros and
-// reads nothing.
-template <int FMT, int MT, int NT, bool GROUPED>
+template <int FMT, int MT, int NT>
 __global__ void __launch_bounds__(kMmThreads, 2)
 packed_mma_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                   const int32_t* __restrict__ w,
                   const float* __restrict__ scales, float* __restrict__ out,
                   int M, int K, int N, int group, int k_per_split, int vec,
-                  int fold_mode, ExpertGroups eg) {
+                  int fold_mode) {
   using T = MmTile<FMT, MT, NT>;
   constexpr int PER = T::PER, UNIT = MmFmt<FMT>::UNIT;
   constexpr int BM = T::BM, BN = T::BN, XLD = T::XLD, WLD = T::WLD;
@@ -276,23 +268,7 @@ packed_mma_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   float* o = out + static_cast<size_t>(blockIdx.z) * M * N;
-  int split = blockIdx.z, rows = M;   // rows of x that hold data
-  if constexpr (GROUPED) {
-    const int gi = blockIdx.z % eg.n_groups;
-    const int e = group_expert(eg, gi);
-    split = blockIdx.z / eg.n_groups;
-    rows = group_rows(eg, gi, M);
-    x += static_cast<size_t>(gi) * M * ldx;
-    w += e * eg.w_stride;
-    scales += e * eg.s_stride;
-    if (m0 >= rows) {                  // no data in this tile: zeros
-      for (int c = tid; c < BM * BN; c += kMmThreads) {
-        const int row = m0 + c / BN, col = n0 + c % BN;
-        if (row < M && col < N) o[static_cast<size_t>(row) * N + col] = 0.f;
-      }
-      return;
-    }
-  }
+  const int split = blockIdx.z, rows = M;   // rows of x that hold data
   const int kbeg = split * k_per_split;
   const int kend = min(K, kbeg + k_per_split);
   const int kwend = kend / PER;       // K and split ends are whole words
@@ -493,42 +469,38 @@ cudaError_t set_smem_attributes(Kernel* kernel, int smem,
   return e;
 }
 
-template <int FMT, int MT, int NT, bool GROUPED>
+template <int FMT, int MT, int NT>
 cudaError_t launch_mma(const __nv_bfloat16* x, int ldx, const int32_t* w,
                        const float* scales, float* out, int M, int K, int N,
                        int group, int k_per_split, int splits, int vec,
-                       const ExpertGroups& eg, cudaStream_t stream) {
+                       cudaStream_t stream) {
   using T = MmTile<FMT, MT, NT>;
   const int fold_mode = group == K ? kFoldEnd
                         : group == kMmBK ? kFoldStage
                         : group == MmFmt<FMT>::UNIT ? kFoldUnit : -1;
-  const long long gz = static_cast<long long>(splits) * eg.n_groups;
-  if (fold_mode < 0 || gz < 1 || gz > 65535) return cudaErrorInvalidValue;
+  if (fold_mode < 0 || splits < 1 || splits > 65535)
+    return cudaErrorInvalidValue;
   static bool ready[kMaxDevices] = {};
-  cudaError_t e = set_smem_attributes(packed_mma_kernel<FMT, MT, NT, GROUPED>,
+  cudaError_t e = set_smem_attributes(packed_mma_kernel<FMT, MT, NT>,
                                       T::SMEM, ready);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM,
-            static_cast<unsigned>(gz));
-  packed_mma_kernel<FMT, MT, NT, GROUPED>
-      <<<grid, kMmThreads, T::SMEM, stream>>>(x, ldx, w, scales, out, M, K,
-                                              N, group, k_per_split, vec,
-                                              fold_mode, eg);
+  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
+  packed_mma_kernel<FMT, MT, NT><<<grid, kMmThreads, T::SMEM, stream>>>(
+      x, ldx, w, scales, out, M, K, N, group, k_per_split, vec, fold_mode);
   return cudaGetLastError();
 }
 
 // m_tiles: 16-row tiles of the block (1 or 4), n_tiles: 64-column tiles
-template <int FMT, bool GROUPED>
+template <int FMT>
 cudaError_t launch_mma_fmt(const __nv_bfloat16* x, int ldx, const int32_t* w,
                            const float* scales, float* out, int M, int K,
                            int N, int group, int m_tiles, int n_tiles,
                            int k_per_split, int splits, int vec,
-                           const ExpertGroups& eg, cudaStream_t s) {
+                           cudaStream_t s) {
 #define MMA_CASE(MTL, NTL)                                                   \
   if (m_tiles == MTL && n_tiles == NTL)                                      \
-    return launch_mma<FMT, 2 * MTL, NTL, GROUPED>(                           \
-        x, ldx, w, scales, out, M, K, N, group, k_per_split, splits, vec,    \
-        eg, s);
+    return launch_mma<FMT, 2 * MTL, NTL>(x, ldx, w, scales, out, M, K, N,    \
+                                         group, k_per_split, splits, vec, s);
   MMA_CASE(1, 1) MMA_CASE(4, 1) MMA_CASE(4, 2)
 #undef MMA_CASE
   return cudaErrorInvalidValue;
@@ -920,103 +892,131 @@ int gemv_entry(const void* x, int ldx, const void* w, const void* scales,
 }
 
 // ---------------------------------------------------------------------------
-// Expert-grouped GEMV (grouped K1), 1 <= M <= 8 rows a group: a body of its
-// own, persistent, over a work list built on the device.  It replaces the
-// Pallas kernel's body as the reference reaches it through jax.vmap over
-// the experts (repro/models/moe.py:_expert_ffn, lines 92-110: every
-// decode (row, expert) pair and every small capacity buffer of a prefill
-// chunk, one launch per expert leaf).  What bounds it on the H100: the
-// bytes of the distinct experts' words and scales (3.35 TB/s; at most 16
-// flops a weight byte at M <= 8, far below the tensor cores' ~295).
+// Expert-grouped K1 / K2: one persistent body over a work list built on
+// the device, for groups of any height M.  It replaces the Pallas kernel's
+// body as the reference reaches it through jax.vmap over the experts
+// (repro/models/moe.py:_expert_ffn, lines 92-110: every decode (row,
+// expert) pair and every capacity buffer of a prefill chunk, one launch
+// per expert leaf).  What bounds it on the H100: the bytes of the distinct
+// experts' words and scales (3.35 TB/s).  The math does not: even a
+// 512-token chunk's buffers of 40 rows do ~2 x 40 flops a 4-bit code, ~160
+// a weight byte, under the ~295 at which the bf16 tensor cores bind.
 //
 // Work list.  Every block reads expert[G] and rows[G] once and builds the
 // same list in shared memory: the (group, row) sources that hold data,
 // sorted by expert (stable: group, then row, order), cut into items of at
-// most 8 sources of one expert (an expert of n rows takes ceil(n / 8)
-// items, an expert with none takes none).  A unit of work is an item's 32
-// columns (64 on leaves of N >= 1536) over the whole of K, numbered
-// item-major, so the units of one expert are adjacent; an expert's words
-// are read once per item, not once per group.  The sources of an item are
-// the 8 columns of the mma's B operand, so merging groups into an item
-// changes no row's sum: each output element is its own dot product.  Rows
-// past rows[g] are written as zeros.
+// most R = 8 NF sources of one expert (an expert of n rows takes ceil(n /
+// R) items, an expert with none takes none).  NF, the n8 fragments of the
+// mma's B operand an item fills, grows with M: 1 at M <= 8 (grouped K1),
+// 2 or 4 past it.  A unit of work is an item's U = 32 CW columns over the
+// whole of K, numbered item-major, so the units of one expert are adjacent;
+// an expert's words are read once per item, not once per group.  The
+// sources of an item are the columns of the mma's B operand, so merging
+// groups into an item changes no row's sum: each output element is its
+// own dot product.  Rows past rows[g] are written as zeros.
 //
-// Walk.  Two blocks per SM (kGkBlocksPerSm), block b taking units b, b +
-// grid, ...: the grid is one wave, no block waits on another, and the
+// Walk.  Block b takes units b, b + grid, ...: the grid is one wave (two
+// blocks an SM at NF = 1, one past it), no block waits on another, and the
 // blocks in flight read one expert's neighbouring tiles (taking units from
-// a counter in device memory instead measured no faster).  Warp 4 is the
-// producer: for each ring stage of a unit it waits for a free slot, writes
-// the stage's unit to shared memory and issues, from its lanes at once,
-// Tensor Memory Accelerator copies of the words' SR-row x 32-column boxes
-// (a tensor map over the stack viewed as [E K / per, N] words, 128-byte
-// rows swizzled), one of the stage's scale rows (a map over [E K / group,
-// N]) and a bulk copy of each source's x slice.  Warps 0-3 are the
-// consumers: CW column boxes by KW = 4 / CW chunks of the stage's rows,
-// each running K1's decode and mma.sync (m16n8k16, the rows as B) on its
-// chunk, then freeing the slot.  At a unit's end a column's KW warps' sums
-// meet in shared memory and are added in warp order.  The ring holds 256
-// word rows of a unit (32 KB of 32-column words), so ~64 KB a SM are in
-// flight and the next unit's first stages load while the current one is
-// summed and stored.  The int4 decode spends one lop3 a code pair (mask,
-// sign flip and bf16 offset together), the swizzled box gives each thread
-// its 16 bytes in one load, and a whole chunk runs without a branch.
+// a counter in device memory instead measured no faster).  The last warp
+// is the producer: for each ring stage of a unit it waits for a free slot,
+// writes the stage's unit to shared memory and issues, from its lanes at
+// once, Tensor Memory Accelerator copies of the words' SR-row x 32-column
+// boxes (a tensor map over the stack viewed as [E K / per, N] words,
+// 128-byte rows swizzled), one of the stage's scale rows (a map over [E K /
+// group, N], a box U wide) and a bulk copy of each source's x slice.  The
+// other warps are the consumers: CW column boxes by the leaf's KW K chunks
+// of the stage's rows (KW = 4, or 2 on leaves of N >= 1536), warp (cw, kw)
+// running K1's decode on its chunk of box cw and one mma.sync (m16n8k16,
+// the rows as B) a fragment for each decoded tile, then freeing the slot.
+// At a unit's end the K warps past the first hand their sums to it through
+// shared memory, and it adds them in warp order and stores.  The int4
+// decode spends one lop3 a code pair (mask, sign flip and bf16 offset
+// together), the swizzled box gives each thread its 16 bytes in one load,
+// and a whole chunk runs without a branch.
 //
-// Why: K1's body with a grid axis over the groups (the first grouped
-// form) moved ~1.25 TB/s of requested bytes whatever they were: dropping
-// the repeated experts, or reading 64 distinct ones, left its time as it
-// was, and a deeper ring did not help.  Persistent forms that split K
-// across blocks spent 2-4 us of each unit in the cross-block sum (an
-// acquire-release counter, then the partials), starving their rings; here
-// no unit waits on another block.  Without its math the kernel takes
-// 2-12 % less time, without its copies 10-25 % less
-// (launch/grouped_ablation.py): the copies bind, the math close behind,
-// over ~11 us of fixed cost (launch, the work list, one unit's chain).
+// Why the wide items and units: x crosses L2 once per unit, the words once
+// per item, so at R rows an item and U columns a unit x moves ~4 R / U
+// bytes through L2 per byte of words (4-bit codes), and each item decodes
+// its expert's words once per row of fragments it fills.  Items of 8 rows
+// in units of 32 columns (grouped K1's form) read and decode a 40-row
+// expert's words 5 times and move x as many bytes again; items of 32 rows
+// in units of 64 (N < 1536) or 128 columns over 8 consumer warps, one
+// block an SM, read them twice and x ~1-2x of them (12 warps, a third
+// wider, measured 2-10 % faster but spill at the 128 registers a thread
+// ptxas gives 416 threads).  Past M ~20 the consumers' issue rate binds as
+// much as the copies (launch/grouped_ablation.py), so a chunk runs one
+// branch-free loop per count of fragments that hold sources.  K1's body
+// with a grid axis over the groups (the first grouped forms, K1's and
+// K2's) moved ~1.25 TB/s of requested bytes whatever they were;
+// persistent forms that split K across blocks spent 2-4 us of each unit
+// in the cross-block sum (PERF.md holds the measurements).
 //
 // Order.  Fixed by the leaf alone (kernels/packed_matmul.py:
 // grouped_gemv_plan): a warp folds scale x partial every min(group, chunk)
 // of K, in K order (a per-channel scale multiplies the warp's whole sum
-// once), and a column's output is its warps' sums added in order.  So a
-// row's output does not depend on what shares its launch.
+// once), and a column's output is its K warps' sums added in order.
+// Neither NF nor CW changes which warp sums which K or how, so a row's
+// output does not depend on what shares its launch, nor on M.
 // kernels/packed_matmul.py:packed_gemv_grouped_ordered is the plain twin
 // in this order.
 // ---------------------------------------------------------------------------
-constexpr int kGkConsumerWarps = 4;
-constexpr int kGkThreads = 32 * (kGkConsumerWarps + 1);
-constexpr int kGkRingRows = 256;              // word rows the ring holds
-constexpr int kGkBlocksPerSm = 2;
+constexpr int kGkRingRows = 256;              // NF = 1: word rows the ring holds
+constexpr int kGkBlocksPerSm = 2;             // NF = 1: blocks an SM
+constexpr int kGwWarps = 8;                   // NF > 1: consumer warps
+constexpr int kGwMidFrags = 2;                // NF at 9 <= M <= 16 (else 4)
+constexpr int kGwRingBytes = 160 * 1024;      // NF > 1: bytes the ring holds
 constexpr int kGkMaxExperts = 512;
 constexpr int kGkMaxSources = 6144;           // G x M of one launch, at most
 constexpr int kGkCols = 32;                   // a box's columns: 128 bytes
-constexpr int kGkRedBytes = 2 * kGkConsumerWarps * 8 * kGkCols * 4;
 constexpr int kGkMaxSmem = 225 * 1024;        // dynamic shared memory, at most
 
-// A unit is CW boxes of 32 columns (CW = 2 on wide leaves, N >= 1536,
-// where a unit of 32 columns would be short); a ring stage is SR word rows
-// of them (64, or 32 where K / per is an odd multiple of 32, so that no
-// stage runs past K).  The consumer warps split as CW column halves by KW
-// K chunks: a warp's chunk is SR / KW rows, 2-8 units of 4 rows.
-template <int FMT, int SR, int CW> struct GkFmt {
+// the K warps of a leaf of N columns: 4, or 2 where N >= 1536 (a unit's
+// columns then span two boxes at NF = 1)
+int gk_k_warps(int N) { return N >= 1536 ? 2 : 4; }
+
+// the n8 fragments of an item at M rows a group
+int gk_fragments(int M) { return M <= 8 ? 1 : M <= 16 ? kGwMidFrags : 4; }
+
+// a unit's 32-column boxes: 4 consumer warps at NF = 1, kGwWarps past it
+constexpr int gk_boxes(int kw, int nf) {
+  return (nf == 1 ? 4 : kGwWarps) / kw;
+}
+
+// A form of the body: a ring stage is SR word rows (64, or 32 where K / per
+// is an odd multiple of 32, so that no stage runs past K) of CW boxes; the
+// consumer warps split as CW column boxes by KW K chunks (a warp's chunk
+// is SR / KW rows, 2-8 units of 4 rows); an item fills NF fragments.
+template <int FMT, int SR, int KW, int CW, int NF> struct GkFmt {
   static constexpr int PER = MmFmt<FMT>::PER, UNIT = 4 * PER;
-  static constexpr int KW = kGkConsumerWarps / CW;
+  static constexpr int WARPS = KW * CW;          // consumer warps
+  static constexpr int THREADS = 32 * (WARPS + 1);
+  static constexpr int BLOCKS = NF == 1 ? kGkBlocksPerSm : 1;
+  static constexpr int ROWS = 8 * NF;            // an item's sources
   static constexpr int CHUNK_ROWS = SR / KW;
   static constexpr int UNITS = CHUNK_ROWS / 4;  // units a warp's chunk holds
   static constexpr int CHUNK_K = CHUNK_ROWS * PER, STAGE_K = SR * PER;
-  static constexpr int STAGES = kGkRingRows / (SR * CW);
   static constexpr int BOX_BYTES = SR * kGkCols * 4;   // one box of words
   static constexpr int WORD_BYTES = CW * BOX_BYTES;
   // one source's x slice of a stage: STAGE_K bf16, rows padded by 64 / 32
   // bytes (K1's XPAD) so that the B-operand reads hit all banks
   static constexpr int X_PITCH = 2 * (STAGE_K + MmFmt<FMT>::XPAD);
-  static constexpr int X_BYTES = 8 * X_PITCH;
+  static constexpr int X_BYTES = ROWS * X_PITCH;
+  static constexpr int STAGES =
+      NF == 1 ? kGkRingRows / (SR * CW)
+              : kGwRingBytes / (WORD_BYTES + X_BYTES) > 2
+                    ? kGwRingBytes / (WORD_BYTES + X_BYTES) : 2;
+  // the sums the K warps past the first hand over at a unit's end
+  static constexpr int RED_BYTES = (KW - 1) * CW * NF * 8 * 32 * 4;
   static_assert(BOX_BYTES % 1024 == 0, "the words' swizzle atoms");
 };
 
 // Scale rows a stage's box holds: none for one group (group == K); the
 // stage's groups where a group divides the stage's K (and divides, or is a
 // multiple of, a warp's chunk); one where the stage lies in one group.
-// -1: a group grouped K1 does not take.
-int gk_scale_rows(int per, int sr, int cw, int K, int group) {
-  const int unit = 4 * per, chunk = sr * cw / kGkConsumerWarps * per;
+// -1: a group the body does not take.
+int gk_scale_rows(int per, int sr, int kw, int K, int group) {
+  const int unit = 4 * per, chunk = sr / kw * per;
   const int stage = sr * per;
   if (group == K) return 0;
   if (group % unit == 0 && stage % group == 0 &&
@@ -1029,9 +1029,6 @@ int gk_scale_rows(int per, int sr, int cw, int K, int group) {
 // the stage rows of a leaf of K / per word rows (kernels/packed_matmul.py:
 // grouped_gemv_plan)
 int gk_stage_rows(int rows) { return rows % 64 != 0 && rows % 32 == 0 ? 32 : 64; }
-
-// the 32-column boxes of a unit on a leaf of N columns
-int gk_col_boxes(int N) { return N >= 1536 ? 2 : 1; }
 
 // The codes of one word as bf16 pairs, as decode_split_pairs gives them;
 // int4 with each nibble pair's mask, sign flip and offset in one lop3:
@@ -1062,7 +1059,7 @@ struct GkStage {
   int k0;          // first K of the stage
   int last;        // the unit's last stage
   int expert, nsrc, src0;   // the item: expert, sources [src0, src0 + nsrc)
-  int tile;        // the unit's 32 columns: [32 tile, 32 tile + 32)
+  int tile;        // the unit's U columns: [U tile, U tile + U)
 };
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -1081,8 +1078,9 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+template <int WARPS>
 __device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kGkConsumerWarps) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * WARPS) : "memory");
 }
 
 // x: [G M, ldx] bf16 rows, ldx a multiple
@@ -1091,31 +1089,33 @@ __device__ __forceinline__ void consumer_sync() {
 // per-channel scale only); scale_rows: the scale map's box height.  The
 // words' map swizzles 128-byte rows (16-byte chunk j of row r lands at
 // chunk j ^ (r % 8)).
-template <int FMT, int SR, int CW>
-__global__ void __launch_bounds__(kGkThreads, kGkBlocksPerSm)
+template <int FMT, int SR, int KW, int CW, int NF>
+__global__ void __launch_bounds__(GkFmt<FMT, SR, KW, CW, NF>::THREADS,
+                                  GkFmt<FMT, SR, KW, CW, NF>::BLOCKS)
 grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
                     const __grid_constant__ CUtensorMap smap,
                     const __nv_bfloat16* __restrict__ x, int ldx,
                     const float* __restrict__ scales, float* __restrict__ out,
                     ExpertGroups eg, int M, int K, int N, int group,
                     int scale_rows) {
-  using F = GkFmt<FMT, SR, CW>;
+  using F = GkFmt<FMT, SR, KW, CW, NF>;
   constexpr int PER = F::PER, UNIT = F::UNIT, CHUNK_K = F::CHUNK_K;
   constexpr int STAGE_K = F::STAGE_K, S = F::STAGES, COLS = CW * kGkCols;
+  constexpr int NW = F::WARPS, R = F::ROWS, THREADS = F::THREADS;
   extern __shared__ unsigned char gk_raw[];
-  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ __align__(8) uint64_t full[S], empty[S], red_free;
   __shared__ GkStage info[S];
   __shared__ int n_units;
 
   // the ring (1024-byte aligned): words, scale rows, x slices a stage;
-  // then the warps' sums at a unit's end; then the work list
+  // then the K warps' sums at a unit's end; then the work list
   const int scale_bytes = (scale_rows * COLS * 4 + 127) / 128 * 128;
   const int stage_bytes =
       (F::WORD_BYTES + scale_bytes + F::X_BYTES + 1023) / 1024 * 1024;
   unsigned char* ring = gk_raw + ((1024 - (smem_u32(gk_raw) & 1023)) & 1023);
   float* red = reinterpret_cast<float*>(ring + S * stage_bytes);
   const int E = eg.n_experts, G = eg.n_groups;
-  int* s_cnt = reinterpret_cast<int*>(red) + kGkRedBytes / 4;   // [E]
+  int* s_cnt = reinterpret_cast<int*>(red) + F::RED_BYTES / 4;   // [E]
   int* s_base = s_cnt + E;          // [E + 1] first source of each expert
   int* s_ibase = s_base + E + 1;    // [E + 1] first item of each expert
   int* s_grp = s_ibase + E + 1;     // [G] expert | rows << 16 of each group
@@ -1128,28 +1128,29 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kGkConsumerWarps);
+      mbar_init(&empty[s], NW);
     }
+    mbar_init(&red_free, CW);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < E; i += kGkThreads) s_cnt[i] = 0;
+  for (int i = tid; i < E; i += THREADS) s_cnt[i] = 0;
   __syncthreads();
   // each group's expert and rows, once; rows per expert
-  for (int g = tid; g < G; g += kGkThreads) {
+  for (int g = tid; g < G; g += THREADS) {
     const int e = group_expert(eg, g), r = group_rows(eg, g, M);
     s_grp[g] = e | r << 16;
     if (r > 0) atomicAdd(&s_cnt[e], r);
   }
   __syncthreads();
   if (warp == 0) {
-    // exclusive scans of sources and items (ceil(n / 8)) over the experts:
+    // exclusive scans of sources and items (ceil(n / R)) over the experts:
     // lane l takes experts [l per, (l + 1) per)
     const int per = (E + 31) / 32;
     const int lo = min(E, lane * per), hi = min(E, lo + per);
     int src = 0, items = 0;
     for (int e = lo; e < hi; ++e) {
       src += s_cnt[e];
-      items += (s_cnt[e] + 7) / 8;
+      items += (s_cnt[e] + R - 1) / R;
     }
     int src_in = src, items_in = items;
 #pragma unroll
@@ -1165,7 +1166,7 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
       s_base[e] = src;
       s_ibase[e] = items;
       src += n;
-      items += (n + 7) / 8;
+      items += (n + R - 1) / R;
       s_cnt[e] = 0;               // from here: sources placed so far
     }
     if (lane == 31) {
@@ -1202,14 +1203,14 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
       }
       __syncwarp();
     }
-  } else if (warp < kGkConsumerWarps) {
+  } else if (warp < NW) {
     // rows past each group's count: zeros (groups shared out over blocks)
     for (int g = blockIdx.x; g < G; g += gridDim.x) {
       const int r = s_grp[g] >> 16;
       float4* dst = reinterpret_cast<float4*>(
           out + (static_cast<size_t>(g) * M + r) * N);
       const int n4 = (M - r) * N / 4;
-      for (int i = tid - 32; i < n4; i += 32 * (kGkConsumerWarps - 1))
+      for (int i = tid - 32; i < n4; i += 32 * (NW - 1))
         dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
@@ -1217,7 +1218,7 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
   const int total = n_units;
   const int nst = (K + STAGE_K - 1) / STAGE_K;
 
-  if (warp == kGkConsumerWarps) {
+  if (warp == NW) {
     // ---- producer: units blockIdx.x, + gridDim.x, ... ----
     // a stage's scale rows: scale_rows a stage where a group divides the
     // stage's K, else one row every group / STAGE_K stages
@@ -1234,8 +1235,8 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
         if (s_ibase[mid] <= item) lo = mid; else hi = mid;
       }
       const int e = lo;
-      const int src0 = s_base[e] + 8 * (item - s_ibase[e]);
-      const int nsrc = min(8, s_base[e + 1] - src0);
+      const int src0 = s_base[e] + R * (item - s_ibase[e]);
+      const int nsrc = min(R, s_base[e + 1] - src0);
       const int wrow0 = e * (K / PER);
       int srow = e * groups_k, in_row = 0;  // the stage's first scale row
       for (int s = 0; s < nst; ++s, ++q) {
@@ -1250,21 +1251,23 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
                                           scale_rows * COLS * 4);
         }
         __syncwarp();
-        // lanes [0, CW): the word boxes; lane CW: the scale rows; then one
-        // lane a source's x
-        if (lane < CW) {
-          tma_tile(st + lane * F::BOX_BYTES, &wmap,
-                   tile * COLS + lane * kGkCols, wrow0 + k0 / PER,
-                   &full[slot]);
-        } else if (lane == CW) {
-          if (!fold_end)
-            tma_tile(st + F::WORD_BYTES, &smap, tile * COLS, srow,
+        // copies [0, CW): the word boxes; CW: the scale rows; then one a
+        // source's x
+        for (int c = lane; c < CW + 1 + nsrc; c += 32) {
+          if (c < CW) {
+            tma_tile(st + c * F::BOX_BYTES, &wmap,
+                     tile * COLS + c * kGkCols, wrow0 + k0 / PER,
                      &full[slot]);
-        } else if (lane < CW + 1 + nsrc) {
-          const int j = lane - CW - 1;
-          bulk_copy(st + F::WORD_BYTES + scale_bytes + j * F::X_PITCH,
-                    x + static_cast<size_t>(s_src[src0 + j]) * ldx + k0,
-                    xbytes, &full[slot]);
+          } else if (c == CW) {
+            if (!fold_end)
+              tma_tile(st + F::WORD_BYTES, &smap, tile * COLS, srow,
+                       &full[slot]);
+          } else {
+            const int j = c - CW - 1;
+            bulk_copy(st + F::WORD_BYTES + scale_bytes + j * F::X_PITCH,
+                      x + static_cast<size_t>(s_src[src0 + j]) * ldx + k0,
+                      xbytes, &full[slot]);
+          }
         }
         if (++in_row == stages_per_row) {
           in_row = 0;
@@ -1285,7 +1288,7 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
   // ---- consumers: warp (cw, kw) takes word rows [kw, kw + 1) SR / KW of
   // box cw ----
   const int g = lane >> 2, t = lane & 3;
-  const int kw = warp % F::KW, cw = warp / F::KW;
+  const int kw = warp % KW, cw = warp / KW;
   // units a fold spans: one, or the whole chunk
   const int fold_units = fold_end ? F::UNITS : min(group, CHUNK_K) / UNIT;
   const int fold_shift = __ffs(fold_units) - 1;   // 1, 2 or 4 units
@@ -1293,13 +1296,19 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
   // in one group)
   const int my_srow =
       fold_end || STAGE_K % group != 0 ? 0 : CHUNK_K * kw / group;
-  float acc[2][4], part[2][4];
+  // fragment f, thread (g, t): sources 8 f + 2 t, 8 f + 2 t + 1 at columns
+  // 4 g .. 4 g + 3 of box cw (A row g: column 4g + 2j, r 0-1; row g + 8:
+  // column 4g + 2j + 1, r 2-3)
+  float acc[NF][2][4], part[NF][2][4];
   // thread (g, t): word row kw SR / KW + 4 u + t, columns 4 g .. 4 g + 3
   // of box cw: the row's 16-byte chunk g, swizzled to chunk g ^ ((4 u + t)
   // % 8); eight lanes meet in two banks' worth of rows at most
   const int wrow = cw * F::BOX_BYTES + (F::CHUNK_ROWS * kw + t) * kGkCols * 4;
   const int wch0 = (g ^ t) * 16, wch1 = (g ^ (4 + t)) * 16;
-  int p = 0;                  // the warps' sums' buffer of this unit
+  // box cw's sums from K warps 1 .. KW - 1, handed to warp 0: [warp][the
+  // NF x 8 accumulators][lane]
+  float* box_red = red + cw * (KW - 1) * (NF * 8 * 32) + lane;
+  int n_done = 0;             // units this warp has finished
   for (int q = 0;; ++q) {
     const int slot = q % S;
     mbar_wait(&full[slot], (q / S) & 1);
@@ -1307,79 +1316,108 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
     if (in.unit < 0) break;
     if (in.k0 == 0) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[j][r] = part[j][r] = 0.f;
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[f][j][r] = part[f][j][r] = 0.f;
     }
     const unsigned char* st = ring + slot * stage_bytes;
     const unsigned char* ws = st + wrow;
     const float* sw = reinterpret_cast<const float*>(st + F::WORD_BYTES) +
                       my_srow * COLS + cw * kGkCols + 4 * g;
+    // fragment f's B column g: source 8 f + g's slice
     const auto* xk = reinterpret_cast<const __nv_bfloat16*>(
                          st + F::WORD_BYTES + scale_bytes + g * F::X_PITCH) +
                      CHUNK_K * kw + PER * t;
     const int chunk_k0 = in.k0 + CHUNK_K * kw;
-    const bool xg = g < in.nsrc;       // B column g holds a source
 
-    // unit u of the chunk: 4 word rows, 4 PER of K
-    auto unit = [&](int u) {
-      const uint4 wv = *reinterpret_cast<const uint4*>(
-          ws + u * 4 * kGkCols * 4 + (u % 2 ? wch1 : wch0));
-      uint32_t xb[PER / 2];
-      if constexpr (PER == 8) {
-        const uint4 v = xg ? *reinterpret_cast<const uint4*>(xk + u * UNIT)
-                           : make_uint4(0u, 0u, 0u, 0u);
-        xb[0] = __byte_perm(v.x, v.z, 0x5410);
-        xb[1] = __byte_perm(v.x, v.z, 0x7632);
-        xb[2] = __byte_perm(v.y, v.w, 0x5410);
-        xb[3] = __byte_perm(v.y, v.w, 0x7632);
-      } else {
-        const uint2 v = xg ? *reinterpret_cast<const uint2*>(xk + u * UNIT)
-                           : make_uint2(0u, 0u);
-        xb[0] = __byte_perm(v.x, v.y, 0x5410);
-        xb[1] = __byte_perm(v.x, v.y, 0x7632);
-      }
-      uint32_t d[4][PER / 2];
-      gk_decode<FMT>(wv.x, d[0]);
-      gk_decode<FMT>(wv.y, d[1]);
-      gk_decode<FMT>(wv.z, d[2]);
-      gk_decode<FMT>(wv.w, d[3]);
+    // the chunk's units and folds over the item's NA fragments that hold
+    // sources (a chunk's loop has no branch between fragments)
+    auto run = [&](auto active) {
+      constexpr int NA = decltype(active)::value;
+      // unit u of the chunk: 4 word rows, 4 PER of K
+      auto unit = [&](int u) {
+        const uint4 wv = *reinterpret_cast<const uint4*>(
+            ws + u * 4 * kGkCols * 4 + (u % 2 ? wch1 : wch0));
+        uint32_t d[4][PER / 2];
+        gk_decode<FMT>(wv.x, d[0]);
+        gk_decode<FMT>(wv.y, d[1]);
+        gk_decode<FMT>(wv.z, d[2]);
+        gk_decode<FMT>(wv.w, d[3]);
 #pragma unroll
-      for (int jj = 0; jj < PER / 4; ++jj)
+        for (int f = 0; f < NA; ++f) {
+          const bool xg = 8 * f + g < in.nsrc;   // B column g: a source
+          const __nv_bfloat16* xf = xk + f * 4 * F::X_PITCH + u * UNIT;
+          uint32_t xb[PER / 2];
+          if constexpr (PER == 8) {
+            const uint4 v = xg ? *reinterpret_cast<const uint4*>(xf)
+                               : make_uint4(0u, 0u, 0u, 0u);
+            xb[0] = __byte_perm(v.x, v.z, 0x5410);
+            xb[1] = __byte_perm(v.x, v.z, 0x7632);
+            xb[2] = __byte_perm(v.y, v.w, 0x5410);
+            xb[3] = __byte_perm(v.y, v.w, 0x7632);
+          } else {
+            const uint2 v = xg ? *reinterpret_cast<const uint2*>(xf)
+                               : make_uint2(0u, 0u);
+            xb[0] = __byte_perm(v.x, v.y, 0x5410);
+            xb[1] = __byte_perm(v.x, v.y, 0x7632);
+          }
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          mma_bf16(part[j], d[2 * j][2 * jj], d[2 * j + 1][2 * jj],
-                   d[2 * j][2 * jj + 1], d[2 * j + 1][2 * jj + 1],
-                   xb[2 * jj], xb[2 * jj + 1]);
-    };
-    // the fold that ends with unit u: the i-th of the chunk takes row
-    // srow + i of the slot's scale box
-    auto fold = [&](int u) {
-      if (fold_end || ((u + 1) & (fold_units - 1)) != 0) return;
-      const float4 s4 = *reinterpret_cast<const float4*>(
-          sw + (((u + 1) >> fold_shift) - 1) * COLS);
-      const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+          for (int jj = 0; jj < PER / 4; ++jj)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[j][r] = fmaf(sc[2 * j + (r >> 1)], part[j][r], acc[j][r]);
-          part[j][r] = 0.f;
+            for (int j = 0; j < 2; ++j)
+              mma_bf16(part[f][j], d[2 * j][2 * jj], d[2 * j + 1][2 * jj],
+                       d[2 * j][2 * jj + 1], d[2 * j + 1][2 * jj + 1],
+                       xb[2 * jj], xb[2 * jj + 1]);
         }
+      };
+      // the fold that ends with unit u: the i-th of the chunk takes row
+      // srow + i of the slot's scale box
+      auto fold = [&](int u) {
+        if (fold_end || ((u + 1) & (fold_units - 1)) != 0) return;
+        const float4 s4 = *reinterpret_cast<const float4*>(
+            sw + (((u + 1) >> fold_shift) - 1) * COLS);
+        const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int f = 0; f < NA; ++f)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              acc[f][j][r] = fmaf(sc[2 * j + (r >> 1)], part[f][j][r],
+                                  acc[f][j][r]);
+              part[f][j][r] = 0.f;
+            }
+      };
+      if (chunk_k0 + CHUNK_K <= K) {     // the whole chunk lies in K
+#pragma unroll
+        for (int u = 0; u < F::UNITS; ++u) {
+          unit(u);
+          fold(u);
+        }
+      } else if (chunk_k0 < K) {         // K ends in the chunk
+#pragma unroll
+        for (int u = 0; u < F::UNITS; ++u) {
+          const int span0 = chunk_k0 + (u + 1 - fold_units) * UNIT;
+          if (chunk_k0 + u * UNIT < K) unit(u);
+          if (span0 < K) fold(u);        // spans past K hold nothing
+        }
+      }
     };
-    if (chunk_k0 + CHUNK_K <= K) {     // the whole chunk lies in K
-#pragma unroll
-      for (int u = 0; u < F::UNITS; ++u) {
-        unit(u);
-        fold(u);
-      }
-    } else if (chunk_k0 < K) {         // K ends in the chunk
-#pragma unroll
-      for (int u = 0; u < F::UNITS; ++u) {
-        const int span0 = chunk_k0 + (u + 1 - fold_units) * UNIT;
-        if (chunk_k0 + u * UNIT < K) unit(u);
-        if (span0 < K) fold(u);        // spans past K hold nothing
-      }
+    // fragments past the item's sources hold zeros and are skipped
+    const int na = (in.nsrc + 7) / 8;
+    if constexpr (NF == 1) {
+      run(std::integral_constant<int, 1>{});
+    } else if constexpr (NF == 2) {
+      if (na == 1) run(std::integral_constant<int, 1>{});
+      else run(std::integral_constant<int, 2>{});
+    } else {
+      static_assert(NF == 4, "items of 8, 16 or 32 sources");
+      if (na == 1) run(std::integral_constant<int, 1>{});
+      else if (na == 2) run(std::integral_constant<int, 2>{});
+      else if (na == 3) run(std::integral_constant<int, 3>{});
+      else run(std::integral_constant<int, 4>{});
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);
@@ -1394,41 +1432,51 @@ grouped_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
           : make_float4(0.f, 0.f, 0.f, 0.f);
       const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[j][r] = sc[2 * j + (r >> 1)] * part[j][r];
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[f][j][r] = sc[2 * j + (r >> 1)] * part[f][j][r];
     }
-    // this warp's sums of sources 2t, 2t + 1 at columns 4g .. 4g + 3
-    float* mine = red + ((p * kGkConsumerWarps + warp) * 8 + 2 * t) * kGkCols +
-                  4 * g;
-    *reinterpret_cast<float4*>(mine) =
-        make_float4(acc[0][0], acc[0][2], acc[1][0], acc[1][2]);
-    *reinterpret_cast<float4*>(mine + kGkCols) =
-        make_float4(acc[0][1], acc[0][3], acc[1][1], acc[1][3]);
-    consumer_sync();
-    // thread i: source i / 16, 2 CW columns from 2 CW (i % 16) (in box
-    // c2 / 32)
-    const int row = tid >> 4, c2 = 2 * CW * (tid & 15);
-    const float* sums =
-        red + ((p * kGkConsumerWarps + c2 / kGkCols * F::KW) * 8 + row) *
-                  kGkCols + c2 % kGkCols;
-    float sum[2 * CW];
+    if (kw > 0) {    // hand the sums over once the last unit's are read
+      if (n_done > 0) mbar_wait(&red_free, (n_done - 1) & 1);
 #pragma unroll
-    for (int i = 0; i < 2 * CW; ++i) sum[i] = sums[i];
+      for (int f = 0; f < NF; ++f)
 #pragma unroll
-    for (int w = 1; w < F::KW; ++w)
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < 2 * CW; ++i) sum[i] += sums[w * 8 * kGkCols + i];
-    const int oc = in.tile * COLS + c2;
-    if (row < in.nsrc && oc < N) {
-      float* o = out + static_cast<size_t>(s_src[in.src0 + row]) * N + oc;
-      if constexpr (CW == 2)
-        *reinterpret_cast<float4*>(o) = make_float4(sum[0], sum[1], sum[2],
-                                                    sum[3]);
-      else
-        *reinterpret_cast<float2*>(o) = make_float2(sum[0], sum[1]);
+          for (int r = 0; r < 4; ++r)
+            box_red[((kw - 1) * NF * 8 + (f * 2 + j) * 4 + r) * 32] =
+                acc[f][j][r];
     }
-    p ^= 1;
+    consumer_sync<NW>();
+    ++n_done;
+    if (kw > 0) continue;
+#pragma unroll
+    for (int w = 0; w < KW - 1; ++w)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[f][j][r] += box_red[(w * NF * 8 + (f * 2 + j) * 4 + r) * 32];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&red_free);
+    if (col >= N) continue;
+    // sources 8 f + 2 t and 8 f + 2 t + 1: columns col .. col + 3
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 8 * f + 2 * t + h;
+        if (row < in.nsrc)
+          *reinterpret_cast<float4*>(
+              out + static_cast<size_t>(s_src[in.src0 + row]) * N + col) =
+              make_float4(acc[f][0][h], acc[f][0][2 + h], acc[f][1][h],
+                          acc[f][1][2 + h]);
+      }
   }
 }
 
@@ -1445,34 +1493,36 @@ int sm_count() {
   return n;
 }
 
-template <int FMT, int SR, int CW>
+template <int FMT, int SR, int KW, int NF>
 cudaError_t launch_grouped_gemv(const CUtensorMap& wmap,
                                 const CUtensorMap& smap,
                                 const __nv_bfloat16* x, int ldx,
                                 const float* scales, float* out,
                                 const ExpertGroups& eg, int M, int K, int N,
                                 int group, cudaStream_t stream) {
-  using F = GkFmt<FMT, SR, CW>;
-  const int scale_rows = gk_scale_rows(F::PER, SR, CW, K, group);
+  constexpr int CW = gk_boxes(KW, NF);
+  using F = GkFmt<FMT, SR, KW, CW, NF>;
+  const int scale_rows = gk_scale_rows(F::PER, SR, KW, K, group);
   const int sources = eg.n_groups * M;
   const int stage_bytes = (F::WORD_BYTES +
                            (scale_rows * CW * kGkCols * 4 + 127) / 128 * 128 +
                            F::X_BYTES + 1023) / 1024 * 1024;
   const long long smem =
-      1024 + static_cast<long long>(F::STAGES) * stage_bytes + kGkRedBytes +
+      1024 + static_cast<long long>(F::STAGES) * stage_bytes + F::RED_BYTES +
       4ll * (3 * eg.n_experts + 2 + eg.n_groups + sources);
-  if (M < 1 || M > 8 || N % 4 != 0 || ldx % 8 != 0 ||
+  if (M < 1 || N % 4 != 0 || ldx % 8 != 0 ||
       ldx < (K + F::UNIT - 1) / F::UNIT * F::UNIT || scale_rows < 0 ||
       scale_rows > 256 || eg.n_experts > kGkMaxExperts ||
       sources > kGkMaxSources || smem > kGkMaxSmem)
     return cudaErrorInvalidValue;
   static bool ready[kMaxDevices] = {};
-  cudaError_t e = set_smem_attributes(grouped_gemv_kernel<FMT, SR, CW>,
+  cudaError_t e = set_smem_attributes(grouped_gemv_kernel<FMT, SR, KW, CW, NF>,
                                       kGkMaxSmem, ready);
   if (e != cudaSuccess) return e;
-  grouped_gemv_kernel<FMT, SR, CW><<<kGkBlocksPerSm * sm_count(), kGkThreads,
-                                     static_cast<int>(smem), stream>>>(
-      wmap, smap, x, ldx, scales, out, eg, M, K, N, group, scale_rows);
+  grouped_gemv_kernel<FMT, SR, KW, CW, NF>
+      <<<F::BLOCKS * sm_count(), F::THREADS, static_cast<int>(smem),
+         stream>>>(wmap, smap, x, ldx, scales, out, eg, M, K, N, group,
+                   scale_rows);
   return cudaGetLastError();
 }
 
@@ -1483,13 +1533,17 @@ cudaError_t launch_grouped_gemv_fmt(const CUtensorMap& wmap,
                                     const float* scales, float* out,
                                     const ExpertGroups& eg, int M, int K,
                                     int N, int group, cudaStream_t stream) {
-  const bool sr32 = gk_stage_rows(K / MmFmt<FMT>::PER) == 32;
-  const bool cw2 = gk_col_boxes(N) == 2;
-#define GK_CASE(SR, CW)                                                      \
-  if (sr32 == (SR == 32) && cw2 == (CW == 2))                                \
-    return launch_grouped_gemv<FMT, SR, CW>(wmap, smap, x, ldx, scales, out, \
-                                            eg, M, K, N, group, stream);
-  GK_CASE(32, 1) GK_CASE(32, 2) GK_CASE(64, 1) GK_CASE(64, 2)
+  const int sr = gk_stage_rows(K / MmFmt<FMT>::PER);
+  const int kw = gk_k_warps(N), nf = gk_fragments(M);
+#define GK_CASE(SR, KW, NF)                                                  \
+  if (sr == SR && kw == KW && nf == NF)                                      \
+    return launch_grouped_gemv<FMT, SR, KW, NF>(wmap, smap, x, ldx, scales,  \
+                                                out, eg, M, K, N, group,     \
+                                                stream);
+#define GK_FORMS(NF) \
+  GK_CASE(32, 4, NF) GK_CASE(32, 2, NF) GK_CASE(64, 4, NF) GK_CASE(64, 2, NF)
+  GK_FORMS(1) GK_FORMS(kGwMidFrags) GK_FORMS(4)
+#undef GK_FORMS
 #undef GK_CASE
   return cudaErrorInvalidValue;
 }
@@ -1541,14 +1595,10 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// The ungrouped K2 launches: one group, no expert stack.
-constexpr ExpertGroups kOneGroup = {nullptr, nullptr, 1, 1, 0, 0};
-
-template <bool GROUPED>
 int matmul_entry(const void* x, int ldx, const void* w, const void* scales,
                  void* partial, void* out, int M, int K, int N, int fmt,
                  int group, int m_tiles, int n_tiles, int k_per_split,
-                 int splits, int vec, const ExpertGroups& eg, void* stream) {
+                 int splits, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const int32_t*>(w);
@@ -1557,42 +1607,41 @@ int matmul_entry(const void* x, int ldx, const void* w, const void* scales,
   cudaError_t e;
   switch (fmt) {
     case INT4:
-      e = launch_mma_fmt<INT4, GROUPED>(xb, ldx, wp, sp, dst, M, K, N, group,
-                                        m_tiles, n_tiles, k_per_split, splits,
-                                        vec, eg, s);
+      e = launch_mma_fmt<INT4>(xb, ldx, wp, sp, dst, M, K, N, group, m_tiles,
+                               n_tiles, k_per_split, splits, vec, s);
       break;
     case FP4_E2M1:
-      e = launch_mma_fmt<FP4_E2M1, GROUPED>(xb, ldx, wp, sp, dst, M, K, N,
-                                            group, m_tiles, n_tiles,
-                                            k_per_split, splits, vec, eg, s);
+      e = launch_mma_fmt<FP4_E2M1>(xb, ldx, wp, sp, dst, M, K, N, group,
+                                   m_tiles, n_tiles, k_per_split, splits,
+                                   vec, s);
       break;
     case FP8_E4M3:
-      e = launch_mma_fmt<FP8_E4M3, GROUPED>(xb, ldx, wp, sp, dst, M, K, N,
-                                            group, m_tiles, n_tiles,
-                                            k_per_split, splits, vec, eg, s);
+      e = launch_mma_fmt<FP8_E4M3>(xb, ldx, wp, sp, dst, M, K, N, group,
+                                   m_tiles, n_tiles, k_per_split, splits,
+                                   vec, s);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess || splits == 1) return e;
-  const int mn = eg.n_groups * M * N;
+  const int mn = M * N;
   splitk_reduce_kernel<<<(mn + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), mn, splits);
   return cudaGetLastError();
 }
 
 // The expert grouping of a stack of n_experts leaves [K/per, N] words and
-// [K/group, N] scales each; null for a format or group that does not tile K.
+// [K/group, N] scales each; false for a format or group that does not tile
+// K.
 bool expert_groups(const void* expert, const void* rows, int n_groups,
-                   int n_experts, int K, int N, int fmt, int group,
+                   int n_experts, int K, int fmt, int group,
                    ExpertGroups* eg) {
   const int per = fmt == FP8_E4M3 ? 4 : 8;
   if (fmt < INT4 || fmt > FP8_E4M3 || K % per || group < 1 || K % group ||
       n_experts < 1)
     return false;
   *eg = {static_cast<const int32_t*>(expert), static_cast<const int32_t*>(rows),
-         n_groups, n_experts, static_cast<long long>(K / per) * N,
-         static_cast<long long>(K / group) * N};
+         n_groups, n_experts};
   return true;
 }
 
@@ -1620,19 +1669,20 @@ int packed_gemv(const void* x, int ldx, const void* w, const void* scales,
                     group, k_per_split, splits, stream);
 }
 
-// The tensor maps packed_gemv_grouped reads a stack through, written to
-// maps (2 x 128 bytes): the words w int32 [E, K/per, N] as [E K/per, N] in
-// boxes of a ring stage's rows (64, or 32) x 32 columns, 128-byte
-// swizzled, then the scales f32 [E, K/group, N] as
-// [E K/group, N] in boxes of the scale rows a ring stage holds (zeros for
-// one group, group == K, whose scales the kernel reads itself).  0, the
-// CUresult of cuTensorMapEncodeTiled, or -1 (no driver entry point, or a
-// scale group grouped K1 does not take).
+// The tensor maps packed_gemv_grouped reads a stack through at M rows a
+// group, written to maps (2 x 128 bytes): the words w int32 [E, K/per, N]
+// as [E K/per, N] in boxes of a ring stage's rows (64, or 32) x 32
+// columns, 128-byte swizzled, then the scales f32 [E, K/group, N] as
+// [E K/group, N] in boxes of the scale rows a ring stage holds by a unit's
+// columns (zeros for one group, group == K, whose scales the kernel reads
+// itself).  0, the CUresult of cuTensorMapEncodeTiled, or -1 (no driver
+// entry point, or a scale group the grouped body does not take).
 int grouped_gemv_tensor_maps(const void* w, const void* scales, int E, int K,
-                             int N, int fmt, int group, void* maps) {
+                             int N, int M, int fmt, int group, void* maps) {
   const int per = fmt == FP8_E4M3 ? 4 : 8;
-  const int sr = gk_stage_rows(K / per), cw = gk_col_boxes(N);
-  const int scale_rows = gk_scale_rows(per, sr, cw, K, group);
+  const int sr = gk_stage_rows(K / per), kw = gk_k_warps(N);
+  const int cw = gk_boxes(kw, gk_fragments(M));
+  const int scale_rows = gk_scale_rows(per, sr, kw, K, group);
   if (scale_rows < 0 || scale_rows > 256) return -1;
   CUtensorMap m[2];
   memset(m, 0, sizeof m);
@@ -1647,20 +1697,20 @@ int grouped_gemv_tensor_maps(const void* w, const void* scales, int E, int K,
   return err;
 }
 
-// K1 over G groups of an expert stack (the persistent grouped body): x bf16
-// [G M, ldx] (ldx % 8 == 0 and at least K rounded up to 32 for 4-bit codes
-// / 16 for fp8, zero past K, 16-byte aligned); maps from
-// grouped_gemv_tensor_maps; scales the stack's f32 [E, K/group, N]; expert
-// int32 [G] (each in [0, E)) and rows int32 [G] on the device; out f32
-// [G, M, N].  1 <= M <= 8, N % 4 == 0, E <= 512, G M <= 6144; group K, or
-// as kernels/packed_matmul.py:grouped_gemv_plan takes it; fmt as
-// packed_gemv's.
+// Grouped K1 / K2 over G groups of M rows of an expert stack (the
+// persistent grouped body): x bf16 [G M, ldx] (ldx % 8 == 0 and at least K
+// rounded up to 32 for 4-bit codes / 16 for fp8, zero past K, 16-byte
+// aligned); maps from grouped_gemv_tensor_maps at the same M; scales the
+// stack's f32 [E, K/group, N]; expert int32 [G] (each in [0, E)) and rows
+// int32 [G] on the device; out f32 [G, M, N].  M >= 1, N % 4 == 0, E <=
+// 512, G M <= 6144; group K, or as kernels/packed_matmul.py:
+// grouped_gemv_plan takes it; fmt as packed_gemv's.
 int packed_gemv_grouped(const void* x, int ldx, const void* maps,
                         const void* scales, void* out, const void* expert,
                         const void* rows, int G, int E, int M, int K, int N,
                         int fmt, int group, void* stream) {
   ExpertGroups eg;
-  if (!expert_groups(expert, rows, G, E, K, N, fmt, group, &eg))
+  if (!expert_groups(expert, rows, G, E, K, fmt, group, &eg))
     return cudaErrorInvalidValue;
   CUtensorMap m[2];
   memcpy(m, maps, sizeof m);
@@ -1694,28 +1744,8 @@ int packed_matmul(const void* x, int ldx, const void* w, const void* scales,
                   void* partial, void* out, int M, int K, int N, int fmt,
                   int group, int m_tiles, int n_tiles, int k_per_split,
                   int splits, int vec, void* stream) {
-  return matmul_entry<false>(x, ldx, w, scales, partial, out, M, K, N, fmt,
-                             group, m_tiles, n_tiles, k_per_split, splits, vec,
-                             kOneGroup, stream);
-}
-
-// K2 over G groups of an expert stack: x bf16 [G, M, ldx]; w, scales,
-// expert and rows as packed_gemv_grouped's; partial f32 [splits, G, M, N]
-// scratch (unused for one split); out f32 [G, M, N]; vec: N % 4 == 0 and
-// 16-byte aligned stacks (every expert's slice is then aligned too).
-// Other arguments as packed_matmul's.
-int packed_matmul_grouped(const void* x, int ldx, const void* w,
-                          const void* scales, void* partial, void* out,
-                          const void* expert, const void* rows, int G, int E,
-                          int M, int K, int N, int fmt, int group,
-                          int m_tiles, int n_tiles, int k_per_split,
-                          int splits, int vec, void* stream) {
-  ExpertGroups eg;
-  if (!expert_groups(expert, rows, G, E, K, N, fmt, group, &eg))
-    return cudaErrorInvalidValue;
-  return matmul_entry<true>(x, ldx, w, scales, partial, out, M, K, N, fmt,
-                            group, m_tiles, n_tiles, k_per_split, splits, vec,
-                            eg, stream);
+  return matmul_entry(x, ldx, w, scales, partial, out, M, K, N, fmt, group,
+                      m_tiles, n_tiles, k_per_split, splits, vec, stream);
 }
 
 }  // extern "C"

@@ -9,11 +9,12 @@ all of its input rows with one per-tensor scale (``ops.py:327``: under
 W8A8 a row's output depends on the other rows of the call, by design);
 ``grouped_quantized_matmul`` is the counterpart of the reference's
 ``jax.vmap(apply_linear)`` over an expert stack (``repro/models/moe.py``):
-one launch of the expert-grouped GEMV kernel for M <= 8 rows a group, of
-the expert-grouped matmul kernel otherwise (the same ``ops.py:336``
-predicate); ``fused_decode_attention`` routes Sq == 1 attention to the
-flash-decode kernel.  Dense bf16 leaves (the ``lm_head``) are not kernels:
-``models/common.apply_linear`` gives them to ``torch.matmul``.
+one launch of the persistent expert-grouped body, counted as grouped K1
+for M <= 8 rows a group and as grouped K2 past it (routed by M alone: the
+same ``ops.py:336`` predicate); ``fused_decode_attention`` routes Sq == 1
+attention to the flash-decode kernel.  Dense bf16 leaves (the ``lm_head``)
+are not kernels: ``models/common.apply_linear`` gives them to
+``torch.matmul``.
 
 ``plain=True`` computes the same function with the kernels' plain versions
 on any device — the reference the on-card checks hold the kernels to.
@@ -81,8 +82,9 @@ def grouped_quantized_matmul(x: torch.Tensor, leaf, expert_idx: torch.Tensor,
     """x [G, M, K] @ the expert stack ``leaf`` (a ``QLinear`` of words [E,
     K/per, N] and scales [E, K/G, N]) -> [G, M, N] in ``out_dtype``: group
     g through expert ``expert_idx[g]`` ([G] int32 on x's device), rows
-    past ``rows[g]`` ([G] int32) zero.  One launch: grouped K1 for M <= 8
-    where K1 takes the leaf, grouped K2 otherwise."""
+    past ``rows[g]`` ([G] int32) zero.  One launch of the grouped body:
+    grouped K1 for M <= 8, grouped K2 past it; a stack the body does not
+    take raises (``packed_matmul.grouped_refusal``)."""
     scheme = getattr(leaf, "scheme", None)      # None: a dense bf16 stack
     if scheme is None or not scheme.packed:
         raise NotImplementedError(
@@ -92,9 +94,7 @@ def grouped_quantized_matmul(x: torch.Tensor, leaf, expert_idx: torch.Tensor,
     args = (x3, leaf.packed, leaf.scales, scheme, expert_idx, rows)
     if plain:
         out = packed_grouped_plain(*args)
-    elif linear_route(scheme, x3.shape[1], x3.shape[2], leaf.packed.shape[2],
-                      leaf.packed.data_ptr(),
-                      leaf.scales.data_ptr()) == "gemv":
+    elif x3.shape[1] <= _pm.GEMV_MAX_M:
         out = packed_gemv_grouped(*args)
     else:
         out = packed_matmul_grouped(*args)

@@ -21,17 +21,20 @@ The expert-grouped forms run one launch over a stack of expert leaves
 (words [E, K/per, N], scales [E, K/G, N]): group g of x [G, M, K] times
 expert ``expert_idx[g]``'s leaf, of which only the first ``rows[g]`` rows
 of x hold data (the rest come out zero) -> f32 [G, M, N].  Expert ids and
-row counts stay on the device.
-  * ``packed_gemv_grouped``   — grouped K1 (M <= 8: decode pairs and
-    small capacity buffers), a persistent body of its own that merges the
-    groups naming one expert into items of <= 8 rows (``grouped_work_list``
-    is its work list's twin) and sums in an order fixed by the leaf alone
-    (``grouped_gemv_plan``);
-  * ``packed_matmul_grouped`` — K2 per group (any M);
+row counts stay on the device.  Both wrappers launch one persistent body
+(``grouped_gemv_kernel``) that merges the groups naming one expert into
+items of <= 8, 16 or 32 rows by M (``grouped_fragments``;
+``grouped_work_list`` is its work list's twin) and sums in an order fixed
+by the leaf alone (``grouped_gemv_plan``), so a row's output is bit for
+bit the same whatever shares its launch and whatever M:
+  * ``packed_gemv_grouped``   — grouped K1: M <= 8 (decode pairs and
+    small capacity buffers);
+  * ``packed_matmul_grouped`` — grouped K2: any M (the route past 8 rows:
+    the capacity buffers of chunks of 104 tokens or more);
   * ``packed_grouped_plain``  — the same in plain torch: each group's
     expert dequantized to f32, then one batched f32 matmul;
-  * ``packed_gemv_grouped_ordered`` — plain torch in grouped K1's order
-    of sums.
+  * ``packed_gemv_grouped_ordered`` — plain torch in the grouped body's
+    order of sums, at any M.
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
 it launches its kernel (or raises).  ``launches`` counts kernel launches
@@ -68,8 +71,7 @@ _SIGNATURES = {
     "packed_gemv": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "packed_matmul": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "packed_gemv_grouped": [_P, _I] + [_P] * 5 + [_I] * 7 + [_P],
-    "grouped_gemv_tensor_maps": [_P, _P] + [_I] * 5 + [_P],
-    "packed_matmul_grouped": [_P, _I] + [_P] * 6 + [_I] * 12 + [_P],
+    "grouped_gemv_tensor_maps": [_P, _P] + [_I] * 6 + [_P],
 }
 GEMV_MAX_M = 8
 _GV_COLS = 128            # columns per GEMV block (4 warps x 32)
@@ -84,10 +86,14 @@ _GV_MAX_SPLITS = 32       # splits the plan aims at most for (the x-slice
                           # any number in order)
 # K1's dynamic shared memory, at most (csrc: kGvMaxSmem)
 _GV_MAX_SMEM = _GV_RING_BYTES + 2 * (_GV_X_ELEMS + GEMV_MAX_M * 32)
-# grouped K1: 4 consumer warps split each ring stage's word rows; one
-# launch takes at most 512 experts and 6144 rows of x (csrc:
-# kGkConsumerWarps, gk_stage_rows, kGkMaxExperts, kGkMaxSources)
+# the grouped body: 4 K warps split each ring stage's word rows (2 on
+# leaves of N >= 1536); 4 consumer warps at M <= 8, 8 past it; items of
+# 16 rows at 9 <= M <= 16, else 32 past 8; one launch takes at most 512
+# experts and 6144 rows of x (csrc: gk_k_warps, kGwWarps, kGwMidFrags,
+# gk_stage_rows, kGkMaxExperts, kGkMaxSources)
 _GK_WARPS = 4
+_GK_WIDE_WARPS = 8
+_GK_MID_FRAGS = 2
 _GK_MAX_EXPERTS = 512
 _GK_MAX_ROWS = 6144
 _MM_BK = 128              # matmul K per pipeline stage
@@ -240,17 +246,17 @@ def packed_gemv_ordered(x: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def matmul_plan(m: int, k: int, n: int, bits: int,
-                groups: int = 1) -> Tuple[int, int, int, int]:
+def matmul_plan(m: int, k: int, n: int,
+                bits: int) -> Tuple[int, int, int, int]:
     """(m_tiles, n_tiles, k_per_split, splits) for K2 on ``bits``-bit
     codes: blocks of 16 m_tiles rows (1 for M <= 16, else 4) by 64 n_tiles
     columns (2 for 4-bit codes in 64-row blocks, whose tile of packed words
     is half as many bytes, else 1); K split in whole stages of 128, at
-    least 4 stages a split, while the grid (every group's blocks, for a
-    grouped launch) holds fewer than two blocks per SM (264)."""
+    least 4 stages a split, while the grid holds fewer than two blocks per
+    SM (264)."""
     mt = 1 if m <= 16 else 4
     nt = 2 if mt == 4 and bits == 4 else 1
-    blocks = -(-n // (64 * nt)) * -(-m // (16 * mt)) * groups
+    blocks = -(-n // (64 * nt)) * -(-m // (16 * mt))
     steps = -(-k // _MM_BK)
     splits = max(1, min(_TARGET_BLOCKS // blocks, steps // _MM_MIN_STEPS))
     kps = -(-steps // splits) * _MM_BK
@@ -354,8 +360,8 @@ def _gemv_launch_plan(m: int, k: int, n: int,
 
 
 def matmul_x_operand(x: torch.Tensor, multiple: int = 8) -> torch.Tensor:
-    """x as K2 loads it: rows a multiple of 8 bf16 long (grouped K1: of
-    its unit's K, ``multiple``) and 16-byte aligned, so that every copy is
+    """x as K2 loads it: rows a multiple of 8 bf16 long (the grouped body:
+    of its unit's K, ``multiple``) and 16-byte aligned, so that every copy is
     whole; a copy zero-padded along K where x is not (zeros add nothing)."""
     k = x.shape[1]
     if k % multiple == 0 and x.data_ptr() % 16 == 0:
@@ -475,28 +481,21 @@ def _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows, what):
     return _check_grouped(x, packed, scales, scheme, expert_idx, rows, what)
 
 
-def _grouped_x(x: torch.Tensor) -> torch.Tensor:
-    """x [G, M, K] as the grouped kernels load it: ``matmul_x_operand`` of
-    its [G M, K] rows (every group's rows then start 16-byte aligned)."""
-    g, m, k = x.shape
-    return matmul_x_operand(x.reshape(g * m, k))
-
-
 def grouped_gemv_plan(k: int, n: int,
                       scheme: QuantScheme) -> Tuple[int, int, int]:
-    """(stage_k, chunk_k, fold_k): grouped K1's order of sums, a function
-    of the leaf alone (never of G, M or the routing, so a row's output is
-    the same whatever shares its launch).  A unit (an item's 32 columns)
-    walks K in stages of stage_k (64 word rows, or 32 where K / per is an
-    odd multiple of 32, so that no stage runs past K); each of its 32 (or,
-    at N >= 1536, 64) columns' 4 (or 2) consumer warps takes chunk w
-    (chunk_k) of every stage and folds scale x partial every fold_k of K
-    in K order (fold_k = min(group, chunk_k); K for a per-channel scale,
-    which multiplies the warp's whole sum once); a column's output is its
-    warps' sums added in order, w0 + w1 + ...  Raises for a scale
-    group that is neither K, a multiple of stage_k, nor a divisor of
-    stage_k (in whole 4-word units) that divides or is a multiple of
-    chunk_k."""
+    """(stage_k, chunk_k, fold_k): the grouped body's order of sums, a
+    function of the leaf alone (never of G, M, the items' rows or the
+    routing, so a row's output is the same whatever shares its launch).  A
+    unit (an item's columns) walks K in stages of stage_k (64 word rows,
+    or 32 where K / per is an odd multiple of 32, so that no stage runs
+    past K); each of its columns' 4 (or, at N >= 1536, 2) K warps takes
+    chunk w (chunk_k) of every stage and folds scale x partial every
+    fold_k of K in K order (fold_k = min(group, chunk_k); K for a
+    per-channel scale, which multiplies the warp's whole sum once); a
+    column's output is its K warps' sums added in order, w0 + w1 + ...
+    Raises for a scale group that is neither K, a multiple of stage_k, nor
+    a divisor of stage_k (in whole 4-word units) that divides or is a
+    multiple of chunk_k."""
     per = codes_per_word(scheme.weight_bits)
     group = effective_group(scheme.group_size, k)
     rows = k // per
@@ -507,39 +506,60 @@ def grouped_gemv_plan(k: int, n: int,
     if not (group == k or group % stage == 0
             or (group % unit == 0 and stage % group == 0
                 and (chunk % group == 0 or group % chunk == 0))):
-        raise ValueError(f"packed_gemv_grouped: scale group {group} is "
-                         f"neither K, a multiple of {stage}, nor a divisor "
-                         f"of {stage} (in units of {unit}) that divides or "
-                         f"is a multiple of {chunk}")
+        raise ValueError(f"grouped body: scale group {group} of a "
+                         f"{k} x {n} leaf is neither K, a multiple of "
+                         f"{stage}, nor a divisor of {stage} (in units of "
+                         f"{unit}) that divides or is a multiple of {chunk}")
     return (stage_rows * per, chunk,
             k if group == k else min(group, chunk))
 
 
-def grouped_work_list(expert_idx: torch.Tensor, rows: torch.Tensor,
-                      m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of the work list grouped K1 builds on the card:
-    (item_expert [I], item_rows [I, 8]).  The sources — row g M + r of x
-    and of the output for each group g and r < rows[g] (clamped to [0, M])
+def grouped_fragments(m: int) -> int:
+    """The n8 fragments of the mma's B operand an item of the grouped body
+    fills at M rows a group (csrc: gk_fragments): 1 at M <= 8 (items of 8
+    rows, grouped K1), 2 at M <= 16, else 4 (items of 16 / 32 rows)."""
+    return 1 if m <= 8 else _GK_MID_FRAGS if m <= 16 else 4
+
+
+def grouped_unit(m: int, n: int) -> Tuple[int, int]:
+    """(rows R an item holds at most, columns U a unit spans) of the
+    grouped body at M rows a group on a leaf of N columns (csrc:
+    gk_fragments, gk_boxes): items of 8 rows in units of 32 (64 at N >=
+    1536) at M <= 8; past it items of 16 / 32 rows in units as wide as the
+    8 consumer warps' boxes, 32 columns each, over the leaf's K warps (64
+    / 128 columns)."""
+    k_warps = _GK_WARPS // (2 if n >= 1536 else 1)
+    nf = grouped_fragments(m)
+    warps = _GK_WARPS if nf == 1 else _GK_WIDE_WARPS
+    return 8 * nf, 32 * warps // k_warps
+
+
+def grouped_work_list(expert_idx: torch.Tensor, rows: torch.Tensor, m: int,
+                      r: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the work list the grouped body builds on the card:
+    (item_expert [I], item_rows [I, r]).  The sources — row g M + j of x
+    and of the output for each group g and j < rows[g] (clamped to [0, M])
     — sorted by expert, ties in (group, row) order, cut into items of at
-    most 8 sources of one expert (-1 pads an item's row list).  An expert
-    of n rows takes ceil(n / 8) items, an expert with none takes none."""
+    most r sources of one expert (r = 8 ``grouped_fragments(m)``; -1 pads
+    an item's row list).  An expert of n rows takes ceil(n / r) items, an
+    expert with none takes none."""
     e = expert_idx.detach().to("cpu", torch.int64)
-    r = rows.detach().to("cpu", torch.int64).clamp(0, m)
-    g = torch.arange(len(e)).repeat_interleave(r)
-    first = torch.cumsum(r, 0) - r
+    rr = rows.detach().to("cpu", torch.int64).clamp(0, m)
+    g = torch.arange(len(e)).repeat_interleave(rr)
+    first = torch.cumsum(rr, 0) - rr
     src = g * m + torch.arange(len(g)) - first[g]       # g M + row in group
     se = e[g]
     order = torch.sort(se, stable=True).indices
     src, se = src[order], se[order]
-    # rank within the expert's sources, then items of 8
+    # rank within the expert's sources, then items of r
     start = torch.searchsorted(se, se, right=False)
     rank = torch.arange(len(se)) - start
-    new_item = rank % 8 == 0
+    new_item = rank % r == 0
     item = torch.cumsum(new_item.to(torch.int64), 0) - 1
     n_items = int(new_item.sum())
     item_expert = se[new_item]
-    item_rows = torch.full((n_items, 8), -1, dtype=torch.int64)
-    item_rows[item, rank % 8] = src
+    item_rows = torch.full((n_items, r), -1, dtype=torch.int64)
+    item_rows[item, rank % r] = src
     return item_expert, item_rows
 
 
@@ -547,15 +567,15 @@ def packed_gemv_grouped_ordered(x: torch.Tensor, packed: torch.Tensor,
                                 scales: torch.Tensor, scheme: QuantScheme,
                                 expert_idx: torch.Tensor,
                                 rows: torch.Tensor) -> torch.Tensor:
-    """Plain torch in grouped K1's order (``grouped_gemv_plan``), row by
-    row (each row's ops the same whatever shares the call, so a row's
-    output is bit for bit the same alone or in any batch): warp w's sum
-    adds, in K order, the group scale times x_row @ codes (the codes as K1
-    decodes them to bf16, exact) over each fold of its chunks (a per-channel
-    scale times the sum of its chunks' products, once); the output is the
-    warps' sums added in order.  Rows past ``rows[g]`` are zero.  Only
-    the order inside one fold's x @ codes (the tensor cores') and the fused
-    multiply-add of a fold are not replayed."""
+    """Plain torch in the grouped body's order (``grouped_gemv_plan``), at
+    any M, row by row (each row's ops the same whatever shares the call,
+    so a row's output is bit for bit the same alone or in any batch): K
+    warp w's sum adds, in K order, the group scale times x_row @ codes (the
+    codes as K1 decodes them to bf16, exact) over each fold of its chunks
+    (a per-channel scale times the sum of its chunks' products, once); the
+    output is the warps' sums added in order.  Rows past ``rows[g]`` are
+    zero.  Only the order inside one fold's x @ codes (the tensor cores')
+    and the fused multiply-add of a fold are not replayed."""
     g, m, k = x.shape
     n = packed.shape[-1]
     group = effective_group(scheme.group_size, k)
@@ -594,102 +614,111 @@ _TENSOR_MAPS: Dict[tuple, ctypes.Array] = {}
 
 
 def _grouped_tensor_maps(lib, packed: torch.Tensor, scales: torch.Tensor,
-                         e: int, k: int, n: int, fmt: int,
+                         e: int, k: int, n: int, m: int, fmt: int,
                          group: int) -> ctypes.Array:
     """The TMA tensor maps of a stack (``grouped_gemv_tensor_maps``),
-    encoded once per leaf: a map holds no more than the addresses, shapes
-    and boxes of its key, so a cached one is right for any tensor there."""
-    key = (packed.data_ptr(), scales.data_ptr(), e, k, n, fmt, group)
+    encoded once per leaf and unit width (items of 8 rows, or wider): a
+    map holds no more than the addresses, shapes and boxes of its key, so
+    a cached one is right for any tensor there."""
+    wide = grouped_fragments(m) > 1
+    key = (packed.data_ptr(), scales.data_ptr(), e, k, n, fmt, group, wide)
     maps = _TENSOR_MAPS.get(key)
     if maps is None:
         maps = ctypes.create_string_buffer(256)
         err = lib.grouped_gemv_tensor_maps(packed.data_ptr(),
-                                           scales.data_ptr(), e, k, n, fmt,
-                                           group, maps)
+                                           scales.data_ptr(), e, k, n, m,
+                                           fmt, group, maps)
         if err != 0:
-            raise RuntimeError("packed_gemv_grouped: cuTensorMapEncodeTiled "
+            raise RuntimeError("grouped body: cuTensorMapEncodeTiled "
                                f"failed (CUresult {err})")
         _TENSOR_MAPS[key] = maps
     return maps
 
 
-def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
-                        scales: torch.Tensor, scheme: QuantScheme,
-                        expert_idx: torch.Tensor,
-                        rows: torch.Tensor) -> torch.Tensor:
-    """Grouped K1: x [G, M, K] bf16 with 1 <= M <= 8.  One launch (more
-    only past 6144 rows of x, each launch taking whole groups)."""
-    dims = _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows,
-                             "packed_gemv_grouped")
-    if dims is None:
-        return packed_grouped_plain(x, packed, scales, scheme, expert_idx,
-                                    rows)
-    g, e, m, k, n, group = dims
-    if not 1 <= m <= GEMV_MAX_M:
-        raise ValueError(f"packed_gemv_grouped takes 1 <= M <= {GEMV_MAX_M}, "
-                         f"got {m}")
-    if not gemv_takes(m, n, packed.data_ptr(), scales.data_ptr()):
-        raise ValueError("packed_gemv_grouped needs N % 4 == 0 and 16-byte "
-                         "aligned packed / scales (packed_matmul_grouped "
-                         "takes any)")
+def grouped_refusal(m: int, e: int, k: int, n: int, packed_ptr: int,
+                    scales_ptr: int, scheme: QuantScheme):
+    """Why the grouped body does not take a stack of ``e`` leaves of K x N
+    at M rows a group (None where it does): N % 4 != 0, words or scales not
+    16-byte aligned, more than 512 experts, or a scale group
+    ``grouped_gemv_plan`` refuses.  Shape arithmetic only."""
+    leaf = f"{e} experts of {k} x {n} ({scheme.name}) at M = {m}"
+    if n % 4 or packed_ptr % 16 or scales_ptr % 16:
+        return (f"the grouped body needs N % 4 == 0 and 16-byte aligned "
+                f"words and scales: {leaf}")
     if e > _GK_MAX_EXPERTS:
-        raise ValueError(f"packed_gemv_grouped takes at most "
-                         f"{_GK_MAX_EXPERTS} experts, got {e}")
-    grouped_gemv_plan(k, n, scheme)         # raises for a group it refuses
+        return (f"the grouped body takes at most {_GK_MAX_EXPERTS} "
+                f"experts: {leaf}")
+    try:
+        grouped_gemv_plan(k, n, scheme)
+    except ValueError as err:
+        return f"{err}: {leaf}"
+    return None
+
+
+def _grouped_launch(name: str, x: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, scheme: QuantScheme,
+                    expert_idx: torch.Tensor, rows: torch.Tensor,
+                    dims) -> torch.Tensor:
+    """Launch the grouped body for wrapper ``name``: one launch, more only
+    past 6144 rows of x (each launch taking whole groups)."""
+    g, e, m, k, n, group = dims
+    why = grouped_refusal(m, e, k, n, packed.data_ptr(), scales.data_ptr(),
+                          scheme)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     fmt = PACKED_FORMAT_IDS[scheme.weight_format]
     xk = matmul_x_operand(x.reshape(g * m, k),
                           4 * codes_per_word(scheme.weight_bits))
     out = torch.empty((g, m, n), dtype=torch.float32, device=x.device)
     lib = build.load("packed_matmul", _SIGNATURES)
-    step = _GK_MAX_ROWS // m
+    step = max(1, _GK_MAX_ROWS // m)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        maps = _grouped_tensor_maps(lib, packed, scales, e, k, n, fmt, group)
+        maps = _grouped_tensor_maps(lib, packed, scales, e, k, n, m, fmt,
+                                    group)
         for g0 in range(0, g, step):
             gs = min(step, g - g0)
             err = lib.packed_gemv_grouped(
                 xk[g0 * m:].data_ptr(), xk.shape[1], maps, scales.data_ptr(),
                 out[g0:].data_ptr(), expert_idx[g0:].data_ptr(),
                 rows[g0:].data_ptr(), gs, e, m, k, n, fmt, group, stream)
-            build.check(lib, "packed_gemv_grouped", err)
-            launches["packed_gemv_grouped"] += 1
-            format_launches["packed_gemv_grouped", scheme.weight_format] += 1
-            grouped_row_launches["packed_gemv_grouped", m] += 1
+            build.check(lib, f"{name} ({gs} groups of M = {m}, {e} experts "
+                             f"of {k} x {n})", err)
+            launches[name] += 1
+            format_launches[name, scheme.weight_format] += 1
+            grouped_row_launches[name, m] += 1
     return out
+
+
+def packed_gemv_grouped(x: torch.Tensor, packed: torch.Tensor,
+                        scales: torch.Tensor, scheme: QuantScheme,
+                        expert_idx: torch.Tensor,
+                        rows: torch.Tensor) -> torch.Tensor:
+    """Grouped K1: x [G, M, K] bf16 with 1 <= M <= 8, through the grouped
+    body in items of 8 rows."""
+    dims = _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows,
+                             "packed_gemv_grouped")
+    if dims is None:
+        return packed_grouped_plain(x, packed, scales, scheme, expert_idx,
+                                    rows)
+    if not 1 <= dims[2] <= GEMV_MAX_M:
+        raise ValueError(f"packed_gemv_grouped takes 1 <= M <= {GEMV_MAX_M}, "
+                         f"got {dims[2]} (packed_matmul_grouped takes any)")
+    return _grouped_launch("packed_gemv_grouped", x, packed, scales, scheme,
+                           expert_idx, rows, dims)
 
 
 def packed_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
                           scales: torch.Tensor, scheme: QuantScheme,
                           expert_idx: torch.Tensor,
                           rows: torch.Tensor) -> torch.Tensor:
-    """K2 over G groups: x [G, M, K] bf16, any M >= 1 and any N."""
+    """Grouped K2: x [G, M, K] bf16, any M >= 1 (the route past 8 rows),
+    through the grouped body in items of ``8 grouped_fragments(M)``
+    rows."""
     dims = _grouped_dispatch(x, packed, scales, scheme, expert_idx, rows,
                              "packed_matmul_grouped")
     if dims is None:
         return packed_grouped_plain(x, packed, scales, scheme, expert_idx,
                                     rows)
-    g, e, m, k, n, group = dims
-    _check_matmul_group(group, k, scheme, "packed_matmul_grouped")
-    mt, nt, kps, splits = matmul_plan(m, k, n, scheme.weight_bits, g)
-    if g * splits > 65535:
-        raise ValueError(f"packed_matmul_grouped: {g} groups x {splits} "
-                         "splits exceed the grid")
-    xk = _grouped_x(x)
-    vec = int(n % 4 == 0 and packed.data_ptr() % 16 == 0
-              and scales.data_ptr() % 16 == 0)
-    out = torch.empty((g, m, n), dtype=torch.float32, device=x.device)
-    partial = torch.empty((splits, g, m, n) if splits > 1 else (0,),
-                          dtype=torch.float32, device=x.device)
-    lib = build.load("packed_matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = lib.packed_matmul_grouped(
-            xk.data_ptr(), xk.shape[1], packed.data_ptr(), scales.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), expert_idx.data_ptr(),
-            rows.data_ptr(), g, e, m, k, n,
-            PACKED_FORMAT_IDS[scheme.weight_format], group, mt, nt, kps,
-            splits, vec, torch.cuda.current_stream().cuda_stream)
-    build.check(lib, "packed_matmul_grouped", err)
-    launches["packed_matmul_grouped"] += 1
-    format_launches["packed_matmul_grouped", scheme.weight_format] += 1
-    grouped_row_launches["packed_matmul_grouped", m] += 1
-    return out
+    return _grouped_launch("packed_matmul_grouped", x, packed, scales,
+                           scheme, expert_idx, rows, dims)

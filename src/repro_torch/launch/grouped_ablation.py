@@ -1,9 +1,10 @@
-"""What holds grouped K1 (``packed_gemv_grouped``) at its time: the kernel
-as built beside two variants of it, each timed with the L2 cache flushed
-by a 256 MB write (as ``chip_smoke.py`` and ``kernel_times.py`` flush it)
-and by a 256 MB read.
+"""What holds the persistent grouped body (``grouped_gemv_kernel``) at its
+time: the kernel as built beside two variants of it, each timed with the
+L2 cache flushed by a 256 MB write (as ``chip_smoke.py`` and
+``kernel_times.py`` flush it) and by a 256 MB read.
 
-  PYTHONPATH=src python -m repro_torch.launch.grouped_ablation
+  PYTHONPATH=src python -m repro_torch.launch.grouped_ablation \
+      [--cases prefill128,prefill512] [--lift-k1]
 
 Variants of ``csrc/packed_matmul.cu``, built apart into ``build/ablation/``
 and loaded in place of the wrappers' library (``kernel_times.
@@ -17,21 +18,27 @@ patched_library``):
 
 A write flush leaves the L2 full of dirty lines, which the timed call's
 reads evict and write back; a read flush leaves it clean, as a serving
-step mostly finds it.  Cases: ``kernel_times.py``'s grouped K1 cases (the
-decode step's 64 pairs and a 64-token chunk's buffers of 5 on qwen3-moe's
-two expert leaves).  Each time is the median of 20 calls (CUDA events).
-Prints one JSON line per case and the card's name and power limit.  Needs
-a CUDA card.
+step mostly finds it.  Cases: ``kernel_times.py``'s grouped cases on
+qwen3-moe's two expert leaves (``--cases`` picks some), each through the
+wrapper that runs it on the persistent body: ``packed_gemv_grouped`` at M
+<= 8; past it ``packed_matmul_grouped`` (in this tree the same body with
+items of 16 / 32 rows) or, with ``--lift-k1`` on an older tree, grouped K1
+with its M <= 8 cap lifted (items of 8 rows; ``kernel_times.py
+--lift-k1``).  Each time is the median of 20 calls (CUDA events).  Prints
+one JSON line per case and the card's name and power limit.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.packed_matmul import packed_gemv_grouped
+from repro_torch.kernels.packed_matmul import (packed_gemv_grouped,
+                                               packed_matmul_grouped)
 from repro_torch.launch import kernel_times as KT
 from repro_torch.models.common import QuantMaker
 
@@ -45,17 +52,28 @@ VARIANTS = {
         ("mbar_expect_tx(&full[slot], F::WORD_BYTES + nsrc * xbytes +\n"
          "                                          scale_rows * COLS * 4);",
          "mbar_arrive(&full[slot]);"),
-        ("if (lane < CW) {\n          tma_tile(",
-         "if (lane < 0) {\n          tma_tile("),
-        ("} else if (lane == CW) {", "} else if (lane < 0) {"),
-        ("} else if (lane < CW + 1 + nsrc) {", "} else if (lane < 0) {")],
+        ("for (int c = lane; c < CW + 1 + nsrc; c += 32) {",
+         "for (int c = lane; c < 0; c += 32) {")],
 }
+# no_copy of an older source, whose producer lanes issued one copy each
+LANE_COPIES_NO_COPY = [
+    VARIANTS["no_copy"][0],
+    ("if (lane < CW) {\n          tma_tile(",
+     "if (lane < 0) {\n          tma_tile("),
+    ("} else if (lane == CW) {", "} else if (lane < 0) {"),
+    ("} else if (lane < CW + 1 + nsrc) {", "} else if (lane < 0) {")]
 
 
-def variant_source(name: str) -> str:
-    """The path of variant ``name`` of the tree's packed_matmul.cu."""
+def variant_source(name: str, lift_k1: bool = False) -> str:
+    """The path of variant ``name`` of the tree's packed_matmul.cu (with
+    ``lift_k1``, grouped K1's M <= 8 check lifted)."""
     src = (build.CSRC / "packed_matmul.cu").read_text()
-    for old, new in VARIANTS[name]:
+    if lift_k1:
+        src = KT.lift_k1_cap(src)
+    edits = VARIANTS[name]
+    if name == "no_copy" and lift_k1:
+        edits = LANE_COPIES_NO_COPY
+    for old, new in edits:
         if src.count(old) != 1:
             raise SystemExit(f"grouped_ablation: {name}: {old!r} not found "
                              "once")
@@ -87,7 +105,15 @@ def time_ms(fn, flush, read: bool, reps: int = 20, warmup: int = 3):
     return sorted(times)[len(times) // 2]
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cases", default=",".join(c[0] for c in
+                                                KT.GROUPED_CASES))
+    ap.add_argument("--lift-k1", action="store_true",
+                    help="run M > 8 through grouped K1 (an older tree "
+                    "whose grouped K1 takes M <= 8 only)")
+    args = ap.parse_args(argv)
+    wanted = args.cases.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("grouped_ablation: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -99,19 +125,24 @@ def main() -> None:
             leaf = mk.dense("moe.w_up", k, n, "awq_int4",
                             experts=KT.QWEN3_EXPERTS)
         cases = []
-        for label, g, m, _ in KT.GROUPED_CASES[:2]:
+        for label, g, m in KT.GROUPED_CASES:    # every case's draws
             experts, rows = KT.grouped_layout(label, g, m, gen, dev)
             x = torch.randn((g, m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
-            cases.append((label, x, experts, rows))
+            if label not in wanted:
+                continue
+            kernel = (packed_gemv_grouped if m <= 8 or args.lift_k1
+                      else packed_matmul_grouped)
+            cases.append((label, kernel, x, experts, rows))
         for name in VARIANTS:
-            KT.patched_library({}, variant_source(name))
-            for label, x, experts, rows in cases:
+            KT.patched_library({}, variant_source(name, args.lift_k1))
+            for label, kernel, x, experts, rows in cases:
                 def fn():
-                    packed_gemv_grouped(x, leaf.packed, leaf.scales,
-                                        leaf.scheme, experts, rows)
+                    kernel(x, leaf.packed, leaf.scales, leaf.scheme,
+                           experts, rows)
                 print(json.dumps({
                     "variant": name, "case": label, "k": k, "n": n,
+                    "m": x.shape[1], "kernel": kernel.__name__,
                     "experts": len(torch.unique(experts[rows > 0])),
                     "write_flush_ms": time_ms(fn, flush, read=False),
                     "read_flush_ms": time_ms(fn, flush, read=True)}),

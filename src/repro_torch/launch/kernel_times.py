@@ -18,16 +18,25 @@ and at K = 4100, each beside ``torch._int_mm`` with the same epilogue
 table case (B 8, H 32, Hk 8, Dh 128, Sk 1024, ragged lengths); K6
 (``virtual_dsp_multiply`` on int4 x bf16, int32, and ``packed_multiply``
 on fp32 x int16, int64, each at the Table VII GEMV's 50,331,648 lane MACs);
-expert-grouped K1 (``packed_gemv_grouped``) on qwen3-moe-30b-a3b's awq_int4
-expert stacks (128 experts; 2048 x 768 and 768 x 2048) at the four cases
-of ``chip_smoke.py`` (``grouped``: the decode step's 64 (row, expert)
-pairs of M = 1, and a 64-token chunk's 128 capacity buffers of M = 5),
-beside grouped K2 (``packed_matmul_grouped``) at a 128-token chunk's
-buffers of M = 10, and, with ``grouped_probe``, at variants of the decode
-pairs: sorted by expert, only their distinct experts, one row's 8 pairs
-(G = 8), one pair (G = 1) and 64 distinct experts.  ``--kernels`` picks
-some of ``gemv``, ``matmul``, ``w8a8``, ``attention``, ``vdsp``,
-``grouped``, ``grouped_probe``.
+the expert-grouped wrappers on qwen3-moe-30b-a3b's awq_int4 expert stacks
+(128 experts; 2048 x 768 and 768 x 2048) at ``chip_smoke.py``'s cases
+(``grouped``): ``packed_gemv_grouped`` (grouped K1, M <= 8) at the decode
+step's 64 (row, expert) pairs of M = 1 and a 64-token chunk's 128
+capacity buffers of M = 5; ``packed_matmul_grouped`` (grouped K2, the M >
+8 route) at the buffers of a 128-, 256- and 512-token chunk (M = 10, 20,
+40); both at 40 groups of M = 3 over 8 experts (``repeats``); and, with
+``grouped_probe``, grouped K1 at variants of the decode pairs: sorted by
+expert, only their distinct experts, one row's 8 pairs (G = 8), one pair
+(G = 1) and 64 distinct experts.  Which body runs a case is the tree's:
+in older trees grouped K2 is K2's ``packed_mma_kernel`` with a grid axis
+over the groups; in this one both wrappers launch the persistent
+``grouped_gemv_kernel``, with items of 8 rows at M <= 8 and of 16 / 32
+rows past it.  ``--lift-k1`` also times ``packed_gemv_grouped`` at the M
+> 8 cases, on an older tree whose grouped K1 takes only M <= 8: its
+source is rebuilt with the kernel's M <= 8 check lifted and the wrapper's
+cap raised, so its body runs those buffers in items of 8 rows.
+``--kernels`` picks some of ``gemv``, ``matmul``, ``w8a8``, ``attention``,
+``vdsp``, ``grouped``, ``grouped_probe``.
 ``--patch NAME=VALUE`` (repeatable) rebuilds the tree's
 ``csrc/packed_matmul.cu`` with ``constexpr int NAME = VALUE;`` apart, in
 ``build/ablation/``, and times that build in place of the wrapper's (e.g.
@@ -78,9 +87,15 @@ KERNEL_SETS = ("gemv", "matmul", "w8a8", "attention", "vdsp", "grouped")
 # qwen3-moe-30b-a3b's expert stacks and chip_smoke.py's grouped K1 cases
 QWEN3_EXPERTS, QWEN3_TOP_K, QWEN3_ROWS = 128, 8, 8
 QWEN3_EXPERT_SHAPES = [(2048, 768), (768, 2048)]
-GROUPED_CASES = [("decode", QWEN3_ROWS * QWEN3_TOP_K, 1, packed_gemv_grouped),
-                 ("prefill64", QWEN3_EXPERTS, 5, packed_gemv_grouped),
-                 ("prefill128", QWEN3_EXPERTS, 10, packed_matmul_grouped)]
+GROUPED_CASES = [("decode", QWEN3_ROWS * QWEN3_TOP_K, 1),
+                 ("prefill64", QWEN3_EXPERTS, 5),
+                 ("prefill128", QWEN3_EXPERTS, 10),
+                 ("prefill256", QWEN3_EXPERTS, 20),
+                 ("prefill512", QWEN3_EXPERTS, 40),
+                 ("repeats", 40, 3)]
+# grouped K1's check of M <= 8 in an older source, and the same lifted
+LIFT_K1 = ("if (M < 1 || M > 8 || N % 4 != 0 || ldx % 8 != 0 ||",
+           "if (M < 1 || M > 64 || N % 4 != 0 || ldx % 8 != 0 ||")
 
 
 def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
@@ -148,13 +163,17 @@ def weights(scheme_name: str, k: int, n: int, gen, dev):
 def grouped_layout(label, g, m, gen, dev):
     """(expert ids [G], rows [G]) int32 on the card, as
     ``chip_smoke.grouped_layout`` draws them: each decode row's top-8
-    distinct experts, or capacity buffers (expert e in group e) of 0-M
-    rows."""
+    distinct experts, 8 experts over 40 groups (the first 4 empty), or
+    capacity buffers (expert e in group e) of 0-M rows."""
     if label == "decode":
         experts = torch.stack([
             torch.randperm(QWEN3_EXPERTS, generator=gen, device=dev)
             [:QWEN3_TOP_K] for _ in range(QWEN3_ROWS)]).reshape(-1)
         rows = torch.ones(g, dtype=torch.int64, device=dev)
+    elif label == "repeats":    # 8 experts over 40 groups, some empty
+        experts = torch.randint(0, 8, (g,), generator=gen, device=dev)
+        rows = torch.randint(0, m + 1, (g,), generator=gen, device=dev)
+        rows[:4] = 0
     else:
         experts = torch.arange(g, device=dev)
         rows = torch.randint(0, m + 1, (g,), generator=gen, device=dev)
@@ -174,12 +193,34 @@ def grouped_probes(experts):
                                         device=experts.device))]
 
 
-def patched_library(patches, source=None):
+def grouped_kernels(label, m, lift_k1=False):
+    """The wrappers a grouped case runs through: grouped K1 at M <= 8 (also
+    past it with ``lift_k1``), grouped K2 past it, both at ``repeats``."""
+    k1 = m <= 8 or lift_k1 or label == "repeats"
+    k2 = m > 8 or label == "repeats"
+    return [fn for fn, on in ((packed_gemv_grouped, k1),
+                              (packed_matmul_grouped, k2)) if on]
+
+
+def lift_k1_cap(src: str) -> str:
+    """An older source with grouped K1's M <= 8 check lifted
+    (``LIFT_K1``), and the wrapper's cap raised to match."""
+    if src.count(LIFT_K1[0]) != 1:
+        raise SystemExit("kernel_times: --lift-k1 needs a grouped K1 that "
+                         "checks M <= 8 (an older source)")
+    PM.GEMV_MAX_M = 64
+    return src.replace(*LIFT_K1)
+
+
+def patched_library(patches, source=None, lift_k1=False):
     """``source`` (default: the tree's ``csrc/packed_matmul.cu``) with each
-    ``constexpr int NAME = ...;`` of ``patches`` {NAME: VALUE} replaced,
-    built with ``nvcc`` into ``build/ablation/`` and installed as the
-    library the wrappers load."""
+    ``constexpr int NAME = ...;`` of ``patches`` {NAME: VALUE} replaced
+    (and, with ``lift_k1``, grouped K1's M <= 8 check lifted), built with
+    ``nvcc`` into ``build/ablation/`` and installed as the library the
+    wrappers load."""
     src = open(source or build.CSRC / "packed_matmul.cu").read()
+    if lift_k1:
+        src = lift_k1_cap(src)
     for name, value in patches.items():
         src, n = re.subn(rf"constexpr int {name} = [^;]+;",
                          f"constexpr int {name} = {value};", src)
@@ -210,12 +251,16 @@ def main(argv=None) -> None:
                         KERNEL_SETS + ("grouped_probe",)))
     ap.add_argument("--patch", action="append", default=[],
                     metavar="NAME=VALUE")
+    ap.add_argument("--lift-k1", action="store_true",
+                    help="also time grouped K1 past M = 8 (an older "
+                    "tree whose grouped K1 takes M <= 8 only)")
     args = ap.parse_args(argv)
     only = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
-    if args.patch:
-        patched_library(dict(p.split("=", 1) for p in args.patch))
+    if args.patch or args.lift_k1:
+        patched_library(dict(p.split("=", 1) for p in args.patch),
+                        lift_k1=args.lift_k1)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -303,7 +348,7 @@ def main(argv=None) -> None:
             leaf = mk.dense("moe.w_up", k, n, "awq_int4",
                             experts=QWEN3_EXPERTS)
         per_expert = (leaf.packed[0].numel() + leaf.scales[0].numel()) * 4
-        for label, g, m, kernel in GROUPED_CASES:
+        for label, g, m in GROUPED_CASES:
             experts, rows = grouped_layout(label, g, m, gen, dev)
             base = "grouped" in only or (probe and label == "decode")
             cases = [(label, experts, rows)] if base else []
@@ -314,12 +359,13 @@ def main(argv=None) -> None:
                 x = torch.randn((len(ids), m, k), generator=gen,
                                 device=dev).to(torch.bfloat16)
                 used = len(torch.unique(ids[live > 0]))
-                emit(lambda: kernel(
-                    x, leaf.packed, leaf.scales, leaf.scheme, ids, live),
-                    name=kernel.__name__, case=name, g=len(ids), m=m,
-                    k=k, n=n, experts=used, rows=int(live.sum()),
-                    expert_bytes=used * per_expert,
-                    patch=args.patch or None)
+                for kernel in grouped_kernels(label, m, args.lift_k1):
+                    emit(lambda: kernel(
+                        x, leaf.packed, leaf.scales, leaf.scheme, ids, live),
+                        name=kernel.__name__, case=name, g=len(ids), m=m,
+                        k=k, n=n, experts=used, rows=int(live.sum()),
+                        expert_bytes=used * per_expert,
+                        patch=args.patch or None)
         del leaf
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,7 +5,7 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_step --temperature 0.8
   PYTHONPATH=src python -m repro_torch.launch.profile_step --paged
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
-      --arch qwen3-moe-30b-a3b
+      --arch qwen3-moe-30b-a3b [--chunk 128]
 
 Builds the model on the card, fills every slot with one prefill chunk,
 then times (a) prefill chunks and (b) decode steps over all slots: host
@@ -28,7 +28,8 @@ layer's MoE block alone, at the decode step's rows and at one prefill
 chunk, splits its device time between the expert-grouped K1 / K2 kernels
 and the torch ops around them (router matmul, routing, dispatch,
 combine), and ``moe_share`` is the layers' MoE blocks' part of the whole
-step's device time.  Device numbers come only from the profiler's CUDA
+step's device time (``--chunk 128`` and up gives capacity buffers past 8
+rows: grouped K2).  Device numbers come only from the profiler's CUDA
 activity; when it reports none they are null.
 """
 from __future__ import annotations
@@ -164,10 +165,9 @@ def main(argv=None) -> None:
     print(json.dumps(out))
 
 
-# the expert-grouped kernels' names in the profiler: grouped K1's body,
-# K2's (its grouped instantiations) and K2's split-K reduce
-GROUPED_KERNELS = ("grouped_gemv_kernel", "packed_mma_kernel",
-                   "splitk_reduce_kernel")
+# the expert-grouped kernels' name in the profiler: the persistent body
+# that grouped K1 and K2 launch
+GROUPED_KERNELS = ("grouped_gemv_kernel",)
 
 
 def moe_layer_steps(cfg, params, args, dev, slab):

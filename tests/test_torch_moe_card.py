@@ -1,10 +1,12 @@
 """The MoE path on the card (``gpu``; this file imports no JAX): the
-expert-grouped K1 / K2 kernels against their plain version (empty groups,
-repeated experts, rows past a group's count exactly zero, one launch a
-call), grouped K1 against its twin in its own order, a row's output bit
-for bit the same whatever shares its launch, and past one launch's 6144
-rows of x; and qwen3-moe-smoke with the port's own seeded weights served
-through the kernels, every request equal to itself served alone."""
+expert-grouped K1 / K2 kernels (one persistent body) against their plain
+version (empty groups, repeated experts, rows past a group's count
+exactly zero, one launch a call), against their twin in the body's order,
+a row's output bit for bit the same whatever shares its launch (decode
+pairs at M = 1; buffers of M = 10, 17 and 40) and at M = 1 as inside an
+M > 8 launch, and past one launch's 6144 rows of x; and qwen3-moe-smoke
+with the port's own seeded weights served through the kernels, every
+request equal to itself served alone."""
 import numpy as np
 import pytest
 import torch
@@ -84,6 +86,46 @@ def test_grouped_gemv_row_is_free_of_its_batch_mates(cuda_device, scheme, k,
         alone = packed_gemv_grouped(x[i:i + 4], *args, experts[i:i + 4],
                                     rows[i:i + 4])
         assert torch.equal(alone, big[i:i + 4])
+    torch.testing.assert_close(
+        big, packed_gemv_grouped_ordered(x, *args, experts, rows),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,k,n", [("awq_int4", 1024, 256),
+                                        ("mxfp4", 256, 96),
+                                        ("fp8", 512, 128),
+                                        ("awq_int4", 768, 2048)])
+@pytest.mark.parametrize("m", [10, 17, 40])
+def test_grouped_matmul_row_is_free_of_batch_mates_and_m(cuda_device, scheme,
+                                                          k, n, m):
+    """Capacity-buffer groups of M rows (12 groups over 6 experts, some
+    repeated, one empty): each half of the groups launched alone gives the
+    G = 12 launch's rows bit for bit, each live row launched alone in a
+    group of one row (grouped K1, items of 8) gives its row bit for bit,
+    and all of them match the ordered twin (f32 rounding apart)."""
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    leaf = QuantMaker(4, device=cuda_device).dense("moe.w_up", k, n, scheme,
+                                                   experts=6)
+    g = 12
+    experts = torch.randint(0, 6, (g,), generator=gen, device=cuda_device,
+                            dtype=torch.int64).to(torch.int32)
+    rows = torch.randint(0, m + 1, (g,), generator=gen, device=cuda_device,
+                         dtype=torch.int64).to(torch.int32)
+    rows[3] = 0
+    x = torch.randn((g, m, k), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    args = (leaf.packed, leaf.scales, leaf.scheme)
+    big = packed_matmul_grouped(x, *args, experts, rows)
+    for h in (slice(0, 6), slice(6, 12)):
+        half = packed_matmul_grouped(x[h], *args, experts[h], rows[h])
+        assert torch.equal(half, big[h])
+    live = (torch.arange(m, device=cuda_device)[None, :]
+            < rows[:, None]).nonzero()
+    alone = packed_gemv_grouped(
+        x[live[:, 0], live[:, 1]][:, None], *args, experts[live[:, 0]],
+        torch.ones(len(live), dtype=torch.int32, device=cuda_device))
+    assert torch.equal(alone[:, 0], big[live[:, 0], live[:, 1]])
     torch.testing.assert_close(
         big, packed_gemv_grouped_ordered(x, *args, experts, rows),
         rtol=1e-4, atol=1e-5)
