@@ -45,8 +45,15 @@ non-zero after the last phase; exceptions are not caught):
      (``packed_gemv_grouped_ordered``); the decode pairs launched again
      one row's 8 pairs at a time (G = 8), and the 128-token chunk's live
      rows launched again one row a group (M = 1, grouped K1), must give
-     each row bit for bit; ptxas' register and spill report of the grouped
-     body's instantiations (no spills);
+     each row bit for bit; the same grouped checks on deepseek-v2-236b's
+     fp8 expert leaves (160 experts, 5120 x 1536 and 1536 x 5120): the
+     decode step's 48 pairs (8 rows x top-6), the buffers of a 64-token
+     chunk (160 x 4 rows, grouped K1) and of a 256-token one (160 x 12,
+     grouped K2, its live rows again at M = 1), and the repeats; K1 at M =
+     8 on deepseek's MLA leaves w_dkv (5120 x 576) and w_uq (1536 x
+     24576), K2 at M = 512 on w_uk (512 x 16384, the expansion of a slot's
+     latent slab); ptxas' register and spill report of the grouped body's
+     instantiations (no spills);
   2b. the weight quantizer: ``quantize_weights`` (mxfp4, fp8) on the card
      against the same function on the CPU, words and scales bit for bit,
      on starcoder2's widest leaf (6144 x 24576) and on a leaf whose every
@@ -64,7 +71,8 @@ non-zero after the last phase; exceptions are not caught):
      per ``xtramac_packed`` call and once per pipeline issue;
   then, for granite-8b (AWQ-int4, 36 layers), minitron-8b (W8A8,
   squared-ReLU FFN, at 16 of its 32 layers: the script's time),
-  starcoder2-15b (MXFP4, non-gated GELU FFN, 40 layers) and
+  starcoder2-15b (MXFP4, non-gated GELU FFN, at 8 of its 40 layers: the
+  script's time, since deepseek-v2's path was added) and
   qwen3-moe-30b-a3b (MoE: 128 experts, top-8, AWQ-int4, 48 layers), each
   at full width with random weights from a seed quantized on the card, one
   model after the other:
@@ -162,7 +170,15 @@ non-zero after the last phase; exceptions are not caught):
      must launch on both formats, K4 on fp8 KV), and nemotron-4-340b at 2
      of its 96 layers (d_model 18432, d_ff 73728, vocab 256000), bf16 and
      int8 KV; each path's launch counts set to 0 just before its model
-     phase and read just after.
+     phase and read just after;
+  7. deepseek-v2-236b (MLA with absorbed-latent decode, 2 shared + 160
+     routed fp8 experts, top-6) at full width and 8 of its 60 layers
+     (about 3.97 GB of fp8 weights a layer: 60 do not fit the card), bf16
+     latent KV only: the model phase (logits on replayed routes within 5 %
+     of the logit scale, the free plain run's routing flips printed) and
+     the serve phase (6 requests, each equal to its solo run; K1 / K2 on
+     its fp8 projection and shared-expert leaves, grouped K1 on its expert
+     stacks at decode (M = 1) and prefill (M = 4)).
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.  Every case is also written to
 ``chiprun_out/chip_smoke.json``.  The script imports no JAX.
@@ -284,6 +300,10 @@ PATH_KERNELS = {
                                    "packed_matmul_grouped",
                                    "decode_attention_bf16",
                                    "decode_attention_quant"),
+    # MLA decodes absorbed, as plain bf16 contractions (the reference's
+    # jnp.einsum): no decode-attention kernel on this path
+    "deepseek-v2-236b": ("packed_gemv", "packed_matmul",
+                         "packed_gemv_grouped"),
 }
 # the launches by format (``ops.format_launch_counts``) each path must make
 PATH_FORMATS = {
@@ -308,15 +328,20 @@ PATH_FORMATS = {
                           "decode_attention_quant:int8"),
     "qwen3-moe-30b-a3b-chunk128": ("packed_gemv_grouped:int4",
                                    "packed_matmul_grouped:int4"),
+    "deepseek-v2-236b": ("packed_gemv:fp8_e4m3", "packed_matmul:fp8_e4m3",
+                         "packed_gemv_grouped:fp8_e4m3"),
 }
 # the grouped launches by the rows of a group (``ops.grouped_launch_counts``)
 # each MoE path must make: decode pairs (M = 1) and the capacity buffers of
-# a 64-token chunk (C = 5, grouped K1) or a 128-token one (C = 10, K2)
+# a 64-token chunk (qwen3: C = 5, deepseek: C = 4, grouped K1) or a
+# 128-token one (C = 10, K2)
 PATH_GROUPED_ROWS = {
     "qwen3-moe-30b-a3b": ("packed_gemv_grouped:M=1",
                           "packed_gemv_grouped:M=5"),
     "qwen3-moe-30b-a3b-chunk128": ("packed_gemv_grouped:M=1",
                                    "packed_matmul_grouped:M=10"),
+    "deepseek-v2-236b": ("packed_gemv_grouped:M=1",
+                         "packed_gemv_grouped:M=4"),
 }
 # the model runs: (path, arch, layers (None: all), policy weights, KV
 # tiers of the model phase, witness variant, serve phase, the serving
@@ -327,7 +352,7 @@ MODEL_RUNS = [
       "granite-8b-spec")),
     ("minitron-8b", "minitron-8b", 16, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
-    ("starcoder2-15b", "starcoder2-15b", None, (), ("bf16", "int8"),
+    ("starcoder2-15b", "starcoder2-15b", 8, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
     ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", None, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
@@ -338,6 +363,10 @@ MODEL_RUNS = [
      False, ()),
     ("nemotron-4-340b", "nemotron-4-340b", 2, (), ("bf16", "int8"),
      "plain_splitkv", False, ()),
+    # 8 of 60 layers (about 3.97 GB of fp8 weights a layer); the MLA latent
+    # cache stays bf16, the only tier
+    ("deepseek-v2-236b", "deepseek-v2-236b", 8, (), ("bf16",), None, True,
+     ()),
 ]
 # the prefill chunk of a model run where it is not 64: qwen3-moe at 4
 # layers with 128-token chunks, whose capacity buffers (C = 10) take K2
@@ -434,23 +463,34 @@ VDSP_RAGGED = 987
 # N % 4 != 0 that the dispatch sends to K2
 RAGGED_LEAVES = [("awq_int4", 64, 1000), ("awq_int4", 8, 1022),
                  ("fp8", 8, 1022)]
-# qwen3-moe-30b-a3b's expert leaves (awq_int4, 128 experts): gate / up
-# (2048 x 768) and down (768 x 2048); grouped cases (label, G, M, rows a
-# group holds, expert ids): the decode step's pairs (8 rows x top-8, M = 1,
-# every pair one row), a 64-token chunk's capacity buffers (128 x C = 5,
-# K1) and a 128-, 256- and 512-token chunk's (128 x C = 10, 20, 40, K2),
-# each buffer holding 0-C rows; 16 pairs of one expert (two items of
-# grouped K1's work list); and 40 groups of M = 3 over 8 experts (repeated
-# pairs, empty groups), through K1 and K2
-QWEN3_EXPERTS, QWEN3_TOP_K, QWEN3_ROWS = 128, 8, 8
-QWEN3_EXPERT_SHAPES = [(2048, 768), (768, 2048)]
-GROUPED_CASES = [("decode", QWEN3_ROWS * QWEN3_TOP_K, 1),
-                 ("prefill64", QWEN3_EXPERTS, 5),
-                 ("prefill128", QWEN3_EXPERTS, 10),
-                 ("prefill256", QWEN3_EXPERTS, 20),
-                 ("prefill512", QWEN3_EXPERTS, 40),
-                 ("one_expert16", 16, 1),
-                 ("repeats", 40, 3)]
+# the expert stacks of the grouped cases: (arch, scheme, experts, top-k,
+# expert leaves (K, N), cases (label, G, M), the case whose live rows are
+# launched again one a group at M = 1).  qwen3-moe-30b-a3b (awq_int4, 128
+# experts): gate / up (2048 x 768) and down (768 x 2048); the decode step's
+# pairs (8 rows x top-8, M = 1, every pair one row), a 64-token chunk's
+# capacity buffers (128 x C = 5, K1) and a 128-, 256- and 512-token
+# chunk's (128 x C = 10, 20, 40, K2), each buffer holding 0-C rows; 16
+# pairs of one expert (two items of grouped K1's work list); and 40 groups
+# of M = 3 over 8 experts (repeated pairs, empty groups), through K1 and
+# K2.  deepseek-v2-236b (fp8, per-channel scales, 160 experts): 5120 x 1536
+# and 1536 x 5120; the decode step's 8 x top-6 pairs, the capacity buffers
+# of a 64-token chunk (160 x C = 4, K1) and a 256-token one (160 x C = 12,
+# K2), and the repeats
+GROUPED_STACKS = [
+    ("qwen3-moe-30b-a3b", "awq_int4", 128, 8, [(2048, 768), (768, 2048)],
+     [("decode", 8 * 8, 1), ("prefill64", 128, 5), ("prefill128", 128, 10),
+      ("prefill256", 128, 20), ("prefill512", 128, 40),
+      ("one_expert16", 16, 1), ("repeats", 40, 3)], "prefill128"),
+    ("deepseek-v2-236b", "fp8", 160, 6, [(5120, 1536), (1536, 5120)],
+     [("decode", 8 * 6, 1), ("prefill64", 160, 4), ("prefill256", 160, 12),
+      ("repeats", 40, 3)], "prefill256"),
+]
+# deepseek-v2-236b's MLA leaves beside the kernels' other cases (fp8): K1
+# at the decode step's M = 8 on w_dkv (N = 576, the latent and rope key)
+# and w_uq; K2 at M = 512 on w_uk (the prefill chunk expands K over the
+# slot's whole slab of 512 latents)
+MLA_GEMV_SHAPES = [(5120, 576), (1536, 24576)]
+MLA_EXPAND = (512, 512, 16384)          # (M, K, N)
 # the grouped body against its twin in its own order: the same products
 # and folds, with only the tensor cores' order inside a fold's x @ codes
 # and the fold's fused multiply-add not replayed (f32 rounding)
@@ -644,6 +684,14 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
         cases.append(packed_case(timer, "packed_matmul", leaf_matmul, scheme,
                                  packed, scales, w_bf16, m, gen, dev,
                                  "packed_matmul"))
+    # deepseek-v2-236b's MLA leaves: K1 at the decode step's 8 rows, K2 at
+    # the expansion of a slot's 512 latents
+    for k, n in MLA_GEMV_SHAPES:
+        cases += packed_leaf_cases(timer, gen, dev, "fp8", k, n,
+                                   gemv_rows=(8,), matmul_rows=())
+    m, k, n = MLA_EXPAND
+    cases += packed_leaf_cases(timer, gen, dev, "fp8", k, n, gemv_rows=(),
+                               matmul_rows=(m,))
     cases += grouped_cases(timer, gen, dev)
     cases += w8a8_cases(timer, gen, dev, chunk)
     for layout in ATTN_LAYOUTS:
@@ -656,12 +704,12 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
     return cases
 
 
-def grouped_layout(label, g, m, gen, dev):
+def grouped_layout(label, g, m, gen, dev, n_experts, top_k):
     """(expert ids [G], rows [G]) of a grouped case, int32 on the card."""
-    if label == "decode":       # each row's top-8: 8 distinct experts
+    if label == "decode":       # each row's top-k: k distinct experts
         experts = torch.stack([
-            torch.randperm(QWEN3_EXPERTS, generator=gen, device=dev)
-            [:QWEN3_TOP_K] for _ in range(QWEN3_ROWS)]).reshape(-1)
+            torch.randperm(n_experts, generator=gen, device=dev)[:top_k]
+            for _ in range(g // top_k)]).reshape(-1)
         rows = torch.ones(g, dtype=torch.int64, device=dev)
     elif label == "repeats":    # 8 experts over 40 groups, some empty
         experts = torch.randint(0, 8, (g,), generator=gen, device=dev)
@@ -676,8 +724,8 @@ def grouped_layout(label, g, m, gen, dev):
     return experts.to(torch.int32), rows.to(torch.int32)
 
 
-def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
-                 rows):
+def grouped_case(timer: Timer, arch, label, name, fn, leaf, w_bf16, x,
+                 experts, rows, top_k, alone_at_m1):
     """One expert-grouped launch against ``packed_grouped_plain`` at the
     packed matmul's tolerance, rows past each group's count exactly zero,
     timed beside its bound (the distinct experts' words and scales that
@@ -705,7 +753,8 @@ def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
     b, by = bound_ms(moved, 2.0 * n_rows * k * n)
     sel = w_bf16[experts.long()]
     case = {
-        "name": name, "case": label, "scheme": leaf.scheme.name, "g": g,
+        "name": name, "arch": arch, "case": label, "scheme": leaf.scheme.name,
+        "g": g,
         "m": m, "k": k, "n": n, "rows": n_rows, "experts": len(used),
         "max_abs_err": err, "max_rel_err": err / float(want.abs().max()),
         "max_abs_out": float(want.abs().max()), "ok": ok,
@@ -716,8 +765,9 @@ def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
         "library": "torch.bmm(x bf16, the groups' experts as bf16)",
         "bound_ms": b, "bound_by": by, "bound_bytes": moved}
     del sel
-    what = f"{name} {label} G={g} M={m} K={k} N={n}"
-    case.update(grouped_order_checks(what, label, fn, args, got))
+    what = f"{name} {arch} {label} G={g} M={m} K={k} N={n}"
+    case.update(grouped_order_checks(what, label, fn, args, got, top_k,
+                                     alone_at_m1))
     log(json.dumps(case))
     require(ok, f"{what}: max |err| {err}")
     require(zeros, f"{what}: rows past a group's count are not zero")
@@ -725,14 +775,15 @@ def grouped_case(timer: Timer, label, name, fn, leaf, w_bf16, x, experts,
     return case
 
 
-def grouped_order_checks(what, label, fn, args, got):
+def grouped_order_checks(what, label, fn, args, got, top_k, alone_at_m1):
     """The grouped body beyond the plain version: against its twin in its
     own order of sums (``packed_gemv_grouped_ordered``); for the decode
-    pairs, each row's 8 pairs launched alone (G = 8) equal to the same rows
-    of the G = 64 launch bit for bit; for the 128-token chunk's buffers
-    (grouped K2, items of 16 rows), each live row launched alone in a group
-    of one row (grouped K1, items of 8) equal to its row bit for bit (the
-    order is the leaf's, so neither batch-mates nor M move a sum)."""
+    pairs, each row's top-k pairs launched alone (G = k) equal to the same
+    rows of the whole step's launch bit for bit; for the ``alone_at_m1``
+    chunk's buffers (grouped K2, items of 16 rows), each live row launched
+    alone in a group of one row (grouped K1, items of 8) equal to its row
+    bit for bit (the order is the leaf's, so neither batch-mates nor M move
+    a sum)."""
     x, packed, scales, scheme, experts, rows = args
     ordered = packed_gemv_grouped_ordered(*args)
     torch.cuda.synchronize()
@@ -744,16 +795,15 @@ def grouped_order_checks(what, label, fn, args, got):
            "plan": list(grouped_gemv_plan(x.shape[2], packed.shape[2],
                                           scheme))}
     if label == "decode":
-        alone = torch.cat([fn(x[i:i + QWEN3_TOP_K], packed, scales, scheme,
-                              experts[i:i + QWEN3_TOP_K],
-                              rows[i:i + QWEN3_TOP_K])
-                           for i in range(0, x.shape[0], QWEN3_TOP_K)])
+        alone = torch.cat([fn(x[i:i + top_k], packed, scales, scheme,
+                              experts[i:i + top_k], rows[i:i + top_k])
+                           for i in range(0, x.shape[0], top_k)])
         torch.cuda.synchronize()
         same = bool(torch.equal(alone, got))
-        require(same, f"{what}: rows launched 8 pairs at a time differ from "
-                      "the G = 64 launch")
+        require(same, f"{what}: rows launched {top_k} pairs at a time "
+                      f"differ from the G = {x.shape[0]} launch")
         out["rows_alone_bit_equal"] = same
-    if label == "prefill128":
+    if label == alone_at_m1:
         live = (torch.arange(x.shape[1], device=x.device)[None, :]
                 < rows[:, None]).nonzero()
         alone = packed_gemv_grouped(
@@ -763,37 +813,40 @@ def grouped_order_checks(what, label, fn, args, got):
         torch.cuda.synchronize()
         same = bool(torch.equal(alone[:, 0], got[live[:, 0], live[:, 1]]))
         require(same, f"{what}: live rows launched one a group at M = 1 "
-                      "differ from the M = 10 launch")
+                      f"differ from the M = {x.shape[1]} launch")
         out["rows_at_m1_bit_equal"] = same
     return out
 
 
 def grouped_cases(timer: Timer, gen, dev):
-    """Grouped K1 / K2 on qwen3-moe's expert stacks at the MoE path's
-    shapes (``GROUPED_CASES``)."""
+    """Grouped K1 / K2 on each MoE path's expert stacks at its shapes
+    (``GROUPED_STACKS``)."""
     cases = []
     mk = QuantMaker(5, device=dev)
-    for k, n in QWEN3_EXPERT_SHAPES:
-        with torch.no_grad():
-            leaf = mk.dense("moe.w_up", k, n, "awq_int4",
-                            experts=QWEN3_EXPERTS)
-        w_bf16 = torch.stack([dequantize(leaf.scheme, leaf.packed[e],
-                                         leaf.scales[e], (k, n))
-                              .to(torch.bfloat16)
-                              for e in range(QWEN3_EXPERTS)])
-        for label, g, m in GROUPED_CASES:
-            experts, rows = grouped_layout(label, g, m, gen, dev)
-            x = torch.randn((g, m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            kernels = (("packed_gemv_grouped", packed_gemv_grouped),
-                       ("packed_matmul_grouped", packed_matmul_grouped))
-            if label != "repeats":
-                kernels = kernels[:1] if m <= 8 else kernels[1:]
-            for name, fn in kernels:
-                cases.append(grouped_case(timer, label, name, fn, leaf,
-                                          w_bf16, x, experts, rows))
-        del leaf, w_bf16
-        torch.cuda.empty_cache()
+    for arch, scheme, n_experts, top_k, shapes, layouts, alone_at_m1 \
+            in GROUPED_STACKS:
+        for k, n in shapes:
+            with torch.no_grad():
+                leaf = mk.dense("moe.w_up", k, n, scheme, experts=n_experts)
+            w_bf16 = torch.stack([dequantize(leaf.scheme, leaf.packed[e],
+                                             leaf.scales[e], (k, n))
+                                  .to(torch.bfloat16)
+                                  for e in range(n_experts)])
+            for label, g, m in layouts:
+                experts, rows = grouped_layout(label, g, m, gen, dev,
+                                               n_experts, top_k)
+                x = torch.randn((g, m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                kernels = (("packed_gemv_grouped", packed_gemv_grouped),
+                           ("packed_matmul_grouped", packed_matmul_grouped))
+                if label != "repeats":
+                    kernels = kernels[:1] if m <= 8 else kernels[1:]
+                for name, fn in kernels:
+                    cases.append(grouped_case(timer, arch, label, name, fn,
+                                              leaf, w_bf16, x, experts, rows,
+                                              top_k, alone_at_m1))
+            del leaf, w_bf16
+            torch.cuda.empty_cache()
     return cases
 
 
@@ -1366,14 +1419,14 @@ def serve_tier(cfg, params, tier, prompts, new_tokens, chunk, dev):
     return engine, reqs, rep
 
 
-def serve_phase(cfg, params, chunk, dev):
-    """Both KV tiers through the scheduler, the launch counters reset just
-    before and read just after; then the path's own checks."""
+def serve_phase(cfg, params, chunk, dev, tiers=("bf16", "int8")):
+    """Each KV tier of ``tiers`` through the scheduler, the launch counters
+    reset just before and read just after; then the path's own checks."""
     prompts, new_tokens = serve_requests(cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     runs = [serve_tier(cfg, params, tier, prompts, new_tokens, chunk, dev)
-            for tier in ("bf16", "int8")]
+            for tier in tiers]
     launches = ops.launch_counts()
     formats = ops.format_launch_counts()
     grouped = ops.grouped_launch_counts()
@@ -2529,7 +2582,8 @@ def main() -> None:
         result[path] = {"layers": cfg.n_layers, "policy_weights": weights,
                         "model": model}
         if serves:
-            serve, launches, formats = serve_phase(cfg, params, chunk, dev)
+            serve, launches, formats = serve_phase(cfg, params, chunk, dev,
+                                                   tiers)
             result[path]["serve"] = serve
         else:
             launches = ops.launch_counts()
@@ -2567,8 +2621,10 @@ def main() -> None:
     rep_case = {"packed_gemv": dict(scheme="awq_int4", m=8, k=4096, n=14336),
                 "packed_matmul": dict(scheme="awq_int4", m=chunk, k=4096,
                                       n=14336),
-                "packed_gemv_grouped": dict(case="decode", k=2048, n=768),
-                "packed_matmul_grouped": dict(case="prefill128", k=2048,
+                "packed_gemv_grouped": dict(arch="qwen3-moe-30b-a3b",
+                                            case="decode", k=2048, n=768),
+                "packed_matmul_grouped": dict(arch="qwen3-moe-30b-a3b",
+                                              case="prefill128", k=2048,
                                               n=768),
                 "w8a8_matmul": dict(m=8, k=4096, n=16384, x_offset=0),
                 "decode_attention_bf16": dict(kv="bf16", h=32, dh=128),

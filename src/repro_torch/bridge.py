@@ -5,10 +5,15 @@ MoE-family parameter tree with every array already converted to numpy
 (e.g. ``jax.tree_util.tree_map(np.asarray, params)``): a nested dict whose
 layer leaves are stacked along a leading [L] axis (expert stacks along
 [L, E]), and whose quantized leaves are objects with ``packed``,
-``scales``, ``scheme_name``, ``shape`` and ``name`` attributes.  Packed int32 words and f32 scales are copied bit
-for bit in the same ``[K/per, N]`` layout, w8a8's raw int8 codes bit for
-bit from ``[K, N]`` (``QLinear`` keeps them transposed); bf16 arrays (numpy's
-``bfloat16`` extension dtype) are copied by their 16-bit patterns.
+``scales``, ``scheme_name``, ``shape`` and ``name`` attributes.  MLA
+layers carry ``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``,
+``w_uk``, ``w_uv`` and ``wo`` (the norms' gammas go across as f32
+``Norm`` leaves), MoE layers with shared experts ``shared_gate`` /
+``shared_up`` / ``shared_down``.  Packed int32 words and f32 scales are
+copied bit for bit in the same ``[K/per, N]`` layout, w8a8's raw int8
+codes bit for bit from ``[K, N]`` (``QLinear`` keeps them transposed);
+bf16 arrays (numpy's ``bfloat16`` extension dtype) are copied by their
+16-bit patterns.
 ``params_to_numpy`` is the inverse, returning quantized leaves as
 ``NumpyQLinear`` records and bf16 tensors as their int16 bit patterns
 (numpy has no bfloat16 of its own).
@@ -22,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.common import DenseLinear, QLinear
+from repro_torch.models.common import DenseLinear, Norm, QLinear
+from repro_torch.models.moe import SHARED_LEAVES
 from repro_torch.models.transformer import Block, DenseLM, check_supported
 
 
@@ -51,6 +57,8 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def _leaf(leaf, layer: Optional[int], name: str, device):
+    if name.endswith("_norm"):
+        return Norm(_tensor(np.asarray(leaf)[layer], device), name)
     if hasattr(leaf, "packed"):
         pick = (lambda a: np.asarray(a)[layer]) if layer is not None \
             else np.asarray
@@ -71,7 +79,7 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
     for l in range(cfg.n_layers):
         attn = {k: _leaf(v, l, f"attn.{k}", device)
                 for k, v in lay["attn"].items()}
-        ffn = {k: _leaf(v, l, f"{mlp}.{k}", device)
+        ffn = {k: _leaf(v, l, SHARED_LEAVES.get(k, f"{mlp}.{k}"), device)
                for k, v in lay[mlp].items()}
         layers.append(Block(_tensor(np.asarray(lay["ln1"]["g"])[l], device),
                             attn,

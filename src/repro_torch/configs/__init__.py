@@ -1,8 +1,9 @@
 """Model configurations served by the port (``--arch <id>`` resolves here).
 
 ``ModelConfig`` is the subset of ``repro.models.transformer.ModelConfig``
-the dense and MoE serving paths read, with the same field names and
-defaults, so a config of the reference maps onto this one field for field.
+the dense and MoE serving paths read (MoE with GQA or MLA attention, with
+or without shared experts), with the same field names and defaults, so a
+config of the reference maps onto this one field for field.
 """
 from __future__ import annotations
 
@@ -36,7 +37,13 @@ class ModelConfig:
     n_shared_experts: int = 0
     moe_d_ff: int = 0           # per-expert hidden dim (0 -> d_ff)
     capacity_factor: float = 1.25
-    use_mla: bool = False       # DeepSeek-V2's latent attention (not ported)
+    # --- MLA (DeepSeek-V2's latent attention) ---
+    use_mla: bool = False
+    q_lora: int = 0             # query low-rank dim (0 = dense q projection)
+    kv_lora: int = 0            # compressed KV latent dim (the cached one)
+    d_head_nope: int = 128
+    d_head_rope: int = 64
+    d_head_v: int = 128
     kv_chunk: int = 512
 
     @property
@@ -50,6 +57,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "starcoder2-15b": "starcoder2_15b",
     "nemotron-4-340b": "nemotron_4_340b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -96,6 +96,7 @@ _GK_WIDE_WARPS = 8
 _GK_MID_FRAGS = 2
 _GK_MAX_EXPERTS = 512
 _GK_MAX_ROWS = 6144
+_PLAIN_ELEMS = 1 << 28    # f32 weights of one slice of the plain twin
 _MM_BK = 128              # matmul K per pipeline stage
 _MM_MIN_STEPS = 4         # stages per split, at least
 _TARGET_BLOCKS = 264      # two waves over the H100's 132 SMs
@@ -416,9 +417,17 @@ def packed_grouped_plain(x: torch.Tensor, packed: torch.Tensor,
                          expert_idx: torch.Tensor,
                          rows: torch.Tensor) -> torch.Tensor:
     """Plain torch: group g's expert dequantized to f32 (code x group
-    scale, as ``dequantize``), x[g].f32 @ W; rows past ``rows[g]`` zero."""
+    scale, as ``dequantize``), x[g].f32 @ W; rows past ``rows[g]`` zero.
+    Groups go in slices whose f32 weights hold at most ``_PLAIN_ELEMS``
+    values, so that the decode's temporaries stay a few GB at any G
+    (deepseek-v2's 160 buffers of 5120 x 1536 experts: ~25 GB at once)."""
     g, m, k = x.shape
     n = packed.shape[-1]
+    step = max(1, _PLAIN_ELEMS // (k * n))
+    if g > step:
+        return torch.cat([packed_grouped_plain(
+            x[i:i + step], packed, scales, scheme, expert_idx[i:i + step],
+            rows[i:i + step]) for i in range(0, g, step)])
     bits = scheme.weight_bits
     per = codes_per_word(bits)
     words = packed[expert_idx.long()]                       # [G, K/per, N]

@@ -6,11 +6,14 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_step --paged
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch qwen3-moe-30b-a3b [--chunk 128]
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch deepseek-v2-236b --layers 8
 
-Builds the model on the card, fills every slot with one prefill chunk,
-then times (a) prefill chunks and (b) decode steps over all slots: host
-wall per step (ending in a device sync) and, from one ``torch.profiler``
-pass over the same steps, the device time of every kernel.  Prints one
+Builds the model on the card (at full width; ``--layers`` cuts the depth
+of a model that does not fit the card: deepseek-v2-236b runs 8 of its 60
+layers), fills every slot with one prefill chunk, then times (a) prefill
+chunks and (b) decode steps over all slots: host wall per step (ending in
+a device sync) and, from one ``torch.profiler`` pass over the same steps, the device time of every kernel.  Prints one
 JSON object: per step kind, the wall ms, the device-busy ms (sum of kernel
 durations), the idle share 1 - busy / wall, and the kernels ranked by
 device time.  With ``--temperature`` every row also samples at that
@@ -35,6 +38,7 @@ activity; when it reports none they are null.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -105,12 +109,16 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="run this many layers at full width")
     ap.add_argument("--paged", action="store_true",
                     help="also time the steps on a paged pool")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     with torch.no_grad():
         params = T.build_params(cfg, QuantMaker(args.seed, device=dev))
     engine = ServingEngine(cfg, params, ServeConfig(
@@ -133,7 +141,8 @@ def main(argv=None) -> None:
     prefill()
     decode()           # warm-up: kernel build and first launches
     out = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "kv": args.kv_dtype, "n_slots": args.n_slots, "chunk": args.chunk,
+           "layers": cfg.n_layers, "kv": args.kv_dtype,
+           "n_slots": args.n_slots, "chunk": args.chunk,
            "prefill_chunk": measure(prefill, args.steps, dev, top=None),
            "decode_step": measure(decode, args.steps, dev, top=None)}
     slab = {k: out[k] for k in ("prefill_chunk", "decode_step")}

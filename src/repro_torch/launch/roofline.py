@@ -5,12 +5,15 @@ nothing is allocated, at any width.
 The count is the unquantized one (every linear a [K, N] matrix), as the
 reference counts its abstract parameter tree built with
 ``quantize=False``: the token embedding, the final norm, the ``lm_head``
-unless tied, and per layer two norms, the q / k / v / o projections and
-the FFN (gate, up, down; or in, out) or, for a MoE model, the router
-[D, E] and every expert's gate, up and down (shared experts, always on,
-as one gated FFN of ``n_shared_experts`` expert widths).  The active count
-keeps ``top_k`` of ``n_experts`` of the routed experts' weights, as the
-reference computes it.
+unless tied, and per layer two norms, the attention (GQA: the q / k / v /
+o projections; MLA: ``w_dkv``, ``w_uk``, ``w_uv``, ``wo``, ``w_dq`` and
+``w_uq`` — or one dense ``w_uq`` without a query low rank — and the
+``kv_norm`` / ``q_norm`` gammas) and the FFN (gate, up, down; or in,
+out) or, for a MoE model, the router [D, E], every expert's gate, up and
+down and the shared experts (always on, one gated FFN of
+``n_shared_experts`` expert widths).  The active count keeps ``top_k`` of
+``n_experts`` of the routed experts' weights, as the reference computes
+it.
 """
 from __future__ import annotations
 
@@ -23,14 +26,26 @@ def _norm(cfg: ModelConfig) -> int:
     return cfg.d_model * (2 if cfg.norm == "layer" else 1)
 
 
+def _attention(cfg: ModelConfig) -> int:
+    d, h = cfg.d_model, cfg.n_heads
+    if not cfg.use_mla:
+        dh = cfg.head_dim
+        return d * h * dh * 2 + d * cfg.n_kv_heads * dh * 2
+    lora, rope = cfg.kv_lora, cfg.d_head_rope
+    qk = h * (cfg.d_head_nope + rope)
+    n = (d * (lora + rope) + lora + lora * h * cfg.d_head_nope
+         + lora * h * cfg.d_head_v + h * cfg.d_head_v * d)
+    if cfg.q_lora:
+        return n + d * cfg.q_lora + cfg.q_lora + cfg.q_lora * qk
+    return n + d * qk
+
+
 def model_params(cfg: ModelConfig) -> Dict[str, float]:
     """{'total', 'active'} parameter counts (equal for a dense model)."""
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"model_params: family {cfg.family!r} "
-            f"{'with MLA ' if cfg.use_mla else ''}is not ported")
-    d, dh = cfg.d_model, cfg.head_dim
-    attn = d * cfg.n_heads * dh * 2 + d * cfg.n_kv_heads * dh * 2
+            f"model_params: family {cfg.family!r} is not ported")
+    d = cfg.d_model
     expert = 0
     if cfg.n_experts:
         f = cfg.moe_d_ff or cfg.d_ff
@@ -38,7 +53,7 @@ def model_params(cfg: ModelConfig) -> Dict[str, float]:
         ffn = d * cfg.n_experts + expert + 3 * d * f * cfg.n_shared_experts
     else:
         ffn = d * cfg.d_ff * (3 if cfg.gated_ffn else 2)
-    layer = 2 * _norm(cfg) + attn + ffn
+    layer = 2 * _norm(cfg) + _attention(cfg) + ffn
     total = cfg.vocab * d + _norm(cfg) + cfg.n_layers * layer
     if not cfg.tie_embeddings:
         total += d * cfg.vocab

@@ -1,5 +1,5 @@
-"""GQA self-attention with a KV cache (torch twin of the GQA path of
-``repro/models/attention.py``).
+"""GQA and MLA self-attention with a KV cache (torch twin of the GQA and
+MLA paths of ``repro/models/attention.py``).
 
 Two execution modes, as in the reference:
   * ``attend`` — plain torch, for prefill chunks: dense (one score block)
@@ -13,6 +13,14 @@ Shapes: x [B, S, D]; heads [B, S, H, Dh]; KV slabs [B, Smax, Hk, Dh]
 (bf16 or ``QuantizedKV``).  Cache writes go into the slab in place.  With
 a page table the cache is a page arena instead: the new rows are written
 through the table, and the rows' virtual slabs are gathered for the read.
+
+MLA (DeepSeek-V2, ``mla_forward``) caches a head-less latent c_kv [B,
+Smax, kv_lora] and one shared rope key [B, Smax, d_head_rope], both bf16.
+A prefill chunk expands K / V out of the whole latent slab (``w_uk`` /
+``w_uv``, the packed matmul at M = B Smax) and runs ``attend``; decode
+runs the absorbed form, scores and values in latent space, as plain bf16
+contractions (the reference's ``jnp.einsum``: no Pallas kernel there
+either).
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ from repro_torch.quant.kv_cache import (cache_read, cache_write_pages,
                                         cache_write_rows, cache_write_slice,
                                         gather_pages)
 
-from .common import apply_linear, apply_rope
+from .common import (Norm, QLinear, QuantMaker, apply_linear, apply_rope,
+                     rms_norm)
 
 _NEG = -1e30
 
@@ -185,3 +194,154 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
                      q_offset=cache_index, kv_chunk=cfg.kv_chunk,
                      kv_valid_len=valid)
     return apply_linear(params["wo"], out.reshape(b, s, h * dh), plain=plain)
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    n_heads: int
+    q_lora: int          # query low-rank dim (0 = dense q projection)
+    kv_lora: int         # compressed KV latent dim (the cached quantity)
+    d_head_nope: int     # per-head non-rope dim
+    d_head_rope: int     # shared rope dim
+    d_head_v: int        # per-head value dim
+    rope_theta: float = 10000.0
+    kv_chunk: int = 512
+
+
+def mla_params(mk: QuantMaker, cfg: MLAConfig, d_model: int,
+               scheme: Optional[str]) -> dict:
+    """One layer's MLA leaves, in the reference's walk order and under its
+    names (``mla_params``); the two norms' f32 gammas as ``Norm`` leaves."""
+    d, h = d_model, cfg.n_heads
+    qk = h * (cfg.d_head_nope + cfg.d_head_rope)
+    p = {"w_dkv": mk.dense("attn.w_dkv", d, cfg.kv_lora + cfg.d_head_rope,
+                           scheme),
+         "kv_norm": Norm(mk.norm("attn.kv_norm", cfg.kv_lora),
+                         "attn.kv_norm"),
+         "w_uk": mk.dense("attn.w_uk", cfg.kv_lora, h * cfg.d_head_nope,
+                          scheme),
+         "w_uv": mk.dense("attn.w_uv", cfg.kv_lora, h * cfg.d_head_v, scheme),
+         "wo": mk.dense("attn.wo", h * cfg.d_head_v, d, scheme)}
+    if cfg.q_lora:
+        p["w_dq"] = mk.dense("attn.w_dq", d, cfg.q_lora, scheme)
+        p["q_norm"] = Norm(mk.norm("attn.q_norm", cfg.q_lora),
+                           "attn.q_norm")
+        p["w_uq"] = mk.dense("attn.w_uq", cfg.q_lora, qk, scheme)
+    else:
+        p["w_uq"] = mk.dense("attn.w_uq", d, qk, scheme)
+    return p
+
+
+def _mla_queries(params: nn.ModuleDict, cfg: MLAConfig, x: torch.Tensor,
+                 positions: torch.Tensor, plain: bool):
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated)."""
+    b, s, _ = x.shape
+    if cfg.q_lora:
+        cq = rms_norm(apply_linear(params["w_dq"], x, plain=plain),
+                      params["q_norm"].weight)
+        q = apply_linear(params["w_uq"], cq, plain=plain)
+    else:
+        q = apply_linear(params["w_uq"], x, plain=plain)
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_head_nope + cfg.d_head_rope)
+    q_nope, q_rope = q.split([cfg.d_head_nope, cfg.d_head_rope], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_forward(params: nn.ModuleDict, cfg: MLAConfig, x: torch.Tensor, *,
+                cache: Tuple, cache_index, plain: bool = False,
+                page_table: Optional[torch.Tensor] = None):
+    """x [B, S, D] -> out [B, S, D]; writes the new latent and rope key
+    into ``cache`` = (c_kv [B, Smax, kv_lora], k_rope [B, Smax, rope]) in
+    place.  ``cache_index``: an int offset (a prefill chunk: S positions
+    written there, K / V expanded over the slab) or a [B] tensor (decode,
+    S == 1: row i writes and attends at its own length, absorbed).  Paged
+    MLA pools are not ported: a ``page_table`` raises."""
+    if page_table is not None:
+        raise NotImplementedError("paged MLA pools are not ported: the "
+                                  "latent cache is a slab")
+    b, s, _ = x.shape
+    per_row = torch.is_tensor(cache_index) and cache_index.dim() == 1
+    if per_row and s != 1:
+        raise ValueError("per-row cache_index is the decode (S == 1) path")
+    steps = torch.arange(s, device=x.device)[None, :]
+    positions = (cache_index[:, None] + steps) if per_row \
+        else (cache_index + steps)                             # [B or 1, S]
+    q_nope, q_rope = _mla_queries(params, cfg, x, positions, plain)
+
+    ckr = apply_linear(params["w_dkv"], x, plain=plain)
+    c_kv, k_rope = ckr.split([cfg.kv_lora, cfg.d_head_rope], dim=-1)
+    c_kv = rms_norm(c_kv, params["kv_norm"].weight)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+
+    c_cache, r_cache = cache
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        cache_write_rows(c_cache, c_kv, rows, cache_index)
+        cache_write_rows(r_cache, k_rope, rows, cache_index)
+        valid = (cache_index + s).to(torch.int32)
+    else:
+        cache_write_slice(c_cache, c_kv, cache_index)
+        cache_write_slice(r_cache, k_rope, cache_index)
+        valid = torch.full((b,), cache_index + s, dtype=torch.int32,
+                           device=x.device)
+    if s == 1:
+        out = _mla_decode_absorbed(params, cfg, q_nope, q_rope, c_cache,
+                                   r_cache, valid)
+    else:
+        out = _mla_expanded(params, cfg, q_nope, q_rope, c_cache, r_cache,
+                            valid, cache_index, plain)
+    return apply_linear(params["wo"], out.reshape(b, s, -1), plain=plain)
+
+
+def _mla_expanded(params, cfg: MLAConfig, q_nope, q_rope, c_kv, k_rope,
+                  valid, q_off, plain: bool):
+    """K / V expanded out of the latent slab per head (the shared rope key
+    folded in as extra head dims), then ``attend`` with queries of nope +
+    rope and values of d_head_v dims."""
+    b, sk = c_kv.shape[0], c_kv.shape[1]
+    h = cfg.n_heads
+    k_nope = apply_linear(params["w_uk"], c_kv, plain=plain).reshape(
+        b, sk, h, cfg.d_head_nope)
+    v = apply_linear(params["w_uv"], c_kv, plain=plain).reshape(
+        b, sk, h, cfg.d_head_v)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, sk, h, cfg.d_head_rope)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    return attend(q_full, k_full, v, q_offset=q_off, kv_chunk=cfg.kv_chunk,
+                  kv_valid_len=valid)
+
+
+def _mla_decode_absorbed(params, cfg: MLAConfig, q_nope, q_rope, c_kv,
+                         k_rope, valid):
+    """Absorbed decode: ``w_uk`` folded into the query, scores and values
+    in latent space, ``w_uv`` applied on the way out; K / V are never
+    expanded.  Each contraction is bf16 storage over f32 sums; the latent
+    and rope scores are each rounded to bf16, added in f32 and scaled by
+    an f32 1/sqrt(nope + rope) after the sum, as the reference does."""
+    sk = c_kv.shape[1]
+    h, lora = cfg.n_heads, cfg.kv_lora
+    w_uk = _dense_bf16(params["w_uk"]).reshape(lora, h, cfg.d_head_nope)
+    q_lat = _bf16_einsum("bqhd,lhd->bqhl", q_nope, w_uk)
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        float(cfg.d_head_nope + cfg.d_head_rope), dtype=torch.float32,
+        device=q_nope.device))
+    s_lat = _bf16_einsum("bqhl,bkl->bhqk", q_lat, c_kv)
+    s_rope = _bf16_einsum("bqhd,bkd->bhqk", q_rope, k_rope)
+    s = (s_lat.to(torch.float32) + s_rope.to(torch.float32)) * scale
+    kpos = torch.arange(sk, device=s.device)[None, None, None, :]
+    s = torch.where(kpos < valid.to(s.device)[:, None, None, None], s,
+                    torch.full((), _NEG, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o_lat = _bf16_einsum("bhqk,bkl->bqhl", p.to(torch.bfloat16), c_kv)
+    w_uv = _dense_bf16(params["w_uv"]).reshape(lora, h, cfg.d_head_v)
+    return _bf16_einsum("bqhl,lhd->bqhd", o_lat, w_uv)
+
+
+def _dense_bf16(leaf: nn.Module) -> torch.Tensor:
+    """A linear leaf's weight [K, N] as bf16 (a quantized leaf dequantized
+    once and kept, ``QLinear.dense_bf16``)."""
+    return leaf.dense_bf16() if isinstance(leaf, QLinear) else leaf.weight

@@ -10,7 +10,9 @@ Linear leaves keep the reference's ``[K, N]`` layout (x @ W):
                     N % 4 == 0), applied through
                     ``kernels.ops.grouped_quantized_matmul``;
   * ``DenseLinear`` a bf16 [K, N] weight (``lm_head``); applied with
-                    ``torch.matmul``, as the reference leaves it to XLA.
+                    ``torch.matmul``, as the reference leaves it to XLA;
+  * ``Norm``        an RMS norm's f32 gamma inside a layer's leaf dict
+                    (MLA's ``q_norm`` / ``kv_norm``).
 
 ``QuantMaker`` draws normal weights from a ``torch.Generator`` on the
 target device and quantizes each leaf there, one layer at a time, so a
@@ -27,7 +29,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.ops import quantized_matmul
-from repro_torch.quant.schemes import get_scheme, quantize_weights
+from repro_torch.quant.schemes import (dequantize, get_scheme,
+                                      quantize_weights)
 
 
 class QLinear(nn.Module):
@@ -51,6 +54,8 @@ class QLinear(nn.Module):
             packed = packed.t().contiguous()
         self.register_buffer("packed", packed)
         self.register_buffer("scales", scales)
+        # the leaf dequantized to bf16, made on first use (``dense_bf16``)
+        self.register_buffer("dense", None, persistent=False)
         self.shape = tuple(shape)
         self.name = name
 
@@ -58,12 +63,35 @@ class QLinear(nn.Module):
         """The codes in the reference's layout (w8a8: int8 [K, N])."""
         return self.packed if self.scheme.packed else self.packed.t()
 
+    def dense_bf16(self) -> torch.Tensor:
+        """The weights [K, N] dequantized (code x group scale in f32, as
+        the reference's ``dequantize``) and rounded to bf16: made once, on
+        first use, and kept beside the codes (MLA's absorbed decode reads
+        ``w_uk`` / ``w_uv`` so every step)."""
+        if self.dense is None:
+            if not self.scheme.packed:
+                raise NotImplementedError(
+                    f"{self.name}: dense_bf16 dequantizes the packed "
+                    f"schemes, not {self.scheme_name!r}")
+            self.dense = dequantize(self.scheme, self.packed, self.scales,
+                                    self.shape).to(torch.bfloat16)
+        return self.dense
+
     def extra_repr(self) -> str:
         return f"{self.scheme_name}, {self.shape}, {self.name}"
 
 
 class DenseLinear(nn.Module):
     """Dense bf16 linear weights [K, N]."""
+
+    def __init__(self, weight: torch.Tensor, name: Optional[str] = None):
+        super().__init__()
+        self.register_buffer("weight", weight)
+        self.name = name
+
+
+class Norm(nn.Module):
+    """An RMS norm's f32 gamma [dim] as a leaf of a layer's leaf dict."""
 
     def __init__(self, weight: torch.Tensor, name: Optional[str] = None):
         super().__init__()

@@ -1,6 +1,5 @@
 """Mixture-of-Experts with capacity dispatch (torch twin of
-``repro/models/moe.py``, the serving path: no auxiliary loss, no shared
-experts).
+``repro/models/moe.py``, the serving path: no auxiliary loss).
 
 Routing and dispatch follow the reference step for step, all on the
 device (no host sync: no ``.item()``, no boolean-mask indexing, no
@@ -27,6 +26,11 @@ The expert FFN runs each leaf as ONE launch over groups of rows
     (the kernels skip them, and a buffer with no token reads no weight).
 The combine gathers each (token, k) slot's output, multiplies by its
 gate (zero where dropped) in bf16 and sums over k, as ``_moe_group``.
+Shared experts (DeepSeek-V2: always on, one gated FFN of
+``n_shared_experts`` expert widths, leaves ``shared_gate`` / ``shared_up``
+/ ``shared_down`` under the logical names ``ffn.w_*``) run on every token
+through the packed linear kernels, and their output is added to the
+combined routed output in bf16.
 """
 from __future__ import annotations
 
@@ -51,23 +55,37 @@ class MoEConfig:
     top_k: int
     capacity_factor: float = 1.25
     activation: str = "silu"
+    n_shared_experts: int = 0
+
+
+# the shared experts' leaves and their logical names (the reference's Maker
+# walk names them as a dense gated FFN's)
+SHARED_LEAVES = {"shared_gate": "ffn.w_gate", "shared_up": "ffn.w_up",
+                 "shared_down": "ffn.w_down"}
 
 
 def moe_cfg(cfg: ModelConfig) -> MoEConfig:
     return MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k,
                      capacity_factor=cfg.capacity_factor,
-                     activation=cfg.activation)
+                     activation=cfg.activation,
+                     n_shared_experts=cfg.n_shared_experts)
 
 
 def moe_params(mk: QuantMaker, cfg: ModelConfig) -> dict:
-    """One layer's router (bf16 always) and expert stacks, by the
-    reference's logical names."""
+    """One layer's router (bf16 always), expert stacks and shared experts,
+    in the reference's walk order and by its logical names."""
     d, f, e, s = (cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
                   cfg.scheme_ffn)
-    return {"router": mk.dense("moe.router", d, e, None),
-            "w_gate": mk.dense("moe.w_gate", d, f, s, experts=e),
-            "w_up": mk.dense("moe.w_up", d, f, s, experts=e),
-            "w_down": mk.dense("moe.w_down", f, d, s, experts=e)}
+    p = {"router": mk.dense("moe.router", d, e, None),
+         "w_gate": mk.dense("moe.w_gate", d, f, s, experts=e),
+         "w_up": mk.dense("moe.w_up", d, f, s, experts=e),
+         "w_down": mk.dense("moe.w_down", f, d, s, experts=e)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared_gate"] = mk.dense("ffn.w_gate", d, fs, s)
+        p["shared_up"] = mk.dense("ffn.w_up", d, fs, s)
+        p["shared_down"] = mk.dense("ffn.w_down", fs, d, s)
+    return p
 
 
 def capacity(group_tokens: int, cfg: MoEConfig) -> int:
@@ -155,7 +173,21 @@ def moe_forward(p: nn.ModuleDict, cfg: MoEConfig, x: torch.Tensor, *,
                 plain: bool = False,
                 routes: Optional[Routes] = None) -> torch.Tensor:
     """x [B, S, D] bf16 -> [B, S, D] bf16, each batch row its own routing
-    group of S tokens."""
+    group of S tokens; plus the shared experts' output where there are
+    any."""
+    y = _routed(p, cfg, x, plain=plain, routes=routes)
+    if not cfg.n_shared_experts:
+        return y
+    g = apply_linear(p["shared_gate"], x, plain=plain)
+    u = apply_linear(p["shared_up"], x, plain=plain)
+    h = (activate(cfg.activation, g.to(torch.float32))
+         * u.to(torch.float32)).to(torch.bfloat16)
+    return y + apply_linear(p["shared_down"], h, plain=plain)
+
+
+def _routed(p: nn.ModuleDict, cfg: MoEConfig, x: torch.Tensor, *,
+            plain: bool, routes: Optional[Routes]) -> torch.Tensor:
+    """The routed experts' combined output [B, S, D] bf16."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     gates, idx, _ = route(x, p["router"], cfg, plain=plain, routes=routes)

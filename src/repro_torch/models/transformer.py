@@ -1,7 +1,8 @@
 """The dense and MoE transformer families: parameters, forward, KV cache
 (torch twin of the dense / MoE path of ``repro/models/transformer.py``; a
-MoE block holds ``moe`` — router and expert stacks, ``models/moe.py`` —
-in place of ``ffn``).
+MoE block holds ``moe`` — router, expert stacks and any shared experts,
+``models/moe.py`` — in place of ``ffn``; with ``use_mla`` the block's
+attention is DeepSeek-V2's latent attention, ``attention.mla_forward``).
 
 ``forward`` runs the reference's serving modes as a loop over layers:
   * ``prefill_chunk`` — S new positions written at an int ``cache_index``;
@@ -11,11 +12,12 @@ in place of ``ffn``).
     at its own length), attention through the fused decode kernel.
 
 The cache is ``(k, v)``: stacked per-layer slabs [L, B, Smax, Hk, Dh] (bf16
-or ``QuantizedKV``), written in place; with a ``page_table`` [B,
-pages_per_slot], page arenas [L, n_pages, page_size, Hk, Dh] instead
-(paged pools: each layer writes through the table and reads the gathered
-virtual slabs).  ``plain=True`` runs every kernel's
-plain version instead (the on-card reference for the kernels).
+or ``QuantizedKV``), written in place (MLA: ``(c_kv, k_rope)``, bf16
+[L, B, Smax, kv_lora] and [L, B, Smax, d_head_rope]); with a
+``page_table`` [B, pages_per_slot], page arenas [L, n_pages, page_size,
+Hk, Dh] instead (paged pools, GQA only: each layer writes through the
+table and reads the gathered virtual slabs).  ``plain=True`` runs every
+kernel's plain version instead (the on-card reference for the kernels).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.quant.kv_cache import kv_slab
+from repro_torch.quant.kv_cache import kv_dtype_name, kv_slab
 
 from . import attention as A
 from . import moe as MOE
@@ -40,12 +42,14 @@ def attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
                         use_rope=cfg.use_rope, kv_chunk=cfg.kv_chunk)
 
 
+def mla_cfg(cfg: ModelConfig) -> A.MLAConfig:
+    return A.MLAConfig(n_heads=cfg.n_heads, q_lora=cfg.q_lora,
+                       kv_lora=cfg.kv_lora, d_head_nope=cfg.d_head_nope,
+                       d_head_rope=cfg.d_head_rope, d_head_v=cfg.d_head_v,
+                       rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family == "moe" and (cfg.use_mla or cfg.n_shared_experts):
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves MoE models with GQA attention and "
-            "routed experts only; MLA (latent attention) and shared experts "
-            "are not ported yet")
     ffn = (cfg.gated_ffn, cfg.activation)
     moe = cfg.family == "moe" and cfg.n_experts > 0 and cfg.top_k > 0
     if (cfg.family not in ("dense", "moe") or (cfg.family == "moe") != moe
@@ -55,12 +59,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family with RMS norm, a "
             "gated SiLU or non-gated squared-ReLU / GELU FFN, and the MoE "
-            "family with gated SiLU experts, both with an untied lm_head")
+            "family with gated SiLU experts (routed, and shared where the "
+            "config has them), both with GQA or MLA attention and an "
+            "untied lm_head")
 
 
 class Block(nn.Module):
-    """One transformer block: RMS norm, GQA attention, RMS norm, then the
-    FFN (``ffn``) or the MoE layer (``moe``: router and expert stacks)."""
+    """One transformer block: RMS norm, attention (GQA, or MLA's leaves),
+    RMS norm, then the FFN (``ffn``) or the MoE layer (``moe``: router,
+    expert stacks, shared experts)."""
 
     def __init__(self, ln1, attn: dict, ln2, ffn: Optional[dict] = None,
                  moe: Optional[dict] = None):
@@ -97,10 +104,13 @@ def build_params(cfg: ModelConfig, mk: QuantMaker) -> DenseLM:
     embed = mk.table("embed", cfg.vocab, d)
     layers = []
     for _ in range(cfg.n_layers):
-        attn = {"wq": mk.dense("attn.wq", d, h * dh, sp),
-                "wk": mk.dense("attn.wk", d, hk * dh, sp),
-                "wv": mk.dense("attn.wv", d, hk * dh, sp),
-                "wo": mk.dense("attn.wo", h * dh, d, sp)}
+        if cfg.use_mla:
+            attn = A.mla_params(mk, mla_cfg(cfg), d, sp)
+        else:
+            attn = {"wq": mk.dense("attn.wq", d, h * dh, sp),
+                    "wk": mk.dense("attn.wk", d, hk * dh, sp),
+                    "wv": mk.dense("attn.wv", d, hk * dh, sp),
+                    "wo": mk.dense("attn.wo", h * dh, d, sp)}
         if cfg.family == "moe":
             layers.append(Block(mk.norm("ln1", d), attn, mk.norm("ln2", d),
                                 moe=MOE.moe_params(mk, cfg)))
@@ -150,15 +160,18 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
     on the kernel path's routes)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; the port runs {MODES}")
-    acfg = attn_cfg(cfg)
+    if cfg.use_mla:
+        acfg, attention = mla_cfg(cfg), A.mla_forward
+    else:
+        acfg, attention = attn_cfg(cfg), A.gqa_forward
     mcfg = MOE.moe_cfg(cfg) if cfg.family == "moe" else None
     x = params.embed[tokens].to(torch.bfloat16)
     k_all, v_all = cache
     for l, blk in enumerate(params.layers):
         h = rms_norm(x, blk.ln1)
-        x = x + A.gqa_forward(blk.attn, acfg, h, cache=(k_all[l], v_all[l]),
-                              cache_index=cache_index, plain=plain,
-                              page_table=page_table)
+        x = x + attention(blk.attn, acfg, h, cache=(k_all[l], v_all[l]),
+                          cache_index=cache_index, plain=plain,
+                          page_table=page_table)
         h = rms_norm(x, blk.ln2)
         if mcfg is not None:
             x = x + MOE.moe_forward(blk.moe, mcfg, h, plain=plain,
@@ -173,6 +186,17 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_dtype="bf16", device="cuda") -> Tuple:
     """Zeroed (k, v) cache: stacked slabs [L, batch, max_len, Hk, Dh] at
-    ``kv_dtype`` ('bf16' | 'int8' | 'fp8')."""
+    ``kv_dtype`` ('bf16' | 'int8' | 'fp8').  MLA: the latent cache (c_kv
+    [L, batch, max_len, kv_lora], k_rope [L, batch, max_len,
+    d_head_rope]), bf16 only (``mla_cache_spec``)."""
+    if cfg.use_mla:
+        if kv_dtype_name(kv_dtype) != "bf16":
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r}: KV quantization covers the GQA "
+                "per-head cache; the MLA latent cache is already compressed "
+                "(kv_lora per token) and stays bf16")
+        lead = (cfg.n_layers, batch, max_len)
+        return (kv_slab(lead + (cfg.kv_lora,), "bf16", device),
+                kv_slab(lead + (cfg.d_head_rope,), "bf16", device))
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return (kv_slab(shape, kv_dtype, device), kv_slab(shape, kv_dtype, device))

@@ -69,7 +69,8 @@ def kv_slab(shape, kv_dtype, device) -> torch.Tensor | QuantizedKV:
 
 def cache_write_slice(slab, vals: torch.Tensor, offset: int):
     """Write ``vals`` [B, S, ...] into ``slab`` at sequence position
-    ``offset`` (axis 1), in place — the prefill-chunk write."""
+    ``offset`` (axis 1), in place — the prefill-chunk write.  A bf16 slab
+    may be head-less (MLA's latent and rope slabs, [B, Smax, D])."""
     s = vals.shape[1]
     if isinstance(slab, QuantizedKV):
         packed, scales = kv_quantize(get_kv_scheme(slab.scheme_name), vals)
@@ -83,7 +84,7 @@ def cache_write_slice(slab, vals: torch.Tensor, offset: int):
 def cache_write_rows(slab, vals: torch.Tensor, rows: torch.Tensor,
                      offsets: torch.Tensor):
     """Per-row scatter (decode), in place: row i of ``vals`` [B, 1, ...]
-    lands at ``slab[rows[i], offsets[i]]``."""
+    lands at ``slab[rows[i], offsets[i]]`` (head-less bf16 slabs too)."""
     if isinstance(slab, QuantizedKV):
         packed, scales = kv_quantize(get_kv_scheme(slab.scheme_name), vals)
         slab.packed[rows, offsets] = packed[:, 0]

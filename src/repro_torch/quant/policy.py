@@ -13,7 +13,8 @@ checks it against the reference's modes and drops it.
 Validation is eager: unknown names raise at construction, and
 ``validate_for(cfg)`` raises the config incompatibilities (a pattern that
 matches no leaf, a K that the scheme's packing word or scale group does not
-divide, a quantized KV tier on a ``d_head`` not divisible by 4).  The port
+divide, a quantized KV tier on an MLA model or on a ``d_head`` not
+divisible by 4).  The port
 serves the packed schemes, w8a8 (raw int8 codes) and bf16.
 """
 from __future__ import annotations
@@ -37,6 +38,11 @@ def validate_kv_tier(tier, cfg=None) -> str:
     if name not in KV_TIERS:
         raise ValueError(
             f"unknown KV tier {tier!r}; valid tiers: {list(KV_TIERS)}")
+    if cfg is not None and name != "bf16" and getattr(cfg, "use_mla", False):
+        raise ValueError(
+            f"kv tier {name!r}: KV quantization covers the GQA per-head "
+            "cache; the MLA latent cache is already compressed and stays "
+            "bf16 — use 'bf16' for MLA models")
     if cfg is not None and name != "bf16" and cfg.head_dim % 4:
         raise ValueError(
             f"kv tier {name!r}: d_head={cfg.head_dim} is not divisible by "
@@ -125,21 +131,39 @@ class PrecisionPolicy:
 
 def leaf_info(cfg) -> Dict[str, Tuple[int, int, str]]:
     """{logical leaf name -> (K, N, config-default scheme)} of the families
-    the port serves (dense: gated or non-gated FFN; MoE: a bf16 router and
-    per-expert gated FFN stacks, each expert's leaf [K, N]; untied
-    ``lm_head``) — the names ``repro``'s Maker walk gives the same
-    leaves."""
+    the port serves (dense: gated or non-gated FFN; MoE: GQA or MLA
+    attention, a bf16 router and per-expert gated FFN stacks, each
+    expert's leaf [K, N], and shared experts as one gated FFN under the
+    ``ffn.*`` names; untied ``lm_head``) — the names ``repro``'s Maker walk
+    gives the same leaves, so a rule for ``ffn.*`` reaches the shared
+    experts as it does there."""
     d, h, hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     sp = cfg.scheme_proj or "bf16"
     sf = cfg.scheme_ffn or "bf16"
-    info = {"attn.wq": (d, h * dh, sp), "attn.wk": (d, hk * dh, sp),
-            "attn.wv": (d, hk * dh, sp), "attn.wo": (h * dh, d, sp)}
+    if cfg.use_mla:
+        qk = h * (cfg.d_head_nope + cfg.d_head_rope)
+        info = {"attn.w_dkv": (d, cfg.kv_lora + cfg.d_head_rope, sp),
+                "attn.w_uk": (cfg.kv_lora, h * cfg.d_head_nope, sp),
+                "attn.w_uv": (cfg.kv_lora, h * cfg.d_head_v, sp),
+                "attn.wo": (h * cfg.d_head_v, d, sp)}
+        if cfg.q_lora:
+            info.update({"attn.w_dq": (d, cfg.q_lora, sp),
+                         "attn.w_uq": (cfg.q_lora, qk, sp)})
+        else:
+            info["attn.w_uq"] = (d, qk, sp)
+    else:
+        info = {"attn.wq": (d, h * dh, sp), "attn.wk": (d, hk * dh, sp),
+                "attn.wv": (d, hk * dh, sp), "attn.wo": (h * dh, d, sp)}
     if cfg.n_experts:
         fe = cfg.moe_d_ff or f
         info.update({"moe.router": (d, cfg.n_experts, "bf16"),
                      "moe.w_gate": (d, fe, sf), "moe.w_up": (d, fe, sf),
                      "moe.w_down": (fe, d, sf)})
+        if cfg.n_shared_experts:
+            fs = fe * cfg.n_shared_experts
+            info.update({"ffn.w_gate": (d, fs, sf), "ffn.w_up": (d, fs, sf),
+                         "ffn.w_down": (fs, d, sf)})
     elif cfg.gated_ffn:
         info.update({"ffn.w_gate": (d, f, sf), "ffn.w_up": (d, f, sf),
                      "ffn.w_down": (f, d, sf)})

@@ -52,7 +52,8 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.common import QLinear
+from repro_torch.models.common import Norm, QLinear
+from repro_torch.models.moe import SHARED_LEAVES
 from repro_torch.quant.policy import PrecisionPolicy, validate_kv_tier
 from repro_torch.runtime.fault_tolerance import StepFault
 
@@ -99,13 +100,17 @@ def resolve_device(device) -> torch.device:
 
 
 def leaf_schemes(params: T.DenseLM) -> Dict[str, str]:
-    """{logical leaf name -> scheme} of a parameter module; raises when
-    the layers disagree."""
+    """{logical leaf name -> scheme} of a parameter module (the shared
+    experts under their ``ffn.*`` names; norms are no linear leaves);
+    raises when the layers disagree."""
     found: Dict[str, set] = {"lm_head": {_scheme(params.lm_head)}}
     for blk in params.layers:
         for group in ("attn", "ffn", "moe"):
             for name, leaf in getattr(blk, group, {}).items():
-                found.setdefault(f"{group}.{name}", set()).add(_scheme(leaf))
+                if isinstance(leaf, Norm):
+                    continue
+                logical = SHARED_LEAVES.get(name, f"{group}.{name}")
+                found.setdefault(logical, set()).add(_scheme(leaf))
     mixed = sorted(n for n, s in found.items() if len(s) > 1)
     if mixed:
         raise ValueError(f"layers disagree on the schemes of {mixed}")

@@ -14,7 +14,9 @@ length, and the next tenant's prefill overwrites [0, P) before any read.
 Capacity is a function of KV bytes per token: ``slots_for_budget`` turns
 a cache-memory budget into a slot count at a tier, so the int8 / fp8
 tiers (Dh code bytes plus one f32 scale per position and head) fit about
-twice the bf16 slots of the same budget.
+twice the bf16 slots of the same budget.  An MLA model's pool holds the
+latent cache (c_kv, k_rope), bf16 only: (kv_lora + d_head_rope) x 2 bytes
+a token a layer (deepseek-v2: 1152).
 
 ``PagedKVPool`` (the reference's paged pool) stores each layer's cache as
 a page arena [L, n_pages, page_size, Hk, Dh] instead, with a page table
@@ -459,7 +461,8 @@ class PagedKVPool:
     page arena ``cache`` = (k, v), each [L, n_pages, page_size, Hk, Dh]
     (bf16 or ``QuantizedKV``), written in place; ``page_table`` [n_slots,
     pages_per_slot] lives on the host and goes to the device once per
-    dispatch.  All paging policy is the ``PageAllocator``'s."""
+    dispatch.  All paging policy is the ``PageAllocator``'s.  An MLA
+    model's latent cache has no paged pool yet: it raises."""
 
     paged = True
 
@@ -470,6 +473,10 @@ class PagedKVPool:
         """``page_size`` defaults to ``align`` (the prefill chunk);
         ``n_pages`` to full provisioning (every slot's capacity plus the
         garbage page)."""
+        if cfg.use_mla:
+            raise NotImplementedError(
+                f"{cfg.name}: paged pools of the MLA latent cache are not "
+                "ported; serve MLA models from a slab pool (paged=False)")
         if n_slots < 1 or max_len < 1 or align < 1:
             raise ValueError("n_slots, max_len and align must be >= 1")
         page_size = align if page_size is None else page_size

@@ -97,8 +97,9 @@ class DraftEngine:
     the target per ``policy.to_json()``.  Its pools are slabs (their state
     is rolled back by a length every round and never shared), and it has
     no fault injector: the scheduler fences the draft dispatches under
-    the target's.  Pool state is per ``DraftEngine``: one pool per target
-    tier with mirrored slot ids, and each slot's draft length (-1: stale,
+    the target's.  A quantized-KV draft of an MLA model is refused
+    (``validate_kv_tier``: the latent cache stays bf16).  Pool state is
+    per ``DraftEngine``: one pool per target tier with mirrored slot ids, and each slot's draft length (-1: stale,
     the slot was freed or never drafted)."""
 
     def __init__(self, engine, cfg: SpecConfig):
@@ -107,8 +108,8 @@ class DraftEngine:
         self.target = engine
         policy = cfg.draft_policy
         if policy is None:
-            policy = dataclasses.replace(engine.policy,
-                                         kv=validate_kv_tier(cfg.draft_kv))
+            policy = dataclasses.replace(
+                engine.policy, kv=validate_kv_tier(cfg.draft_kv, engine.cfg))
         key = policy.to_json()
         inner = engine.draft_engines.get(key)
         if inner is None:

@@ -50,7 +50,7 @@ def test_every_port_module_imports_without_cuda():
     assert "repro_torch.kernels.xtramac_mac" in names
     for mod in ("perfmodel.analytical", "perfmodel.hardware",
                 "runtime.fault_tolerance", "serve.slo", "launch.roofline",
-                "models.moe"):
+                "models.moe", "configs.deepseek_v2_236b"):
         assert f"repro_torch.{mod}" in names
     for name in names:
         importlib.import_module(name)

@@ -488,13 +488,19 @@ def test_leaf_info_and_policy_cover_the_moe_leaves(smoke):
 
 
 def test_check_supported_admits_qwen3_and_refuses_mla_and_shared_experts():
+    """MLA and shared experts are ported now: qwen3-moe, deepseek-v2 and
+    qwen3-moe with either of deepseek's features are admitted; a MoE stack
+    with no experts (or no top-k) and a non-RMS norm are still refused."""
     pcfg = port_config(ARCH)
     T.check_supported(pcfg)
-    for bad in (dict(use_mla=True), dict(n_shared_experts=2)):
-        with pytest.raises(NotImplementedError, match="MLA .* shared"):
-            T.check_supported(dataclasses.replace(pcfg, **bad))
-    with pytest.raises(NotImplementedError):
-        T.check_supported(dataclasses.replace(pcfg, n_experts=0))
+    T.check_supported(port_config("deepseek-v2-236b"))
+    for more in (dict(use_mla=True, q_lora=48, kv_lora=32),
+                 dict(n_shared_experts=2)):
+        T.check_supported(dataclasses.replace(pcfg, **more))
+    for bad in (dict(n_experts=0), dict(top_k=0), dict(norm="layer")):
+        for base in (pcfg, port_config("deepseek-v2-236b")):
+            with pytest.raises(NotImplementedError, match="RMS norm"):
+                T.check_supported(dataclasses.replace(base, **bad))
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
