@@ -162,7 +162,25 @@ non-zero after the last phase; exceptions are not caught):
      falls back to plain bursts, (4) the accounting identities hold and
      one verify dispatch runs per decoding tier a spec round, (5) in B, K1
      and K3 on the bf16 target, K4 on the int8 draft pool and K2 on
-     prefill and on the draft's catch-up chunks;
+     prefill and on the draft's catch-up chunks; run C carries a tracer
+     and a registry (``repro_torch.obs``): one spec_draft and one
+     spec_verify event a round on the draft / verify lanes, the
+     registry's spec-round and host-sync counters the scheduler's;
+  5f. after 5e, on granite's parameters: observability
+     (``granite-8b-obs``): phase 5's bf16 serve run again with the full
+     bundle attached (tracer, registry with JSONL snapshots, the
+     model-vs-measured profiler), held to phase 5's obs-off run: the same
+     tokens bit for bit, host syncs, decode dispatches, steps, burst
+     histogram and K1-K4 launch counts; the trace parses, holds the
+     WAITING / PREFILL / DECODE spans of every request, one decode_burst
+     event a decode dispatch and one prefill_chunk event a chunk, and the
+     registry's counters equal the scheduler's tallies (written to
+     ``chiprun_out/granite-8b-obs.trace.json``); it prints the profiler's
+     ``per_tier`` (the paper's V80 model seconds over the card's host
+     wall: no bound) and ``obs.step_cost`` of the serve pool's decode
+     step at K = 1 and 8 (every slot holding one 64-token chunk) beside
+     its device-busy ms from one ``torch.profiler`` pass
+     (``profile_step.measure``) and the implied bytes/s;
   6. model phases only, at full width and cut depth: qwen3-moe at 4
      layers with 128-token prefill chunks (capacity buffers of 10 rows:
      grouped K2), starcoder2-15b at 4
@@ -192,6 +210,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -226,11 +245,15 @@ from repro_torch.launch import logit_spread as LS  # noqa: E402
 from repro_torch.launch.serve import build_fault_injector  # noqa: E402
 from repro_torch.launch.profile_datapath import (  # noqa: E402
     DATAPATH_COMBOS, TABLE_VII_LANE_MACS, random_operands)
+from repro_torch.launch.profile_step import measure  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.perfmodel.analytical import (  # noqa: E402
     decode_latency, gemv_engine_for)
 from repro_torch.models.common import QuantMaker  # noqa: E402
+from repro_torch.obs import (MetricsRegistry, Observability,  # noqa: E402
+                             PID_REQUESTS, SnapshotWriter, StepProfiler,
+                             Tracer, step_cost)
 from repro_torch.quant.kv_cache import QuantizedKV, cache_read  # noqa: E402
 from repro_torch.quant.policy import PrecisionPolicy  # noqa: E402
 from repro_torch.quant.schemes import (  # noqa: E402
@@ -284,6 +307,9 @@ PATH_KERNELS = {
                        "decode_attention_bf16", "decode_attention_quant"),
     "granite-8b-spec": ("packed_gemv", "packed_matmul",
                         "decode_attention_bf16", "decode_attention_quant"),
+    # bf16 KV only: K4 does not run on the observed path
+    "granite-8b-obs": ("packed_gemv", "packed_matmul",
+                       "decode_attention_bf16"),
     "minitron-8b": ("w8a8_matmul", "decode_attention_bf16",
                     "decode_attention_quant"),
     "starcoder2-15b": ("packed_gemv", "packed_matmul",
@@ -349,7 +375,7 @@ PATH_GROUPED_ROWS = {
 MODEL_RUNS = [
     ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True,
      ("granite-8b-tiers", "granite-8b-paged", "granite-8b-slo",
-      "granite-8b-spec")),
+      "granite-8b-spec", "granite-8b-obs")),
     ("minitron-8b", "minitron-8b", 16, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
     ("starcoder2-15b", "starcoder2-15b", 8, (), ("bf16", "int8"),
@@ -522,6 +548,15 @@ PIPELINE_ISSUES = 64
 ATTN_RTOL, ATTN_ATOL = 2.0 ** -7, 1e-5
 
 FAILED_CHECKS = []
+# what each (arch, KV tier) serve run of phase 5 did (tokens, host syncs,
+# dispatches, steps, bursts and its launches: ``serve_tally``) and its
+# host wall
+SERVE_TALLIES = {}
+# the decode step whose FLOPs and bytes ``step_cost`` counts beside its
+# device time: every slot of the serve pool holding one prefill chunk, at
+# K = 1 and a burst of K = 8; {K: calls timed}.  With 8 bursts profiled
+# (~46,000 kernel events) the phase took 129 s on an H100, so one burst
+STEP_COST_CALLS = {1: 8, 8: 1}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1386,11 +1421,11 @@ def serve_requests(cfg, seed=2, n=6, new_tokens=32):
             for p in lens], new_tokens
 
 
-def serve_tier(cfg, params, tier, prompts, new_tokens, chunk, dev):
+def serve_tier(cfg, params, tier, prompts, new_tokens, chunk, dev, obs=None):
     engine = ServingEngine(cfg, params, ServeConfig(
         max_len=512, n_slots=8, prefill_chunk=chunk, max_burst=8,
         policy=PrecisionPolicy(kv=tier), device=str(dev)))
-    sched = Scheduler(engine)
+    sched = Scheduler(engine, obs=obs)
     # staggered arrivals: two at once, then one every 4 scheduler steps, so
     # later requests are admitted while earlier ones decode
     pending = list(enumerate(prompts))
@@ -1416,7 +1451,17 @@ def serve_tier(cfg, params, tier, prompts, new_tokens, chunk, dev):
                 f"request {r.id} emitted an id outside the vocabulary")
     rep = sched.metrics.report()
     rep.update(kv=tier, admitted_mid_flight=mid_flight, host_wall_s=wall)
-    return engine, reqs, rep
+    return engine, reqs, rep, sched
+
+
+def serve_tally(sched, reqs, launches) -> dict:
+    """What an obs-on serve run must repeat of its obs-off run."""
+    return {"tokens": [r.output_tokens for r in reqs],
+            "n_host_syncs": sched.n_host_syncs,
+            "decode_dispatches": sched.n_decode_dispatches,
+            "steps": sched.n_steps,
+            "burst_hist": dict(sched.metrics.burst_hist),
+            "launches": launches}
 
 
 def serve_phase(cfg, params, chunk, dev, tiers=("bf16", "int8")):
@@ -1425,8 +1470,16 @@ def serve_phase(cfg, params, chunk, dev, tiers=("bf16", "int8")):
     prompts, new_tokens = serve_requests(cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    runs = [serve_tier(cfg, params, tier, prompts, new_tokens, chunk, dev)
-            for tier in tiers]
+    runs = []
+    for tier in tiers:
+        before = ops.launch_counts()
+        engine, reqs, rep, sched = serve_tier(cfg, params, tier, prompts,
+                                              new_tokens, chunk, dev)
+        SERVE_TALLIES[(cfg.name, tier)] = (serve_tally(
+            sched, reqs, {k: n - before[k]
+                          for k, n in ops.launch_counts().items()}),
+            rep["host_wall_s"])
+        runs.append((engine, reqs, rep))
     launches = ops.launch_counts()
     formats = ops.format_launch_counts()
     grouped = ops.grouped_launch_counts()
@@ -1447,8 +1500,8 @@ def serve_phase(cfg, params, chunk, dev, tiers=("bf16", "int8")):
             # (the reference's kernels/ops.py:327), so a request's tokens
             # depend on its batch-mates and a solo run may differ; the
             # same run repeated must give the same tokens
-            _, again, _ = serve_tier(cfg, params, rep["kv"], prompts,
-                                     new_tokens, chunk, dev)
+            _, again, _, _ = serve_tier(cfg, params, rep["kv"], prompts,
+                                        new_tokens, chunk, dev)
             require([r.output_tokens for r in again]
                     == [r.output_tokens for r in reqs],
                     f"{cfg.name} ({rep['kv']}): a repeated serve run gave "
@@ -2272,13 +2325,13 @@ def spec_requests(cfg, seed=SPEC_SEED):
     return out
 
 
-def serve_spec(engine, specs, spec, dev):
+def serve_spec(engine, specs, spec, dev, bundle=None):
     """One run of the speculative path: SPEC_EARLY requests at step 0, the
-    rest at SPEC_LATE_STEP.  Returns (scheduler, {id: request}, log):
-    ``log`` holds the host wall, each spec round's draft and verify
-    dispatches by step, and the launches by format inside the draft's
-    catch-up."""
-    sched = Scheduler(engine, spec=spec)
+    rest at SPEC_LATE_STEP, with the observability ``bundle`` attached
+    (None: none).  Returns (scheduler, {id: request}, log): ``log`` holds
+    the host wall, each spec round's draft and verify dispatches by step,
+    and the launches by format inside the draft's catch-up."""
+    sched = Scheduler(engine, spec=spec, obs=bundle)
     obs = {"verify": [], "draft": [], "catchup_launches": {}}
     if spec is not None:
         verify, draft = engine.verify_slots, sched.draft.draft_burst
@@ -2354,7 +2407,10 @@ def spec_phase(cfg, params, chunk, dev):
     launches = ops.launch_counts()
     formats = ops.format_launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    runs["C"] = serve_spec(paged, specs, spec, dev)
+    # run C carries a tracer and a registry: the draft / verify lanes and
+    # the paged gauges on the card
+    bundle = Observability(tracer=Tracer(), registry=MetricsRegistry())
+    runs["C"] = serve_spec(paged, specs, spec, dev, bundle)
     runs["D"] = serve_spec(slab, specs, dataclasses.replace(
         spec, corrupt_drafts=True), dev)
     log(json.dumps({"serve_launches": launches, "by_format": formats,
@@ -2421,6 +2477,7 @@ def spec_phase(cfg, params, chunk, dev):
                     == pool.n_pages - 1,
                     f"{tag}: pages leak: {rep.get('pages')}")
             res["pages"] = rep.get("pages")
+            res["obs"] = spec_trace_checks(tag, sched, bundle)
         if name == "D":
             # 3. nothing accepted, a collapse, plain bursts after it
             snap = sched.spec_planner.snapshot()
@@ -2452,6 +2509,188 @@ def spec_phase(cfg, params, chunk, dev):
     out["seconds"] = time.perf_counter() - t_phase
     log(json.dumps({"path": "granite-8b-spec", "phase_s": out["seconds"],
                     "card": card}))
+    return out, launches, formats
+
+
+def spec_trace_checks(tag, sched, bundle) -> dict:
+    """A traced spec run: one spec_draft and one spec_verify event a
+    round on the tier's draft / verify lanes, the registry's spec and
+    sync counters equal to the scheduler's, the paged gauges present."""
+    events = json.loads(bundle.tracer.to_json())
+    m, reg = sched.metrics, bundle.registry
+    names = [e["name"] for e in events]
+    lanes = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    require(names.count("spec_draft") == names.count("spec_verify")
+            == m.spec_rounds > 0,
+            f"{tag}: {names.count('spec_draft')} draft / "
+            f"{names.count('spec_verify')} verify events, "
+            f"{m.spec_rounds} spec rounds")
+    require({"draft:bf16", "verify:bf16"} <= lanes,
+            f"{tag}: trace lanes {sorted(lanes)}")
+    require(reg.get("serve_spec_rounds_total").value(tier="bf16")
+            == m.spec_rounds
+            and reg.get("serve_host_syncs_total").value()
+            == sched.n_host_syncs
+            and reg.get("serve_pages") is not None,
+            f"{tag}: registry disagrees with the scheduler")
+    return {"trace_events": len(events),
+            "spec_verify_events": names.count("spec_verify")}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: the serve run again with observability attached
+# ---------------------------------------------------------------------------
+def obs_trace_checks(sched, reqs, obs, prompts, chunk) -> dict:
+    """The trace parses; every request has its three spans; one
+    decode_burst event a decode dispatch and one prefill_chunk event a
+    chunk; the registry's counters equal the scheduler's tallies."""
+    events = json.loads(obs.tracer.to_json())
+    spans = {(e["tid"], e["name"]) for e in events
+             if e["ph"] == "X" and e["pid"] == PID_REQUESTS}
+    for r in reqs:
+        require(all((r.id, p) in spans
+                    for p in ("WAITING", "PREFILL", "DECODE")),
+                f"obs: request {r.id} lacks a span")
+    names = [e["name"] for e in events]
+    n_chunks = sum(-(-len(p) // chunk) for p in prompts)
+    require(names.count("decode_burst") == sched.n_decode_dispatches,
+            f"obs: {names.count('decode_burst')} decode_burst events, "
+            f"{sched.n_decode_dispatches} decode dispatches")
+    require(names.count("prefill_chunk") == n_chunks,
+            f"obs: {names.count('prefill_chunk')} prefill_chunk events, "
+            f"{n_chunks} chunks")
+    reg = obs.registry
+    tallies = {
+        "serve_host_syncs_total": (reg.get("serve_host_syncs_total").value(),
+                                   sched.n_host_syncs),
+        "serve_scheduler_steps_total": (
+            reg.get("serve_scheduler_steps_total").value(), sched.n_steps),
+        "serve_decode_dispatches_total": (
+            reg.get("serve_decode_dispatches_total").value(tier="bf16"),
+            sched.n_decode_dispatches),
+        "serve_decode_token_steps_total": (
+            reg.get("serve_decode_token_steps_total").value(tier="bf16"),
+            sched.n_decode_steps),
+        "serve_prefill_chunks_total": (
+            reg.get("serve_prefill_chunks_total").value(tier="bf16"),
+            n_chunks),
+        "serve_admissions_total": (
+            reg.get("serve_admissions_total").value(tier="bf16"), len(reqs)),
+        "serve_new_tokens_total": (
+            reg.get("serve_new_tokens_total").value(tier="bf16"),
+            sum(r.n_generated for r in reqs)),
+    }
+    for name, (got, want) in tallies.items():
+        require(got == want, f"obs: registry {name} {got}, scheduler {want}")
+    require(obs.snapshots.n_written > 0, "obs: no snapshot written")
+    return {"trace_events": len(events), "snapshots": obs.snapshots.n_written,
+            "registry": {k: v[0] for k, v in tallies.items()}}
+
+
+def step_cost_phase(cfg, params, chunk, dev) -> list:
+    """``step_cost`` of the serve pool's decode step at K = 1 and 8 beside
+    its device-busy ms from one profiler pass (``profile_step.measure``):
+    every slot holds one prefill chunk; a burst's lengths are put back
+    after each call, so each call decodes from the same context."""
+    engine = ServingEngine(cfg, params, ServeConfig(
+        max_len=512, n_slots=8, prefill_chunk=chunk, max_burst=8,
+        policy=PrecisionPolicy(kv="bf16"), device=str(dev)))
+    pool = engine.new_pool()
+    prompt = np.random.default_rng(0).integers(
+        1, cfg.vocab, (chunk,)).astype(np.int32)
+    for _ in range(pool.n_slots):
+        engine.prefill_chunk_into_slot(pool, pool.alloc(), prompt, 0)
+    n = pool.n_slots
+    tokens = np.ones((n,), np.int32)
+    ctx = pool.lengths.copy()
+    out = []
+    for k, calls in STEP_COST_CALLS.items():
+        t0 = time.perf_counter()
+        keys = np.zeros((k, n, 2), np.uint32)
+        temps = np.zeros((n,), np.float32)
+        live = np.ones((n,), bool)
+        rem = np.full((n,), k, np.int32)
+        eos = np.full((n,), -1, np.int32)
+
+        def step():
+            if k == 1:
+                engine.decode_slots(pool, tokens, keys[0], temps)
+            else:
+                engine.decode_burst(pool, tokens, keys, temps, live, rem,
+                                    eos)
+                pool.lengths[:] = ctx
+
+        step()
+        res = measure(step, calls, dev, top=4)
+        # the positions read a row: the chunk, and half the burst's own
+        cost = step_cost(engine, pool, k=k,
+                         context=int(ctx.mean()) + (k - 1) // 2)
+        busy = res["device_busy_ms"]
+        out.append(dict(cost, wall_ms=res["wall_ms"], device_busy_ms=busy,
+                        idle_share=res["idle_share"],
+                        bytes_per_s=(cost["hbm_bytes"] / (busy / 1e3)
+                                     if busy else None),
+                        flops_per_s=(cost["flops"] / (busy / 1e3)
+                                     if busy else None),
+                        byte_bound_ms=cost["hbm_bytes"] / HBM_BYTES_PER_S
+                        * 1e3, calls=calls, kernels=res["kernels"],
+                        seconds=time.perf_counter() - t0))
+        require(busy is not None and busy > 0,
+                f"step_cost: no device time for the K = {k} step")
+    return out
+
+
+def obs_phase(cfg, params, chunk, dev):
+    """granite-8b FULL serves phase 5's bf16 requests again with the full
+    bundle (tracer, registry with JSONL snapshots, profiler) attached, held
+    to the obs-off run of phase 5: the same tokens, host syncs, decode
+    dispatches, steps, bursts and K1-K4 launches; then the trace and the
+    registry are read (``obs_trace_checks``) and ``step_cost`` is priced
+    beside the decode step's device time.  Launch counts are set to 0 just
+    before the observed run and read just after."""
+    t_phase = time.perf_counter()
+    prompts, new_tokens = serve_requests(cfg)
+    base, base_wall = SERVE_TALLIES[(cfg.name, "bf16")]
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = MetricsRegistry()
+        obs = Observability(
+            tracer=Tracer(), registry=reg, profiler=StepProfiler(cfg),
+            snapshots=SnapshotWriter(reg, os.path.join(tmp, "metrics.jsonl")))
+        ops.reset_launch_counts()
+        _, reqs, rep, sched = serve_tier(cfg, params, "bf16", prompts,
+                                         new_tokens, chunk, dev, obs=obs)
+        launches = ops.launch_counts()
+        formats = ops.format_launch_counts()
+        got = serve_tally(sched, reqs, launches)
+        for key, want in base.items():
+            require(got[key] == want,
+                    f"obs: {key} with obs on differs from obs off: "
+                    f"{got[key] if key != 'tokens' else '...'} vs "
+                    f"{want if key != 'tokens' else '...'}")
+        checks = obs_trace_checks(sched, reqs, obs, prompts, chunk)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        obs.tracer.write(os.path.join(ROOT, "chiprun_out",
+                                      "granite-8b-obs.trace.json"))
+    report = obs.profiler.report()
+    card = nvidia_smi()
+    log(json.dumps({"path": "granite-8b-obs",
+                    "per_tier": report["per_tier"],
+                    "note": "model_s: the paper's V80 cost model; "
+                            "measured_s: host wall on the card",
+                    "host_wall_s": rep["host_wall_s"],
+                    "obs_off_host_wall_s": base_wall,
+                    **checks, "card": card}))
+    serve_s = time.perf_counter() - t_phase
+    costs = step_cost_phase(cfg, params, chunk, dev)
+    for c in costs:
+        log(json.dumps({"path": "granite-8b-obs", "step_cost": {
+            k: v for k, v in c.items() if k != "kernels"}, "card": card}))
+    check_path_launches("granite-8b-obs", launches, formats)
+    out = {"card": card, "serve": rep, "model_measured": report,
+           "trace": checks, "step_cost": costs, "serve_s": serve_s,
+           "seconds": time.perf_counter() - t_phase}
+    log(json.dumps({"path": "granite-8b-obs", "phase_s": out["seconds"],
+                    "serve_s": serve_s, "card": card}))
     return out, launches, formats
 
 
@@ -2555,7 +2794,8 @@ def main() -> None:
     extra_phases = {"granite-8b-tiers": tiers_phase,
                     "granite-8b-paged": paged_phase,
                     "granite-8b-slo": slo_phase,
-                    "granite-8b-spec": spec_phase}
+                    "granite-8b-spec": spec_phase,
+                    "granite-8b-obs": obs_phase}
     for path, arch, layers, weights, tiers, witness, serves, extras \
             in MODEL_RUNS:
         cfg = get_config(arch)

@@ -45,6 +45,19 @@ snapshot.
 
   python -m repro_torch.launch.serve --arch granite-8b --smoke \
       --device cpu --spec --spec-k 4 --temperature 0.8
+
+Observability: ``--trace PATH`` writes a Chrome trace of the timed run
+(each request's WAITING / PREFILL / DECODE spans, one event per prefill
+chunk and decode dispatch; open it in Perfetto or chrome://tracing);
+``--metrics-out PATH`` writes the metrics registry's Prometheus-style
+exposition at PATH and a snapshot a second (scheduler clock) at
+PATH.jsonl.  Either flag also attaches the model-vs-measured profiler,
+and the report gains ``model_measured`` (the paper's V80 cost model over
+the host wall of each dispatch: the model seconds are the FPGA's, not a
+figure for the card).  Without them the scheduler runs with ``obs=None``.
+
+  python -m repro_torch.launch.serve --arch granite-8b --smoke \
+      --device cpu --trace t.json --metrics-out m.prom
 """
 from __future__ import annotations
 
@@ -61,6 +74,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
+from repro_torch.obs import (MetricsRegistry, Observability, SnapshotWriter,
+                             StepProfiler, Tracer)
 from repro_torch.quant.policy import PrecisionPolicy
 from repro_torch.serve import (Request, SamplingParams, Scheduler,
                                ServeConfig, ServingEngine, SLOPolicy,
@@ -147,6 +162,37 @@ def build_spec(args) -> Optional[SpecConfig]:
                       corrupt_drafts=args.spec_corrupt)
 
 
+def build_obs(args, cfg) -> Optional[Observability]:
+    """The bundle the --trace / --metrics-out flags ask for (the
+    reference's ``launch/serve.py``): a tracer for --trace, a registry and
+    its snapshots at PATH.jsonl for --metrics-out, the profiler for
+    either; None without them."""
+    if not (args.trace or args.metrics_out):
+        return None
+    registry = MetricsRegistry() if args.metrics_out else None
+    return Observability(
+        tracer=Tracer() if args.trace else None, registry=registry,
+        profiler=StepProfiler(cfg),
+        snapshots=SnapshotWriter(registry, args.metrics_out + ".jsonl")
+        if registry is not None else None)
+
+
+def write_obs(obs: Optional[Observability], args, report: dict) -> None:
+    """Write the trace and the exposition, and add ``model_measured`` and
+    the sinks' counts to ``report``."""
+    if obs is None:
+        return
+    if obs.tracer is not None:
+        obs.tracer.write(args.trace)
+        report["trace_events"] = len(obs.tracer)
+    if obs.profiler.n_records:
+        report["model_measured"] = obs.profiler.report()
+    if obs.registry is not None:
+        with open(args.metrics_out, "w") as f:
+            f.write(obs.registry.expose())
+        report["metrics_snapshots"] = obs.snapshots.n_written
+
+
 def parse_priority_mix(spec: Optional[str]):
     """'0:0.25,2:0.75' -> ([0, 2], [0.25, 0.75]) (weights normalized)."""
     if not spec:
@@ -181,6 +227,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--priority-mix", default=None,
                     help="seeded classes, e.g. 0:0.25,2:0.75")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace of the timed run")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics exposition at PATH and its "
+                         "snapshots at PATH.jsonl")
     add_policy_args(ap)
     add_spec_args(ap)
     args = ap.parse_args(argv)
@@ -207,8 +258,8 @@ def main(argv=None) -> None:
     classes, weights = parse_priority_mix(args.priority_mix)
     prios = rng.choice(classes, size=args.batch, p=weights)
 
-    def serve(batch, slo=None):
-        sched = Scheduler(engine, tiers=tiers, slo=slo, spec=spec)
+    def serve(batch, slo=None, obs=None):
+        sched = Scheduler(engine, tiers=tiers, slo=slo, spec=spec, obs=obs)
         reqs = [sched.submit(Request(
             prompt=p, kv_policy=tiers[i % len(tiers)] if tiers else None,
             priority=int(prios[i]),
@@ -224,8 +275,9 @@ def main(argv=None) -> None:
     slo = build_slo(args)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    obs = build_obs(args, cfg)
     ops.reset_launch_counts()
-    sched, reqs = serve(prompts, slo)
+    sched, reqs = serve(prompts, slo, obs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     report = sched.metrics.report()
@@ -242,6 +294,7 @@ def main(argv=None) -> None:
         report["slo"] = slo.snapshot()
     if spec is not None:
         report["spec_planner"] = sched.spec_planner.snapshot()
+    write_obs(obs, args, report)
     print(json.dumps(report))
 
 

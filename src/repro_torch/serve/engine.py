@@ -399,11 +399,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def generate(self, tokens: np.ndarray, *, max_new_tokens: int,
-                 seed: int = 0) -> Dict:
+                 seed: int = 0, obs=None) -> Dict:
         """One-shot generation for a batch of prompts [B, S] at
         ``ServeConfig.temperature`` and ``seed``: the rows go through a
-        private scheduler (row i is request id i).  Returns generated ids
-        [B, T] (zero-padded), per-row lengths and finish reasons."""
+        private scheduler (row i is request id i), to which ``obs`` (a
+        ``repro_torch.obs.Observability`` bundle, or None) is handed.
+        Returns generated ids [B, T] (zero-padded), per-row lengths and
+        finish reasons."""
         from .request import Request, SamplingParams
         from .scheduler import Scheduler
 
@@ -411,7 +413,7 @@ class ServingEngine:
         b, s = tokens.shape
         if s + max_new_tokens > self.scfg.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
-        sched = Scheduler(self)
+        sched = Scheduler(self, obs=obs)
         reqs = [sched.submit(Request(prompt=tokens[i], sampling=SamplingParams(
             temperature=self.scfg.temperature, max_new_tokens=max_new_tokens,
             eos_id=self.scfg.eos_id, seed=seed))) for i in range(b)]

@@ -38,6 +38,13 @@ All K tokens of a decode burst surface at its end, so raw ITL percentiles
 are burst-granular; ``itl_burst_spread_*`` spreads each burst's wall time
 over the tokens it emitted.  Timestamps come from the scheduler's clock.
 ``report()`` is JSON-clean: empty statistics are None, never NaN.
+
+``ServeMetrics(n_slots, registry=reg)`` also publishes into a
+``repro_torch.obs.MetricsRegistry`` the reference's families, under its
+names, help strings and labels (arrivals, retirements by tier and reason,
+tokens, decode dispatches and token-steps, the burst K, TTFT, e2e,
+preemptions, rejections, downgrades, faults, queue waits, speculation);
+``registry=None`` changes nothing.
 """
 from __future__ import annotations
 
@@ -75,7 +82,7 @@ def burst_spread_itl(token_times: List[float],
 
 
 class ServeMetrics:
-    def __init__(self, n_slots: int):
+    def __init__(self, n_slots: int, registry=None):
         self.n_slots = n_slots              # over every tier
         # {tier: n_slots} when the scheduler serves several KV tiers
         self.tiers: Optional[Dict[str, int]] = None
@@ -127,11 +134,64 @@ class ServeMetrics:
         self.spec_bonus_tokens = 0         # the verify's own samples
         self.spec_tokens_emitted = 0
         self.spec_accept_hist: Dict[int, int] = {}  # accepted a round -> n
+        self._reg = registry
+        if registry is not None:
+            self._r_arrived = registry.counter(
+                "serve_requests_arrived_total", "requests submitted")
+            self._r_finished = registry.counter(
+                "serve_requests_finished_total",
+                "requests retired, by finish reason and KV tier")
+            self._r_tokens = registry.counter(
+                "serve_new_tokens_total", "generated tokens, by KV tier")
+            self._r_dispatch = registry.counter(
+                "serve_decode_dispatches_total",
+                "jitted decode/burst entries, by KV tier")
+            self._r_steps = registry.counter(
+                "serve_decode_token_steps_total",
+                "planned decode token-steps, by KV tier")
+            self._r_burst = registry.histogram(
+                "serve_burst_k", "planned burst length per decode dispatch",
+                buckets=(1, 2, 4, 8, 16, 32, 64))
+            self._r_ttft = registry.histogram(
+                "serve_ttft_seconds", "time to first token")
+            self._r_e2e = registry.histogram(
+                "serve_e2e_seconds", "request arrival -> retirement")
+            self._r_preempt = registry.counter(
+                "serve_preemptions_total",
+                "decode slots evicted and requeued, by reason and KV tier")
+            self._r_reject = registry.counter(
+                "serve_rejections_total",
+                "requests shed at admission, by verdict kind")
+            self._r_downgrade = registry.counter(
+                "serve_downgrades_total",
+                "KV-tier downgrades under pressure, by from/to tier")
+            self._r_fault = registry.counter(
+                "serve_faults_total", "faulted dispatches, by fault kind")
+            self._r_qwait = registry.histogram(
+                "serve_queue_wait_seconds",
+                "enqueue -> admission wait, by priority class")
+            self._r_spec_rounds = registry.counter(
+                "serve_spec_rounds_total",
+                "speculative draft/verify rounds, by KV tier")
+            self._r_spec_disp = registry.counter(
+                "serve_spec_dispatches_total",
+                "speculation dispatches, by kind "
+                "(draft / verify / catchup) and KV tier")
+            self._r_spec_tok = registry.counter(
+                "serve_spec_tokens_total",
+                "draft-window token outcomes, by result "
+                "(accepted / rejected / bonus) and KV tier")
+            self._r_spec_acc = registry.histogram(
+                "serve_spec_accepted_per_verify",
+                "draft tokens accepted per verify dispatch",
+                buckets=(0, 1, 2, 4, 8, 16, 32))
 
     def on_arrival(self, now: float) -> None:
         self.n_arrived += 1
         if self.first_arrival is None:
             self.first_arrival = now
+        if self._reg is not None:
+            self._r_arrived.inc()
 
     def on_admit(self, req) -> None:
         """WAITING -> PREFILL: the queue wait since the latest enqueue, by
@@ -140,14 +200,18 @@ class ServeMetrics:
             else req.arrival_time
         if req.admit_time is None or t0 is None:
             return
-        self.queue_wait.setdefault(req.priority, []).append(
-            max(req.admit_time - t0, 0.0))
+        wait = max(req.admit_time - t0, 0.0)
+        self.queue_wait.setdefault(req.priority, []).append(wait)
+        if self._reg is not None:
+            self._r_qwait.observe(wait, priority=str(req.priority))
 
     def on_preempt(self, req, reason: str = "priority") -> None:
         """A slot was evicted and its request requeued: for a higher class
         ('priority') or by a faulted dispatch ('fault')."""
         self.n_preemptions += 1
         self.preempt_reasons[reason] = self.preempt_reasons.get(reason, 0) + 1
+        if self._reg is not None:
+            self._r_preempt.inc(reason=reason, tier=req.tier or "")
 
     def on_reject(self, req) -> None:
         """The serving policy shed the request at submit (its typed verdict
@@ -155,10 +219,15 @@ class ServeMetrics:
         kind = getattr(req.rejection, "kind", None) or "unknown"
         self.n_rejections += 1
         self.rejection_kinds[kind] = self.rejection_kinds.get(kind, 0) + 1
+        if self._reg is not None:
+            self._r_reject.inc(kind=kind)
 
     def on_downgrade(self, req) -> None:
         """The serving policy moved the request to a denser KV tier."""
         self.n_downgrades += 1
+        if self._reg is not None:
+            self._r_downgrade.inc(src=req.downgraded_from or "",
+                                  dst=req.tier or "")
 
     def on_fault(self, fault, n_requests: int) -> None:
         """One dispatch faulted (raised or returned poisoned output),
@@ -167,6 +236,8 @@ class ServeMetrics:
         self.n_fault_requests += n_requests
         kind = getattr(fault, "kind", None) or "unknown"
         self.fault_kinds[kind] = self.fault_kinds.get(kind, 0) + 1
+        if self._reg is not None:
+            self._r_fault.inc(kind=kind)
 
     def on_step(self, now: float,
                 used_slots: Union[int, Mapping[str, int]]) -> None:
@@ -205,6 +276,11 @@ class ServeMetrics:
         self.burst_hist[k] = self.burst_hist.get(k, 0) + 1
         if tier is not None:
             self.tier_dispatches[tier] = self.tier_dispatches.get(tier, 0) + 1
+        if self._reg is not None:
+            t = tier or ""
+            self._r_dispatch.inc(tier=t)
+            self._r_steps.inc(k, tier=t)
+            self._r_burst.observe(k, tier=t)
 
     def on_spec_round(self, k: int, rows: int, drafted: int, accepted: int,
                       emitted: int, catchup_dispatches: int = 0,
@@ -228,6 +304,22 @@ class ServeMetrics:
         self.spec_tokens_emitted += emitted
         self.spec_accept_hist[accepted] = \
             self.spec_accept_hist.get(accepted, 0) + 1
+        if self._reg is not None:
+            t = tier or ""
+            self._r_spec_rounds.inc(tier=t)
+            self._r_spec_disp.inc(kind="draft", tier=t)
+            self._r_spec_disp.inc(kind="verify", tier=t)
+            if catchup_dispatches:
+                self._r_spec_disp.inc(catchup_dispatches, kind="catchup",
+                                      tier=t)
+            if accepted:
+                self._r_spec_tok.inc(accepted, result="accepted", tier=t)
+            if drafted - accepted:
+                self._r_spec_tok.inc(drafted - accepted, result="rejected",
+                                     tier=t)
+            if bonus:
+                self._r_spec_tok.inc(bonus, result="bonus", tier=t)
+            self._r_spec_acc.observe(accepted, tier=t)
 
     def on_finish(self, req) -> None:
         self.n_requests += 1
@@ -237,6 +329,7 @@ class ServeMetrics:
         self.finish_reasons[reason] = self.finish_reasons.get(reason, 0) + 1
         if req.n_preemptions > 0:
             self.n_resumed += 1
+        ttft = e2e = None
         if req.first_token_time is not None and req.arrival_time is not None:
             ttft = req.first_token_time - req.arrival_time
             self.ttft.append(ttft)
@@ -256,6 +349,14 @@ class ServeMetrics:
             self.itl.extend(np.diff(np.asarray(req.token_times)).tolist())
             self.itl_spread.extend(burst_spread_itl(req.token_times,
                                                     req.token_dispatches))
+        if self._reg is not None:
+            tier = req.tier or ""
+            self._r_finished.inc(tier=tier, reason=reason)
+            self._r_tokens.inc(req.n_generated, tier=tier)
+            if ttft is not None:
+                self._r_ttft.observe(ttft)
+            if e2e is not None:
+                self._r_e2e.observe(e2e)
 
     @property
     def occupancy_mean(self) -> float:

@@ -85,6 +85,20 @@ verify one each, and one per key schedule of a round with temperature
 rows (the reference's comes from the device; the port computes it on the
 host, and counts it all the same so that the two tallies compare).
 
+Observability: ``Scheduler(engine, obs=Observability(...))``
+(``repro_torch.obs``) attaches a Chrome-trace tracer (each request's
+WAITING / PREFILL / DECODE spans at retirement, one event per prefill
+chunk, decode dispatch, draft and verify, queue and slot counter
+tracks), a metrics registry (the scheduler's gauges and counters, and
+``ServeMetrics``'s into the same one) and the model-vs-measured profiler,
+each optional, with the reference's hooks and gates, so under one virtual
+clock the trace, the exposition, the snapshots and the profiler's report
+are the reference's byte for byte.  A dispatch is timed by a clock pair
+only when a tracer or a profiler consumes it; the decode pair closes after
+the scheduler's read of the sampled ids, the host sync it already makes.
+``obs=None`` (the default) takes no extra clock sample and adds no host
+sync, dispatch or launch; the bundle adds no host sync either.
+
 Retirement (EOS / max-new-tokens / slot capacity) frees the slot at once.
 A token is a pure function of (seed, id, step, logits): the keys of a
 round's temperature rows come from the per-(request, step) schedule, so a
@@ -106,6 +120,7 @@ from typing import (Callable, Deque, Dict, List, Mapping, Optional, Sequence,
 
 import numpy as np
 
+from repro_torch.obs.trace import PID_REQUESTS, PID_SCHEDULER
 from repro_torch.runtime.fault_tolerance import RetryBudget, StepFault
 
 from .kv_pool import KVCachePool
@@ -120,14 +135,16 @@ class Scheduler:
                  tiers: Union[None, Sequence[str],
                               Mapping[str, Optional[int]]] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 slo=None, spec: Optional[SpecConfig] = None):
+                 slo=None, spec: Optional[SpecConfig] = None, obs=None):
         """``tiers``: the KV tiers served, as names (each pool sized by the
         engine's config) or {tier: n_slots} (None: the config's sizing);
         default one pool at the engine policy's tier.  ``slo``: an
         ``SLOPolicy`` (admission control, tier downgrade, cost-model burst
         and chunk planning); None admits everything.  ``spec``: a
         ``SpecConfig`` (speculative decoding with a low-precision draft
-        twin); None changes nothing."""
+        twin); None changes nothing.  ``obs``: a ``repro_torch.obs.
+        Observability`` bundle (tracer, registry, profiler, snapshot
+        writer, each optional); None costs nothing."""
         self.engine = engine
         if tiers is None:
             items = [(None, None)]
@@ -157,8 +174,68 @@ class Scheduler:
         # injector
         self._retry = RetryBudget(engine.scfg.max_fault_retries)
         self._ft_check = engine.scfg.fault_injector is not None
+        self.obs = obs
+        self.tracer = obs.tracer if obs is not None else None
+        self.profiler = obs.profiler if obs is not None else None
+        # a dispatch takes its clock pair only when something reads it
+        self._timed = self.tracer is not None or self.profiler is not None
+        # trace lanes of the scheduler process: tid 0 prefill, 1.. the
+        # decode lane of each tier (sorted), then a draft and a verify lane
+        # a tier, named only with speculation on
+        self._tier_tid = {t: 1 + i for i, t in enumerate(sorted(self.pools))}
+        base = 1 + len(self.pools)
+        self._spec_tid = {t: (base + 2 * i, base + 2 * i + 1)
+                          for i, t in enumerate(sorted(self.pools))}
+        if self.tracer is not None:
+            self.tracer.process_name(PID_REQUESTS, "requests")
+            self.tracer.process_name(PID_SCHEDULER, "scheduler")
+            self.tracer.thread_name(PID_SCHEDULER, 0, "prefill")
+            for t, tid in sorted(self._tier_tid.items()):
+                self.tracer.thread_name(PID_SCHEDULER, tid, f"decode:{t}")
+            if spec is not None:
+                for t, (dtid, vtid) in sorted(self._spec_tid.items()):
+                    self.tracer.thread_name(PID_SCHEDULER, dtid, f"draft:{t}")
+                    self.tracer.thread_name(PID_SCHEDULER, vtid,
+                                            f"verify:{t}")
+        registry = obs.registry if obs is not None else None
+        self._r_steps = self._r_queue = self._r_used = None
+        self._r_adm = self._r_chunks = self._r_syncs = None
+        self._r_hits = self._r_hit_tokens = self._r_pages = None
+        self._syncs_published = 0
+        if registry is not None:
+            self._r_steps = registry.counter(
+                "serve_scheduler_steps_total", "scheduling rounds")
+            self._r_queue = registry.gauge(
+                "serve_queue_depth", "requests WAITING for a KV slot")
+            self._r_used = registry.gauge(
+                "serve_slots_used", "occupied KV slots, by tier")
+            slots_total = registry.gauge(
+                "serve_slots_total", "provisioned KV slots, by tier")
+            for t, p in sorted(self.pools.items()):
+                slots_total.set(p.n_slots, tier=t)
+            self._r_adm = registry.counter(
+                "serve_admissions_total",
+                "WAITING -> PREFILL transitions, by tier")
+            self._r_chunks = registry.counter(
+                "serve_prefill_chunks_total",
+                "prefill chunk dispatches, by tier")
+            self._r_syncs = registry.counter(
+                "serve_host_syncs_total",
+                "blocking device->host transfers on the serving hot path")
+            if any(p.paged for p in self.pools.values()):
+                self._r_hits = registry.counter(
+                    "serve_prefix_hits_total",
+                    "admissions that adopted cached prefix pages, by tier")
+                self._r_hit_tokens = registry.counter(
+                    "serve_prefix_hit_tokens_total",
+                    "prompt tokens served from the prefix cache, by tier")
+                self._r_pages = registry.gauge(
+                    "serve_pages",
+                    "page-arena occupancy, by tier and state "
+                    "(used / cached / free)")
         self.metrics = ServeMetrics(sum(p.n_slots
-                                        for p in self.pools.values()))
+                                        for p in self.pools.values()),
+                                    registry=registry)
         if len(self.pools) > 1:
             self.metrics.tiers = {t: p.n_slots for t, p in self.pools.items()}
         self._clock = clock
@@ -279,7 +356,9 @@ class Scheduler:
         self.n_steps += 1
         now = self._last_now = self._clock()
         for req in admitted:
-            req.admit_time = now
+            # a tracer stamped the admission itself; else the round's sample
+            if req.admit_time is None:
+                req.admit_time = now
             self.metrics.on_admit(req)
         for req in [r for r in self.running.values()
                     if r.e2e_deadline_s is not None
@@ -290,6 +369,8 @@ class Scheduler:
         for tier, pool in self.pools.items():
             if pool.paged:
                 self.metrics.on_pages(tier, pool)
+        if self.obs is not None:
+            self._obs_step(now)
         return {"emitted": emitted, "finished": finished_now}
 
     # ------------------------------------------------------------------
@@ -353,9 +434,17 @@ class Scheduler:
             if victim is None:
                 return False
             self._preempt(victim)
+        if self._r_hits is not None and req.prefix_hit_tokens > 0:
+            self._r_hits.inc(tier=req.tier)
+            self._r_hit_tokens.inc(int(req.prefix_hit_tokens), tier=req.tier)
         req.state = RequestState.PREFILL
         req.prompt_padded, _ = self.engine.pad_prompt(req.prefill_tokens)
         self.running[(req.tier, req.slot)] = req
+        # the WAITING span's end: a clock sample only for a tracer
+        if self.tracer is not None:
+            req.admit_time = self._clock()
+        if self._r_adm is not None:
+            self._r_adm.inc(tier=req.tier)
         return True
 
     def _pick_victim(self, tier: str, priority: int) -> Optional[Request]:
@@ -397,6 +486,12 @@ class Scheduler:
         req.admit_time = None
         self.waiting.append(req)
         self.metrics.on_preempt(req, reason=reason)
+        if self.tracer is not None and self._last_now is not None:
+            self.tracer.instant(
+                "preempted", self._last_now, pid=PID_REQUESTS,
+                tid=req.id or 0,
+                args={"reason": reason, "n_generated": req.n_generated,
+                      "n_preemptions": req.n_preemptions})
 
     def _shed_expired_waiting(self, finished_now: List[Request]) -> None:
         """Retire WAITING requests whose TTFT (before a first token) or e2e
@@ -429,6 +524,8 @@ class Scheduler:
         if finished_now is not None:
             finished_now.append(req)
         self.metrics.on_finish(req)
+        if self.tracer is not None:
+            self._trace_request(req)
 
     # ------------------------------------------------------------------
     # Fault recovery
@@ -486,6 +583,7 @@ class Scheduler:
         self._dispatch_seq += 1
         c = self.engine.scfg.prefill_chunk
         start, plen = req.prefill_pos, req.prefill_len
+        t0 = self._clock() if self._timed else 0.0
         try:
             logits = self.engine.prefill_chunk_into_slot(
                 pool, req.slot, req.prompt_padded, start, prompt_len=plen,
@@ -494,22 +592,40 @@ class Scheduler:
             self._on_fault([req], f, finished_now)
             return False
         req.prefill_pos = min(start + c, plen)
-        if req.prefill_pos < plen:
-            return True
-        req.state = RequestState.DECODE
-        if pool.paged:
-            pool.register_prefix(req.slot, req.prefill_tokens)
-        if req.is_resuming:
-            # the replay covers prompt + generated[:-1]; decode goes on at
-            # n_generated with the last token as its input
-            req.resume_prompt = None
-            return False
-        # two blocking transfers: the final chunk's logits, the first token
-        self.n_host_syncs += 2
-        tok = sample_one(logits[(plen - 1) % c], req.step_key(),
-                         req.sampling.temperature)
-        self._emit(req, tok, emitted, finished_now)
-        return False
+        final = req.prefill_pos >= plen
+        resumed = req.is_resuming
+        tok = None
+        if final:
+            req.state = RequestState.DECODE
+            if pool.paged:
+                pool.register_prefix(req.slot, req.prefill_tokens)
+            if resumed:
+                # the replay covers prompt + generated[:-1]; decode goes on
+                # at n_generated with the last token as its input
+                req.resume_prompt = None
+            else:
+                # two blocking transfers: the final chunk's logits, the
+                # first token
+                self.n_host_syncs += 2
+                tok = sample_one(logits[(plen - 1) % c], req.step_key(),
+                                 req.sampling.temperature)
+        if self._timed:
+            t1 = self._clock()
+            n_tok = int(req.prefill_pos - start)
+            if self.tracer is not None:
+                self.tracer.complete(
+                    "prefill_chunk", t0, t1, pid=PID_SCHEDULER, tid=0,
+                    args={"req": req.id, "tier": req.tier, "pos": int(start),
+                          "tokens": n_tok, "final": final,
+                          "dispatch": self._dispatch_seq})
+            if self.profiler is not None:
+                self.profiler.record_prefill(tier=req.tier, n_tokens=n_tok,
+                                             wall_s=t1 - t0)
+        if self._r_chunks is not None:
+            self._r_chunks.inc(tier=req.tier)
+        if tok is not None:
+            self._emit(req, tok, emitted, finished_now)
+        return not final
 
     def _key_schedule(self, dec: List[Request], k: int, keys: np.ndarray,
                       temps: np.ndarray) -> None:
@@ -538,6 +654,8 @@ class Scheduler:
         if pool.paged:
             pool.ensure_decode([r.slot for r in dec], 1)
         self._dispatch_seq += 1
+        ctx = self._cohort_context(dec, pool)
+        t0 = self._clock() if self._timed else 0.0
         try:
             toks = self.engine.decode_slots(pool, tokens, keys[0], temps)
         except StepFault as f:
@@ -549,6 +667,8 @@ class Scheduler:
             self._on_fault(dec, StepFault("nan", "decode ids out of vocab"),
                            finished_now)
             return
+        if self._timed:
+            self._obs_decode(dec, pool, 1, len(dec), ctx, t0, self._clock())
         self.metrics.on_decode_burst(1, len(dec), tier=pool.kv_dtype)
         for r in dec:
             pool.lengths[r.slot] += 1      # the input token's KV
@@ -576,6 +696,8 @@ class Scheduler:
             pool.ensure_decode([r.slot for r in dec], k,
                                [int(rem[r.slot]) for r in dec])
         self._dispatch_seq += 1
+        ctx = self._cohort_context(dec, pool)
+        t0 = self._clock() if self._timed else 0.0
         try:
             toks, valid = self.engine.decode_burst(pool, tokens, keys, temps,
                                                    active, rem, eos)
@@ -589,7 +711,10 @@ class Scheduler:
             self._on_fault(dec, StepFault("nan", "burst ids out of vocab"),
                            finished_now)
             return
-        self.metrics.on_decode_burst(k, int(valid.sum()), tier=pool.kv_dtype)
+        n_emit = int(valid.sum())
+        if self._timed:
+            self._obs_decode(dec, pool, k, n_emit, ctx, t0, self._clock())
+        self.metrics.on_decode_burst(k, n_emit, tier=pool.kv_dtype)
         # replay in step-major order; slots captured first because _emit
         # may retire a request mid-replay
         rows = [(r, r.slot) for r in dec]
@@ -616,8 +741,17 @@ class Scheduler:
         temps = np.zeros((n,), np.float32)
         self._key_schedule(dec, s, keys, temps)
         self._dispatch_seq += 1
+        t0 = self._clock() if self._timed else 0.0
         drafts = self.draft.draft_burst(tier, pool, rows, k, keys[:k], temps)
         self.n_host_syncs += 1
+        t1 = self._clock() if self._timed else 0.0
+        if self.tracer is not None:
+            self.tracer.complete(
+                "spec_draft", t0, t1, pid=PID_SCHEDULER,
+                tid=self._spec_tid[tier][0],
+                args={"tier": tier, "k": k, "rows": len(dec),
+                      "catchup_chunks": n_catchup,
+                      "dispatch": self._dispatch_seq})
         window = np.zeros((n, s), np.int32)
         rems = np.zeros((n,), np.int32)
         for r, slot in rows:
@@ -630,6 +764,8 @@ class Scheduler:
             pool.ensure_decode([slot for _, slot in rows], s,
                                [int(rems[slot]) for _, slot in rows])
         self._dispatch_seq += 1
+        verify_dispatch = self._dispatch_seq
+        t2 = self._clock() if self._timed else 0.0
         try:
             verified = self.engine.verify_slots(pool, window, keys, temps)
         except StepFault as f:
@@ -658,6 +794,15 @@ class Scheduler:
             pool.lengths[slot] += n_emit
         self.draft.sync_lengths(tier, pool, rows)
         self.spec_planner.observe(drafted, accepted)
+        if self._timed:
+            t3 = self._clock()
+            if self.tracer is not None:
+                self.tracer.complete(
+                    "spec_verify", t2, t3, pid=PID_SCHEDULER,
+                    tid=self._spec_tid[tier][1],
+                    args={"tier": tier, "k": k, "rows": len(dec),
+                          "accepted": accepted, "emitted": emitted_total,
+                          "dispatch": verify_dispatch})
         self.metrics.on_spec_round(
             k=k, rows=len(dec), drafted=drafted, accepted=accepted,
             emitted=emitted_total, catchup_dispatches=n_catchup, tier=tier)
@@ -700,3 +845,86 @@ class Scheduler:
         self.finished.append(req)
         finished_now.append(req)
         self.metrics.on_finish(req)
+        if self.tracer is not None:
+            self._trace_request(req)
+
+    # ------------------------------------------------------------------
+    # Observability (obs-enabled paths only)
+    # ------------------------------------------------------------------
+    def _obs_step(self, now: float) -> None:
+        """After a round: the scheduler's gauges and counters, the queue
+        and slot counter tracks, and the snapshot tick."""
+        if self._r_steps is not None:
+            self._r_steps.inc()
+            self._r_queue.set(len(self.waiting))
+            for t, p in sorted(self.pools.items()):
+                self._r_used.set(p.n_used, tier=t)
+            # by delta: the counter stays monotone, n_host_syncs raw
+            self._r_syncs.inc(self.n_host_syncs - self._syncs_published)
+            self._syncs_published = self.n_host_syncs
+            if self._r_pages is not None:
+                for t, p in sorted(self.pools.items()):
+                    if p.paged:
+                        self._r_pages.set(p.pages_in_use, tier=t,
+                                          state="used")
+                        self._r_pages.set(p.pages_cached, tier=t,
+                                          state="cached")
+                        self._r_pages.set(p.pages_free, tier=t,
+                                          state="free")
+        if self.tracer is not None:
+            self.tracer.counter("queue_depth", now,
+                                {"waiting": len(self.waiting)})
+            self.tracer.counter(
+                "slots_used", now,
+                {t: self.pools[t].n_used for t in sorted(self.pools)})
+        self.obs.on_step(now)
+
+    def _cohort_context(self, dec: List[Request], pool: KVCachePool) -> int:
+        """A cohort's mean committed context before its dispatch (what the
+        profiler prices); 0 without a profiler."""
+        if self.profiler is None:
+            return 0
+        return int(round(float(
+            np.mean([pool.lengths[r.slot] for r in dec]))))
+
+    def _obs_decode(self, dec: List[Request], pool: KVCachePool, k: int,
+                    n_emit: int, ctx: int, t0: float, t1: float) -> None:
+        """One decode dispatch's profiler record and trace event; [t0, t1]
+        spans the dispatch up to the host's read of its sampled ids."""
+        tier = pool.kv_dtype
+        if self.profiler is not None:
+            self.profiler.record_decode(
+                tier=tier, k=k, rows=len(dec), context=ctx,
+                kv_bytes_per_token=pool.bytes_per_token, wall_s=t1 - t0)
+        if self.tracer is not None:
+            self.tracer.complete(
+                "decode_burst", t0, t1, pid=PID_SCHEDULER,
+                tid=self._tier_tid[tier],
+                args={"tier": tier, "k": k, "rows": len(dec),
+                      "emitted": n_emit,
+                      "slots": sorted(int(r.slot) for r in dec),
+                      "dispatch": self._dispatch_seq})
+
+    def _trace_request(self, req: Request) -> None:
+        """A retired request's spans, rebuilt from the times the hot path
+        stamped anyway: nothing is traced per token."""
+        tr = self.tracer
+        tid = req.id or 0
+        tr.thread_name(PID_REQUESTS, tid, f"req {tid}")
+        a, ad = req.arrival_time, req.admit_time
+        ft, fin = req.first_token_time, req.finish_time
+        if a is not None and ad is not None:
+            tr.complete("WAITING", a, ad, pid=PID_REQUESTS, tid=tid,
+                        args={"tier": req.tier})
+        if ad is not None and ft is not None:
+            tr.complete("PREFILL", ad, ft, pid=PID_REQUESTS, tid=tid,
+                        args={"prompt_len": int(req.prompt_len)})
+        if ft is not None and fin is not None:
+            tr.complete("DECODE", ft, fin, pid=PID_REQUESTS, tid=tid,
+                        args={"n_generated": req.n_generated})
+        if ft is not None:
+            tr.instant("first_token", ft, pid=PID_REQUESTS, tid=tid)
+        if fin is not None:
+            tr.instant("finished", fin, pid=PID_REQUESTS, tid=tid,
+                       args={"reason": req.finish_reason,
+                             "n_generated": req.n_generated})
