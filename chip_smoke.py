@@ -10,7 +10,11 @@ non-zero after the last phase; exceptions are not caught):
   1. build every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a,
      one process per source, all started together);
   2. every kernel against its plain torch version at its path's
-     full-width shapes, timed with CUDA events (L2 flushed before each
+     full-width shapes (zamba2-7b's and xlstm-350m's among them: K1 at
+     M = 4 and K2 at M = 256 and 1024 on each of zamba2's awq_int4
+     leaf shapes, 3584 x 14336, 3584 x 128, 7168 x 3584, 3584 x 3584 and
+     14336 x 3584, K5 at M = 4 and 1024 on 2048 x 2048, K3 / K4 at 4
+     rows of 32 / 32 heads, Dh 112), timed with CUDA events (L2 flushed before each
      launch) beside its bound, its plain version and one library call:
      the packed GEMV (K1, M = 1, 3, 8) and the tensor-core packed matmul (K2,
      M = 9, 64, 100) for three schemes on granite's four linear shapes
@@ -70,10 +74,11 @@ non-zero after the last phase; exceptions are not caught):
      (latency 4, II 1, every result checked); K6 must launch exactly once
      per ``xtramac_packed`` call and once per pipeline issue;
   then, for granite-8b (AWQ-int4, 36 layers), minitron-8b (W8A8,
-  squared-ReLU FFN, at 16 of its 32 layers: the script's time),
+  squared-ReLU FFN, at 8 of its 32 layers: the script's time),
   starcoder2-15b (MXFP4, non-gated GELU FFN, at 8 of its 40 layers: the
   script's time, since deepseek-v2's path was added) and
-  qwen3-moe-30b-a3b (MoE: 128 experts, top-8, AWQ-int4, 48 layers), each
+  qwen3-moe-30b-a3b (MoE: 128 experts, top-8, AWQ-int4, at 8 of its 48
+  layers: the script's time, since the recurrent families' phase 8), each
   at full width with random weights from a seed quantized on the card, one
   model after the other:
   4. the model: one prefill chunk and 4 decode steps through the kernels
@@ -196,7 +201,28 @@ non-zero after the last phase; exceptions are not caught):
      of the logit scale, the free plain run's routing flips printed) and
      the serve phase (6 requests, each equal to its solo run; K1 / K2 on
      its fp8 projection and shared-expert leaves, grouped K1 on its expert
-     stacks at decode (M = 1) and prefill (M = 4)).
+     stacks at decode (M = 1) and prefill (M = 4));
+  8. the recurrent families at full width and full depth, served by the
+     engine's static-batch loop: zamba2-7b (81 Mamba-2 layers and one
+     shared attention + FFN block applied 13 times, awq_int4; bf16 and
+     int8 KV) and xlstm-350m (21 mLSTM and 3 sLSTM blocks, W8A8): (a)
+     the model teacher-forced through the kernels and the plain versions,
+     4 rows: a 256-token prefill (the chunked SSD) and 8 decode steps,
+     then a 100-token prefill (the sequential SSD), held to ``logit_check``
+     (zamba2: ``witness_check`` against the plain path in K1 / K2's
+     order where 5 % is missed); (c) one prefill and one decode step with
+     their launches counted exactly from the config (zamba2: K2 / K1 334
+     a call, K3 or K4 13 a decode step; xlstm: K5 111 a call), the
+     prefill's wall and a decode step's wall and device-busy ms; (b)
+     ``ServingEngine.generate`` on [4, 64] prompts, 16 new tokens, greedy at
+     each KV tier: the ids are the kernel path's teacher-forced greedy ids
+     bit for bit; at the first tier the plain path's logits on them are
+     held as in (a), and the ids equal the plain path's argmax wherever
+     its top-2 gap exceeds 0.1 (zamba2: miss it at most 1.5 times as
+     often as the witness's argmax, with the residual early in the model
+     within 1.5 times the witness's spread);
+     a temperature-0.8 run repeats with its seed; the path's launches
+     equal the config's exactly.
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.  Every case is also written to
 ``chiprun_out/chip_smoke.json``.  The script imports no JAX.
@@ -330,6 +356,12 @@ PATH_KERNELS = {
     # jnp.einsum): no decode-attention kernel on this path
     "deepseek-v2-236b": ("packed_gemv", "packed_matmul",
                          "packed_gemv_grouped"),
+    # the recurrent families through the static-batch loop: Zamba2's
+    # awq_int4 Mamba-2 and shared-block leaves and its shared attention's
+    # decode (bf16 and int8 KV); xLSTM's W8A8 block leaves (no attention)
+    "zamba2-7b": ("packed_gemv", "packed_matmul", "decode_attention_bf16",
+                  "decode_attention_quant"),
+    "xlstm-350m": ("w8a8_matmul",),
 }
 # the launches by format (``ops.format_launch_counts``) each path must make
 PATH_FORMATS = {
@@ -356,6 +388,9 @@ PATH_FORMATS = {
                                    "packed_matmul_grouped:int4"),
     "deepseek-v2-236b": ("packed_gemv:fp8_e4m3", "packed_matmul:fp8_e4m3",
                          "packed_gemv_grouped:fp8_e4m3"),
+    "zamba2-7b": ("packed_gemv:int4", "packed_matmul:int4",
+                  "decode_attention_bf16:bf16",
+                  "decode_attention_quant:int8"),
 }
 # the grouped launches by the rows of a group (``ops.grouped_launch_counts``)
 # each MoE path must make: decode pairs (M = 1) and the capacity buffers of
@@ -376,11 +411,13 @@ MODEL_RUNS = [
     ("granite-8b", "granite-8b", None, (), ("bf16", "int8"), None, True,
      ("granite-8b-tiers", "granite-8b-paged", "granite-8b-slo",
       "granite-8b-spec", "granite-8b-obs")),
-    ("minitron-8b", "minitron-8b", 16, (), ("bf16", "int8"),
+    ("minitron-8b", "minitron-8b", 8, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
     ("starcoder2-15b", "starcoder2-15b", 8, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
-    ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", None, (), ("bf16", "int8"),
+    # 8 of 48 layers (minitron-8b: 8 of 32): the script's time, since
+    # phase 8 (zamba2-7b and xlstm-350m at full depth) was added
+    ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", 8, (), ("bf16", "int8"),
      "plain_splitkv", True, ()),
     ("qwen3-moe-30b-a3b-chunk128", "qwen3-moe-30b-a3b", 4, (),
      ("bf16", "int8"), "plain_splitkv", False, ()),
@@ -394,6 +431,18 @@ MODEL_RUNS = [
     ("deepseek-v2-236b", "deepseek-v2-236b", 8, (), ("bf16",), None, True,
      ()),
 ]
+# the recurrent families at full width and depth, served by the engine's
+# static-batch loop: (path = arch, KV tiers, witness variant of the model
+# phase).  xLSTM has no attention, so no KV tier but the default
+RECURRENT_RUNS = [("zamba2-7b", ("bf16", "int8"), "plain_groupk"),
+                  ("xlstm-350m", ("bf16",), None)]
+RECURRENT_ROWS = 4
+# the model phase's prefills (prompt tokens, teacher-forced decode steps):
+# 256 takes the chunked SSD (a multiple of ssm_chunk 128, past one chunk),
+# 100 the sequential one
+RECURRENT_PREFILLS = ((256, 8), (100, 0))
+# generate: prompt tokens, new tokens, the temperature rows' seed
+RECURRENT_GEN = (64, 16, 7)
 # the prefill chunk of a model run where it is not 64: qwen3-moe at 4
 # layers with 128-token chunks, whose capacity buffers (C = 10) take K2
 MODEL_CHUNKS = {"qwen3-moe-30b-a3b-chunk128": 128}
@@ -535,6 +584,21 @@ ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
 # 8 bf16 rows) over slabs of capacity 512
 TIERS_ATTN_LENS = [512, 1, 37, 511, 300, 96, 288, 64, 129, 200, 255, 17,
                    400, 128, 480]
+# zamba2-7b's served layout: the static batch's 4 rows at one length in a
+# slab of the model phase's capacity (256 prompt + 8 steps), bf16 / int8
+ZAMBA_ATTN = dict(b=4, h=32, hk=32, dh=112, sk=264, tiers=("bf16", "int8"),
+                  lens=[260] * 4)
+# zamba2-7b's awq_int4 leaves at the static batch: w_zx and FFN up (3584 x
+# 14336), w_bc (3584 x 128, one column tile: every K1 split over K), w_out
+# (7168 x 3584), the shared block's wq / wk / wv / wo (3584 x 3584) and
+# FFN down (14336 x 3584); K1 at the decode step's M = 4, K2 at the served
+# [4, 64] prefill's M = 256 and the [4, 256] prefill's M = 1024
+ZAMBA_LEAVES = [(3584, 14336), (3584, 128), (7168, 3584), (3584, 3584),
+                (14336, 3584)]
+ZAMBA_ROWS = ((4,), (256, 1024))
+# xlstm-350m's W8A8 w_q / w_k / w_v (2048 x 2048) at the decode step's M = 4
+# and the [4, 256] prefill's M = 1024
+XLSTM_W8A8 = (2048, 2048, (4, 1024))
 ATTN_LAYOUTS = [dict(h=32, hk=8, dh=128), dict(h=96, hk=8, dh=192),
                 dict(h=32, hk=4, dh=64), dict(h=32, hk=32, dh=112),
                 dict(h=48, hk=4, dh=128)]
@@ -727,10 +791,22 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
     m, k, n = MLA_EXPAND
     cases += packed_leaf_cases(timer, gen, dev, "fp8", k, n, gemv_rows=(),
                                matmul_rows=(m,))
+    for k, n in ZAMBA_LEAVES:
+        cases += packed_leaf_cases(timer, gen, dev, "awq_int4", k, n,
+                                   gemv_rows=ZAMBA_ROWS[0],
+                                   matmul_rows=ZAMBA_ROWS[1])
     cases += grouped_cases(timer, gen, dev)
     cases += w8a8_cases(timer, gen, dev, chunk)
+    k, n, rows = XLSTM_W8A8
+    w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
+    codes, scales = quantize_weights(get_scheme("w8a8"), w)
+    for m in rows:
+        cases.append(w8a8_case(timer, gen, dev, m, 0,
+                               codes.t().contiguous(), scales))
+    del w, codes, scales
     for layout in ATTN_LAYOUTS:
         cases += attention_cases(timer, gen, dev, **layout)
+    cases += attention_cases(timer, gen, dev, **ZAMBA_ATTN)
     for tier, b in TIERS_SLOTS.items():
         cases += attention_cases(timer, gen, dev, b=b, sk=512,
                                  tiers=(tier,), lens=TIERS_ATTN_LENS[:b])
@@ -2694,6 +2770,270 @@ def obs_phase(cfg, params, chunk, dev):
     return out, launches, formats
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the recurrent families through the static-batch loop
+# ---------------------------------------------------------------------------
+def recurrent_leaf_calls(cfg) -> int:
+    """Quantized linear leaf calls of one forward of a recurrent model, from
+    the config: xLSTM's mLSTM blocks call 5 (w_up, w_q, w_k, w_v, w_out;
+    w_if is bf16) and its sLSTM blocks 2 (w_gates, w_out); Zamba2's Mamba-2
+    blocks call 3 (w_zx, w_bc, w_out; w_dt is bf16) and each of its shared
+    block's applications 7 (q, k, v, o and the gated FFN)."""
+    if cfg.family == "ssm":
+        g = cfg.n_layers // cfg.slstm_every
+        return g * (cfg.slstm_every - 1) * 5 + g * 2
+    return cfg.n_layers * 3 + (cfg.n_layers // cfg.attn_every) * 7
+
+
+def recurrent_calls(path, cfg, params, dev, tiers) -> dict:
+    """One prefill call ([4, 64], from an empty cache) and one decode step
+    at each KV tier, the launch counts reset just before and read just
+    after each: exactly ``recurrent_leaf_calls`` launches of K2 (prefill)
+    or K1 (decode step) for Zamba2, of K5 for xLSTM, and one K3 / K4 launch
+    a shared-attention application in a decode step (the prefill attends
+    over its own k / v).  Then the prefill's wall, and at the first tier a
+    decode step's wall and device-busy ms (``profile_step.measure``)."""
+    rows, s = RECURRENT_ROWS, RECURRENT_GEN[0]
+    n = recurrent_leaf_calls(cfg)
+    apps = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        1, cfg.vocab, (rows, s)), device=dev)
+    out = {"leaf_calls_a_forward": n}
+    for tier in tiers:
+        cache = T.init_cache(cfg, rows, s + 2, kv_dtype=tier, device=dev)
+        attn = "decode_attention_bf16" if tier == "bf16" \
+            else "decode_attention_quant"
+        with torch.no_grad():
+            sync(dev)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = T.forward(cfg, params, prompts, cache=cache,
+                               cache_index=0, mode="prefill")
+            sync(dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            pre = ops.launch_counts()
+            tok = logits[:, -1].argmax(-1)[:, None]
+            ops.reset_launch_counts()
+            T.forward(cfg, params, tok, cache=cache, cache_index=s,
+                      mode="decode")
+            sync(dev)
+            dec = ops.launch_counts()
+            # one profiler pass a path (each costs 15-20 s, PERF.md)
+            step = None if tier != tiers[0] else measure(lambda: T.forward(
+                cfg, params, tok, cache=cache, cache_index=s + 1,
+                mode="decode"), 4, dev, top=8)
+        if cfg.family == "ssm":
+            want_pre = {"w8a8_matmul": n}
+            want_dec = {"w8a8_matmul": n}
+        else:
+            want_pre = {"packed_matmul": n}
+            want_dec = {"packed_gemv": n, attn: apps}
+        for what, got, want in (("prefill", pre, want_pre),
+                                ("decode step", dec, want_dec)):
+            for name in KERNELS:
+                require(got[name] == want.get(name, 0),
+                        f"{path} ({tier}): {got[name]} {name} launches in "
+                        f"a {what}, not {want.get(name, 0)}")
+        out[tier] = rec = {"prefill_rows": rows, "prefill_tokens": s,
+                           "prefill_wall_ms": prefill_ms,
+                           "prefill_launches": pre, "decode_launches": dec,
+                           "decode_step": step}
+        log(json.dumps({"recurrent_calls": path, "kv": tier,
+                        "device": nvidia_smi(), **rec}))
+        del cache
+    return out
+
+
+def first_group_spread(cfg, got: list, want: list) -> dict:
+    """The residual streams (``layer_out`` lists of a teacher-forced run,
+    every call) of ``got`` against ``want`` over zamba2's first group (its
+    ``attn_every`` Mamba layers and the shared block): max |diff| / max
+    |x| after the first layer (``LS.layer_spread``), and the RMS of the
+    diff over the RMS of the streams across the group."""
+    n, group = LS.outputs_per_call(cfg), cfg.attn_every + 1
+    num, den = [], []
+    for l in range(group):
+        num.append(sum(float((x.float() - y.float()).pow(2).sum())
+                       for x, y in zip(got[l::n], want[l::n])))
+        den.append(sum(float(y.float().pow(2).sum()) for y in want[l::n]))
+    return {"layer0_rel_max": LS.layer_spread(got, want, n)[
+                "layer_rel_diff"][0],
+            "group_rel_rms": (sum(num) / sum(den)) ** 0.5,
+            "layer_rel_rms": [(a / b) ** 0.5 for a, b in zip(num, den)]}
+
+
+def recurrent_serve(path, cfg, params, dev, tiers, witness):
+    """``ServingEngine.generate`` (the static-batch loop) on [4, 64] prompts,
+    16 new tokens: greedy at each KV tier, and twice at temperature 0.8
+    with one seed at the first; the launch counts set to 0 just before and
+    read just after.  Checks: every run's ids in the vocabulary and 16 a
+    row; the temperature run repeats; the launches are exactly the
+    config's (one prefill and 15 decode steps a run); the greedy ids are
+    the kernel path's own teacher-forced greedy ids, bit for bit; at the
+    first tier, on those ids, the plain path's logits are held to the
+    kernel path's as in the model phase (``logit_check``, else
+    ``witness_check``), and the ids equal the plain path's argmax wherever
+    its top-2 gap exceeds 0.1 (some such token required).  Where the
+    witness decides (zamba2-7b: a reordered sum moves its logits by up to
+    a quarter of their scale, PERF.md), the ids may miss that argmax at
+    most ``WITNESS_FACTOR`` times as often as the witness's own argmax
+    does, and the residual early in the model spreads at most
+    ``WITNESS_FACTOR`` times as far as the witness's
+    (``first_group_spread``)."""
+    rows, (s, new, seed) = RECURRENT_ROWS, RECURRENT_GEN
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab, (rows, s)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    ops.reset_launch_counts()
+    runs = {}
+    for i, tier in enumerate(tiers):
+        def engine(temperature):
+            return ServingEngine(cfg, params, ServeConfig(
+                max_len=s + new, temperature=temperature,
+                policy=PrecisionPolicy(kv=tier), device=str(dev)))
+        t0 = time.perf_counter()
+        greedy = engine(0.0).generate(prompts, max_new_tokens=new, seed=0)
+        sync(dev)
+        runs[tier] = [greedy, time.perf_counter() - t0]
+        if i == 0:
+            hot = engine(0.8)
+            runs[tier] += [hot.generate(prompts, max_new_tokens=new,
+                                        seed=seed),
+                           hot.generate(prompts, max_new_tokens=new,
+                                        seed=seed)]
+    sync(dev)
+    launches = ops.launch_counts()
+    formats = ops.format_launch_counts()
+    grouped = ops.grouped_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(json.dumps({"serve_launches": launches, "by_format": formats,
+                    "grouped_by_rows": grouped, "arch": cfg.name}))
+    check_path_launches(path, launches, formats, grouped)
+    n = recurrent_leaf_calls(cfg)
+    gens = {tier: len(run) - 1 for tier, run in runs.items()}
+    if cfg.family == "ssm":
+        want = {"w8a8_matmul": sum(gens.values()) * new * n}
+    else:
+        apps = cfg.n_layers // cfg.attn_every
+        want = {"packed_matmul": sum(gens.values()) * n,
+                "packed_gemv": sum(gens.values()) * (new - 1) * n}
+        for tier in tiers:
+            name = "decode_attention_bf16" if tier == "bf16" \
+                else "decode_attention_quant"
+            want[name] = want.get(name, 0) + gens[tier] * (new - 1) * apps
+    for name in KERNELS:
+        require(launches[name] == want.get(name, 0),
+                f"{path}: {launches[name]} {name} launches over the "
+                f"generate runs, not {want.get(name, 0)}")
+    reports = []
+    pt = torch.as_tensor(prompts, device=dev).long()
+    for tier, (greedy, wall, *hot) in runs.items():
+        for tag, run in (("greedy", greedy),) + tuple(
+                (f"temperature {i}", r) for i, r in enumerate(hot)):
+            gen_ids = run["generated"]
+            require(gen_ids.shape == (rows, new)
+                    and (run["lengths"] == new).all(),
+                    f"{path} ({tier}, {tag}): generated {gen_ids.shape}")
+            require(bool(((gen_ids >= 0) & (gen_ids < cfg.vocab)).all()),
+                    f"{path} ({tier}, {tag}): an id outside the vocabulary")
+        if hot:
+            require(np.array_equal(hot[0]["generated"], hot[1]["generated"]),
+                    f"{path} ({tier}): a repeated temperature run gave "
+                    "other ids")
+        ids = greedy["generated"]
+        first = tier == tiers[0]
+        kern_l = [] if first and witness is not None else None
+        kern, kids = LS.teacher_forced(cfg, params, pt, new - 1, kv=tier,
+                                       plain=False, layer_out=kern_l)
+        require(np.array_equal(torch.stack(kids, 1).cpu().numpy(), ids),
+                f"{path} ({tier}): generate's greedy ids are not the "
+                "kernel path's teacher-forced ids")
+        rep = {"arch": cfg.name, "kv": tier, "rows": rows,
+               "prompt_tokens": s, "new_tokens": new, "greedy_wall_s": wall,
+               "tokens_per_s": rows * new / wall,
+               "ids_are_teacher_forced": True, "peak_memory_bytes": peak,
+               "first_ids": ids[0, :8].tolist()}
+        reports.append(rep)
+        if not first:                # the plain path: (a) holds this tier
+            log(json.dumps({"serve": rep}))
+            continue
+        plain_l = [] if witness is not None else None
+        plain, _ = LS.teacher_forced(cfg, params, pt, new - 1, kv=tier,
+                                     plain=True, feed=kids,
+                                     layer_out=plain_l)
+        res = LS.logit_check(kern, plain)
+        ok = res["logits_ok"]
+        top2 = plain.topk(2, dim=-1).values
+        decided = ((top2[..., 0] - top2[..., 1]) > 0.1).cpu().numpy()
+        want_ids = plain.argmax(-1).cpu().numpy()          # [new, rows]
+        misses = int((want_ids != ids.T)[decided].sum())
+        allowed = 0
+        if not ok and witness is not None:
+            variant, replace = LS.RUNS[witness]
+            wit_l = []
+            with LS.plain_ops(replace):
+                wit, _ = LS.teacher_forced(cfg, params, pt, new - 1, kv=tier,
+                                           plain=variant, feed=kids,
+                                           layer_out=wit_l)
+            res["witness"] = {"variant": witness, **LS.logit_check(wit,
+                                                                   plain)}
+            ok = res["witness_rule_ok"] = LS.witness_check(res,
+                                                           res["witness"])
+            # the witness's own argmax misses at the same tokens bound the
+            # kernel path's; and the residual early, before depth makes
+            # the spread chaotic: after the first Mamba layer (all three
+            # of its leaves, K2 at the prefill, K1 at the steps) by its max,
+            # and over the first group and its shared block by its RMS
+            wit_misses = int((wit.argmax(-1).cpu().numpy()
+                              != want_ids)[decided].sum())
+            allowed = LS.WITNESS_FACTOR * wit_misses
+            spread = {name: first_group_spread(cfg, got, plain_l)
+                      for name, got in (("kernels", kern_l), (witness, wit_l))}
+            rep.update({"first_group_spread": spread,
+                        "witness_misses_gap_0.1": wit_misses})
+            for key in ("layer0_rel_max", "group_rel_rms"):
+                got, limit = spread["kernels"][key], spread[witness][key]
+                require(got <= LS.WITNESS_FACTOR * limit,
+                        f"{path} ({tier}): the residual's {key} is {got}, "
+                        f"past {LS.WITNESS_FACTOR} x the witness's {limit}")
+        rep.update({"logits": res, "tokens": int(decided.size),
+                    "tokens_gap_0.1": int(decided.sum()),
+                    "misses_gap_0.1": misses, "misses_allowed": allowed,
+                    "agree_all": int((want_ids == ids.T).sum())})
+        log(json.dumps({"serve": rep}))
+        require(res["finite"] and ok,
+                f"{path} ({tier}): served logits kernel vs plain: max diff "
+                f"{res['max_abs_logit_diff']}")
+        require(decided.any(), f"{path} ({tier}): no token's plain top-2 "
+                "gap exceeds 0.1: the greedy ids go unchecked")
+        require(misses <= allowed,
+                f"{path} ({tier}): {misses} greedy ids differ from the plain "
+                f"path's argmax where its top-2 gap exceeds 0.1, past "
+                f"{allowed}")
+    return reports, launches, formats
+
+
+def recurrent_phase(path, cfg, params, dev, tiers, witness):
+    """(a) the model teacher-forced through the kernels and the plain
+    versions (``model_phase``: 4 rows, a 256-token prefill and 8 decode
+    steps at each tier, then a 100-token prefill); (c) one prefill and one
+    decode step
+    with exact launch counts, and their walls; (b) serving through
+    ``generate``, the path's launch counts (``recurrent_serve``)."""
+    out = {}
+    for s, steps in RECURRENT_PREFILLS:
+        # a prefill alone attends over its own k / v, not the KV tier: the
+        # 100-token prefill runs at the first tier only
+        out[f"model_prefill_{s}"] = model_phase(
+            path, cfg, params, dev, s, tiers=tiers if steps else tiers[:1],
+            rows=RECURRENT_ROWS, steps=steps, witness=witness)
+    out["calls"] = recurrent_calls(path, cfg, params, dev, tiers)
+    out["serve"], launches, formats = recurrent_serve(path, cfg, params, dev,
+                                                      tiers, witness)
+    return out, launches, formats
+
+
 def check_path_launches(path: str, launches, formats=None,
                         grouped=None) -> None:
     """Every kernel of ``path`` launched in its run, and no other; on
@@ -2738,6 +3078,7 @@ def nvidia_smi() -> str:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2850,6 +3191,31 @@ def main() -> None:
         del params                  # free the card for the next model
         torch.cuda.empty_cache()
 
+    for path, tiers, witness in RECURRENT_RUNS:
+        cfg = get_config(path)        # full width and full depth
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            params = T.build_params(cfg, QuantMaker(0, device=dev))
+        torch.cuda.synchronize()
+        log(json.dumps({"path": path, "layers": cfg.n_layers,
+                        "build_params_s": time.perf_counter() - t0,
+                        "param_bytes": sum(nbytes(b)
+                                           for b in params.buffers()),
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                        "device": smi}))
+        t0 = time.perf_counter()
+        result[path], launches, formats = recurrent_phase(
+            path, cfg, params, dev, tiers, witness)
+        launches_by_path[path] = launches
+        result[path].update(layers=cfg.n_layers, launches=launches,
+                            launches_by_format=formats,
+                            seconds=time.perf_counter() - t0)
+        log(json.dumps({"path": path, "model_and_serve_s":
+                        result[path]["seconds"]}))
+        del params
+        torch.cuda.empty_cache()
+
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
@@ -2888,6 +3254,7 @@ def main() -> None:
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
             "case": {k: rep[k] for k in rep_case[name]}})
+    log(json.dumps({"chip_smoke_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": summary}))
     if FAILED_CHECKS:
         sys.exit(f"chip_smoke: {len(FAILED_CHECKS)} check(s) failed: "

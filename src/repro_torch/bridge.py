@@ -13,7 +13,12 @@ layers carry ``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``,
 copied bit for bit in the same ``[K/per, N]`` layout, w8a8's raw int8
 codes bit for bit from ``[K, N]`` (``QLinear`` keeps them transposed);
 bf16 arrays (numpy's ``bfloat16`` extension dtype) are copied by their
-16-bit patterns.
+16-bit patterns.  The recurrent families' trees go across as well:
+xLSTM's ``mlstm`` leaves stacked [g, per-1, ...] and ``slstm`` leaves
+[g, ...] (``r_gates`` [g, 4, nh, dh, dh]) with their ``mlstm_ln`` /
+``slstm_ln`` gammas, and Zamba2's ``mamba`` leaves [L, ...] with
+``mamba_ln`` and the unstacked ``shared_attn`` block; a key starting
+``w_`` is a linear leaf, any other a table, vector or norm.
 ``params_to_numpy`` is the inverse, returning quantized leaves as
 ``NumpyQLinear`` records and bf16 tensors as their int16 bit patterns
 (numpy has no bfloat16 of its own).
@@ -26,10 +31,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
 from repro_torch.models.common import DenseLinear, Norm, QLinear
 from repro_torch.models.moe import SHARED_LEAVES
-from repro_torch.models.transformer import Block, DenseLM, check_supported
+from repro_torch.models.ssm import Leaves
+from repro_torch.models.transformer import (Block, DenseLM, RecurrentBlock,
+                                            RecurrentLM, check_supported)
 
 
 @dataclasses.dataclass
@@ -70,47 +77,115 @@ def _leaf(leaf, layer: Optional[int], name: str, device):
                        name)
 
 
+def _recurrent_block(block: Dict[str, Any], ln, idx, device):
+    """One recurrent block at stack index ``idx`` of the reference's
+    stacked block dict and its norm gamma."""
+    leaves = {k: (_leaf(v, idx, f"ssm.{k}", device) if k.startswith("w_")
+                  else _tensor(np.asarray(v)[idx], device))
+              for k, v in block.items()}
+    return RecurrentBlock(_tensor(np.asarray(ln["g"])[idx], device),
+                          Leaves(leaves))
+
+
+def _block_from_numpy(tree: Dict[str, Any], layer, device) -> Block:
+    """A transformer block (at ``layer`` of the stacks, or unstacked with
+    ``layer`` None)."""
+    def pick(a):
+        return np.asarray(a) if layer is None else np.asarray(a)[layer]
+
+    mlp = "moe" if "moe" in tree else "ffn"
+    attn = {k: _leaf(v, layer, f"attn.{k}", device)
+            for k, v in tree["attn"].items()}
+    ffn = {k: _leaf(v, layer, SHARED_LEAVES.get(k, f"{mlp}.{k}"), device)
+           for k, v in tree[mlp].items()}
+    return Block(_tensor(pick(tree["ln1"]["g"]), device), attn,
+                 _tensor(pick(tree["ln2"]["g"]), device), **{mlp: ffn})
+
+
+def _recurrent_from_numpy(cfg: ModelConfig, tree, device) -> RecurrentLM:
+    embed = _tensor(tree["embed"], device)
+    ln_f = _tensor(tree["ln_f"]["g"], device)
+    if cfg.family == "ssm":
+        g, per = cfg.n_layers // cfg.slstm_every, cfg.slstm_every
+        mlstm = [_recurrent_block(tree["mlstm"], tree["mlstm_ln"], (gi, j),
+                                  device)
+                 for gi in range(g) for j in range(per - 1)]
+        slstm = [_recurrent_block(tree["slstm"], tree["slstm_ln"], gi, device)
+                 for gi in range(g)]
+        return RecurrentLM("ssm", embed, ln_f, mlstm=mlstm, slstm=slstm)
+    mamba = [_recurrent_block(tree["mamba"], tree["mamba_ln"], l, device)
+             for l in range(cfg.n_layers)]
+    return RecurrentLM("hybrid", embed, ln_f, mamba=mamba,
+                       shared_attn=_block_from_numpy(tree["shared_attn"],
+                                                     None, device))
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
-                      device="cuda") -> DenseLM:
+                      device="cuda"):
     check_supported(cfg)
-    lay = tree["layers"]
-    layers = []
-    mlp = "moe" if "moe" in lay else "ffn"
-    for l in range(cfg.n_layers):
-        attn = {k: _leaf(v, l, f"attn.{k}", device)
-                for k, v in lay["attn"].items()}
-        ffn = {k: _leaf(v, l, SHARED_LEAVES.get(k, f"{mlp}.{k}"), device)
-               for k, v in lay[mlp].items()}
-        layers.append(Block(_tensor(np.asarray(lay["ln1"]["g"])[l], device),
-                            attn,
-                            _tensor(np.asarray(lay["ln2"]["g"])[l], device),
-                            **{mlp: ffn}))
+    if cfg.family in RECURRENT_FAMILIES:
+        return _recurrent_from_numpy(cfg, tree, device)
+    layers = [_block_from_numpy(tree["layers"], l, device)
+              for l in range(cfg.n_layers)]
     return DenseLM(_tensor(tree["embed"], device), layers,
                    _tensor(tree["ln_f"]["g"], device),
                    _leaf(tree["lm_head"], None, "lm_head", device))
 
 
-def params_to_numpy(params: DenseLM) -> Dict[str, Any]:
-    """The port's parameters as the reference's stacked numpy tree."""
-    def leaf_of(mods):
-        first = mods[0]
-        if isinstance(first, QLinear):
-            return NumpyQLinear(
-                np.stack([_array(m.reference_codes()) for m in mods]),
-                np.stack([_array(m.scales) for m in mods]),
-                first.scheme_name, first.shape, first.name)
-        return np.stack([_array(m.weight) for m in mods])
+def _leaf_of(mods, lead=None):
+    """Leaves of several layers stacked (reshaped to ``lead`` + their own
+    shape when given)."""
+    def stack(arrays):
+        a = np.stack(arrays)
+        return a if lead is None else a.reshape(lead + a.shape[1:])
 
-    blocks = list(params.layers)
+    first = mods[0]
+    if isinstance(first, QLinear):
+        return NumpyQLinear(stack([_array(m.reference_codes()) for m in mods]),
+                            stack([_array(m.scales) for m in mods]),
+                            first.scheme_name, first.shape, first.name)
+    if isinstance(first, torch.Tensor):
+        return stack([_array(m) for m in mods])
+    return stack([_array(m.weight) for m in mods])
+
+
+def _blocks_to_numpy(blocks, lead=None) -> Dict[str, Any]:
+    """Transformer blocks as the reference's stacked block dict (one block
+    unstacked when ``lead`` is ())."""
     mlp = "moe" if hasattr(blocks[0], "moe") else "ffn"
-    layers = {
-        "ln1": {"g": np.stack([_array(b.ln1) for b in blocks])},
-        "attn": {k: leaf_of([b.attn[k] for b in blocks])
+    return {
+        "ln1": {"g": _leaf_of([b.ln1 for b in blocks], lead)},
+        "attn": {k: _leaf_of([b.attn[k] for b in blocks], lead)
                  for k in blocks[0].attn},
-        "ln2": {"g": np.stack([_array(b.ln2) for b in blocks])},
-        mlp: {k: leaf_of([getattr(b, mlp)[k] for b in blocks])
+        "ln2": {"g": _leaf_of([b.ln2 for b in blocks], lead)},
+        mlp: {k: _leaf_of([getattr(b, mlp)[k] for b in blocks], lead)
               for k in getattr(blocks[0], mlp)},
     }
+
+
+def _recurrent_to_numpy(params: RecurrentLM) -> Dict[str, Any]:
+    def blocks(mods, lead):
+        return ({k: _leaf_of([m.p[k] for m in mods], lead)
+                 for k in mods[0].p.names},
+                {"g": _leaf_of([m.ln1 for m in mods], lead)})
+
+    out = {"embed": _array(params.embed), "ln_f": {"g": _array(params.ln_f)}}
+    if params.family == "ssm":
+        g = len(params.slstm)
+        out["mlstm"], out["mlstm_ln"] = blocks(
+            list(params.mlstm), (g, len(params.mlstm) // g))
+        out["slstm"], out["slstm_ln"] = blocks(list(params.slstm), None)
+        return out
+    out["mamba"], out["mamba_ln"] = blocks(list(params.mamba), None)
+    out["shared_attn"] = _blocks_to_numpy([params.shared_attn], ())
+    return out
+
+
+def params_to_numpy(params) -> Dict[str, Any]:
+    """The port's parameters as the reference's stacked numpy tree."""
+    if isinstance(params, RecurrentLM):
+        return _recurrent_to_numpy(params)
+    layers = _blocks_to_numpy(list(params.layers))
     head = params.lm_head
     lm_head = NumpyQLinear(_array(head.reference_codes()),
                            _array(head.scales),

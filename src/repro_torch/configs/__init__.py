@@ -1,8 +1,9 @@
 """Model configurations served by the port (``--arch <id>`` resolves here).
 
 ``ModelConfig`` is the subset of ``repro.models.transformer.ModelConfig``
-the dense and MoE serving paths read (MoE with GQA or MLA attention, with
-or without shared experts), with the same field names and defaults, so a
+the serving paths read (dense; MoE with GQA or MLA attention, with or
+without shared experts; the recurrent xLSTM (``ssm``) and Zamba2
+(``hybrid``) families), with the same field names and defaults, so a
 config of the reference maps onto this one field for field.
 """
 from __future__ import annotations
@@ -12,10 +13,15 @@ import importlib
 from typing import Dict, List, Optional
 
 
+# the families that keep recurrent state: no slot pool holds it, so the
+# engine serves them through its static-batch loop
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # "dense" or "moe" (the port's families)
+    family: str                 # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -44,6 +50,13 @@ class ModelConfig:
     d_head_nope: int = 128
     d_head_rope: int = 64
     d_head_v: int = 128
+    # --- SSM / hybrid ---
+    ssm_state: int = 64
+    ssm_d_head: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    slstm_every: int = 8        # xlstm: every 8th block is sLSTM
+    attn_every: int = 6         # zamba2: shared attn block every 6 mamba
     kv_chunk: int = 512
 
     @property
@@ -58,6 +71,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "nemotron-4-340b": "nemotron_4_340b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "xlstm-350m": "xlstm_350m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

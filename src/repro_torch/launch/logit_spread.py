@@ -112,9 +112,15 @@ def teacher_forced(cfg, params, prompts: torch.Tensor, steps: int, *,
     own cache slot), then ``steps`` decode steps over all rows, fed
     ``feed`` when given, else each step's greedy ids.  ``routes`` (MoE)
     records or replays every MoE layer's expert ids (``models/moe.Routes``).
+    The recurrent families prefill every row at once from an empty cache
+    and decode all rows at one index (the static-batch loop).
     Returns (logits [1 + steps, rows, V] f32, the ids fed)."""
     rows, chunk = prompts.shape
     dev = prompts.device
+    if cfg.family in T.RECURRENT_FAMILIES:
+        return _teacher_forced_static(cfg, params, prompts, steps, kv=kv,
+                                      plain=plain, feed=feed,
+                                      layer_out=layer_out)
     cache = T.init_cache(cfg, rows, max_len, kv_dtype=kv, device=dev)
     with torch.no_grad():
         last = [T.forward(cfg, params, prompts[r:r + 1],
@@ -133,6 +139,33 @@ def teacher_forced(cfg, params, prompts: torch.Tensor, steps: int, *,
             lengths = lengths + 1
             ids.append(lg.argmax(-1) if feed is None else feed[t + 1])
     return torch.stack(seq), ids
+
+
+def _teacher_forced_static(cfg, params, prompts, steps, *, kv, plain, feed,
+                           layer_out):
+    rows, s = prompts.shape
+    cache = T.init_cache(cfg, rows, s + steps, kv_dtype=kv,
+                         device=prompts.device)
+    with torch.no_grad():
+        seq = [T.forward(cfg, params, prompts, cache=cache, cache_index=0,
+                         mode="prefill", plain=plain,
+                         layer_out=layer_out)[:, -1]]
+        ids = [seq[0].argmax(-1) if feed is None else feed[0]]
+        for t in range(steps):
+            lg = T.forward(cfg, params, ids[-1][:, None], cache=cache,
+                           cache_index=s + t, mode="decode", plain=plain,
+                           layer_out=layer_out)[:, -1]
+            seq.append(lg)
+            ids.append(lg.argmax(-1) if feed is None else feed[t + 1])
+    return torch.stack(seq), ids
+
+
+def outputs_per_call(cfg) -> int:
+    """The residual streams one forward call appends to ``layer_out``:
+    one a layer, and the hybrid's shared block once a group."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers + cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
 
 
 def _weights(packed, scales, scheme):
@@ -275,8 +308,9 @@ RUNS = {  # variant: (plain, {ops function: the version it runs})
 
 
 def layer_spread(got: list, want: list, n_layers: int) -> dict:
-    """Per layer, over every forward call: max |diff| / max |x| of the
-    residual stream, and the share of its elements that differ."""
+    """Per layer (``n_layers`` residual streams a call,
+    ``outputs_per_call``), over every forward call: max |diff| / max |x|
+    of the residual stream, and the share of its elements that differ."""
     rel, share = [], []
     for l in range(n_layers):
         a, b = got[l::n_layers], want[l::n_layers]
@@ -333,12 +367,12 @@ def main(argv=None) -> None:
             run = {"kv": kv, "variant": name,
                    **logit_check(logits[name], logits["plain"]),
                    **layer_spread(layers[name], layers["plain"],
-                                  cfg.n_layers)}
+                                  outputs_per_call(cfg))}
             result["runs"].append(run)
             print(json.dumps(run), flush=True)
         print(f"kv={kv}: residual max |diff| / max |x| vs plain, by layer")
         print("layer " + " ".join(f"{n:>13}" for n in VARIANTS))
-        for l in range(cfg.n_layers):
+        for l in range(outputs_per_call(cfg)):
             print(f"{l:5d} " + " ".join(
                 f"{r['layer_rel_diff'][l]:13.3e}" for r in result["runs"]
                 if r["kv"] == kv), flush=True)

@@ -13,13 +13,19 @@ out) or, for a MoE model, the router [D, E], every expert's gate, up and
 down and the shared experts (always on, one gated FFN of
 ``n_shared_experts`` expert widths).  The active count keeps ``top_k`` of
 ``n_experts`` of the routed experts' weights, as the reference computes
-it.
+it.  The recurrent families count their blocks' leaves: xLSTM's mLSTM
+(``w_up``, ``conv_w``, ``w_q`` / ``w_k`` / ``w_v``, ``w_if``, ``if_bias``,
+``norm``, ``w_out``) and sLSTM (``w_gates``, ``r_gates``, ``b_gates``,
+``norm``, ``w_out``) blocks with a norm each (and an FFN a block where
+``d_ff``), Zamba2's Mamba-2 blocks (``w_zx``, ``w_bc``, ``w_dt``, the two
+convs, ``A_log``, ``dt_bias``, ``D``, ``norm``, ``w_out``) with a norm
+each and one shared attention + FFN block.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
 
 
 def _norm(cfg: ModelConfig) -> int:
@@ -42,6 +48,9 @@ def _attention(cfg: ModelConfig) -> int:
 
 def model_params(cfg: ModelConfig) -> Dict[str, float]:
     """{'total', 'active'} parameter counts (equal for a dense model)."""
+    if cfg.family in RECURRENT_FAMILIES:
+        total = float(_recurrent(cfg))
+        return {"total": total, "active": total}
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"model_params: family {cfg.family!r} is not ported")
@@ -52,7 +61,7 @@ def model_params(cfg: ModelConfig) -> Dict[str, float]:
         expert = cfg.n_experts * 3 * d * f
         ffn = d * cfg.n_experts + expert + 3 * d * f * cfg.n_shared_experts
     else:
-        ffn = d * cfg.d_ff * (3 if cfg.gated_ffn else 2)
+        ffn = _ffn(cfg)
     layer = 2 * _norm(cfg) + _attention(cfg) + ffn
     total = cfg.vocab * d + _norm(cfg) + cfg.n_layers * layer
     if not cfg.tie_embeddings:
@@ -62,3 +71,26 @@ def model_params(cfg: ModelConfig) -> Dict[str, float]:
         active = total - cfg.n_layers * expert * (
             1 - cfg.top_k / cfg.n_experts)
     return {"total": float(total), "active": float(active)}
+
+
+def _ffn(cfg: ModelConfig) -> int:
+    return cfg.d_model * cfg.d_ff * (3 if cfg.gated_ffn else 2)
+
+
+def _recurrent(cfg: ModelConfig) -> int:
+    d, width = cfg.d_model, 4                   # the blocks' conv width
+    di = cfg.ssm_expand * d
+    total = cfg.vocab * d + _norm(cfg)          # tied: no lm_head
+    if cfg.family == "ssm":
+        g, per, nh = cfg.n_layers // cfg.slstm_every, cfg.slstm_every, \
+            cfg.n_heads
+        mlstm = (d * 2 * di + width * di + 3 * di * di + di * 2 * nh
+                 + 2 * nh + di + di * d)
+        slstm = (d * 4 * d + 4 * nh * (d // nh) ** 2 + 4 * d + d + d * d)
+        return total + g * (per - 1) * (mlstm + _norm(cfg)) \
+            + g * (slstm + _norm(cfg))
+    ds, nh = cfg.ssm_state, di // cfg.ssm_d_head
+    mamba = (d * 2 * di + d * 2 * ds + d * nh + width * di + width * 2 * ds
+             + 3 * nh + di + di * d)
+    shared = 2 * _norm(cfg) + _attention(cfg) + _ffn(cfg)
+    return total + cfg.n_layers * (mamba + _norm(cfg)) + shared

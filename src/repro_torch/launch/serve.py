@@ -46,6 +46,15 @@ snapshot.
   python -m repro_torch.launch.serve --arch granite-8b --smoke \
       --device cpu --spec --spec-k 4 --temperature 0.8
 
+The recurrent families (``--arch xlstm-350m``, ``--arch zamba2-7b``) are
+served by the engine's static-batch loop (``ServingEngine.generate``, the
+reference's ``_generate_legacy``): one warm-up generation at the real
+shapes, then the timed one; the report gives the generated shape, tokens
+a second, the kernel launches and the peak memory.  The scheduler's flags
+(tiers, budgets, SLO, faults, spec, trace) do not apply there.
+
+  python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
+
 Observability: ``--trace PATH`` writes a Chrome trace of the timed run
 (each request's WAITING / PREFILL / DECODE spans, one event per prefill
 chunk and decode dispatch; open it in Perfetto or chrome://tracing);
@@ -70,7 +79,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, RECURRENT_FAMILIES, get_config
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
@@ -208,6 +217,42 @@ def parse_priority_mix(spec: Optional[str]):
     return classes, [w / total for w in weights]
 
 
+def serve_static(engine: ServingEngine, args, prompts: np.ndarray, dev,
+                 build_s: float) -> dict:
+    """A recurrent family through ``generate``'s static-batch loop: a
+    warm-up generation at the real shapes, then the timed one."""
+    if args.tiers or args.spec or args.trace or args.metrics_out \
+            or args.fault_rate or args.cache_budget_mb is not None \
+            or build_slo(args) is not None:
+        raise SystemExit(f"{engine.cfg.name}: the static-batch loop takes "
+                         "none of the scheduler's flags")
+    engine.generate(prompts, max_new_tokens=args.max_new, seed=args.seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=args.max_new,
+                          seed=args.seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    new_tokens = int(out["lengths"].sum())
+    return {
+        "arch": engine.cfg.name, "batch": out["batch"],
+        "prompt_len": out["prompt_len"], "kv": engine.policy.kv,
+        "temperature": args.temperature, "device": str(dev),
+        "device_name": (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"),
+        "build_s": build_s, "generate_s": wall, "new_tokens": new_tokens,
+        "tokens_per_s": new_tokens / wall,
+        "finish_reasons": out["finish_reasons"],
+        "launches": ops.launch_counts(),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        "first_output": out["generated"][0, :8].tolist()}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -248,6 +293,7 @@ def main(argv=None) -> None:
     injector, arm_faults = build_fault_injector(args)
     engine = ServingEngine(cfg, params, ServeConfig(
         max_len=args.prompt_len + args.max_new, n_slots=args.n_slots,
+        temperature=args.temperature,
         prefill_chunk=args.prefill_chunk, max_burst=args.max_burst,
         cache_budget_bytes=budget, policy=PrecisionPolicy(kv=args.kv_dtype),
         device=str(dev), fault_injector=injector,
@@ -255,6 +301,9 @@ def main(argv=None) -> None:
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len))
+    if cfg.family in RECURRENT_FAMILIES:
+        print(json.dumps(serve_static(engine, args, prompts, dev, build_s)))
+        return
     classes, weights = parse_priority_mix(args.priority_mix)
     prios = rng.choice(classes, size=args.batch, p=weights)
 

@@ -138,14 +138,18 @@ def _attend_chunked(q, k, v, *, q_offset, kv_chunk, kv_valid_len):
 
 def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
                 cache: Tuple, cache_index, plain: bool = False,
-                page_table: Optional[torch.Tensor] = None):
+                page_table: Optional[torch.Tensor] = None,
+                attend_local: bool = False):
     """x [B, S, D] -> out [B, S, D]; writes the new K/V into ``cache``.
 
     ``cache`` = (k_slab, v_slab) [B, Smax, Hk, Dh] views of the pool,
     updated in place.  ``cache_index``: an int offset (prefill chunk: S
-    positions written at ``cache_index``, attention over the slab) or a [B]
+    positions written at ``cache_index``, attention over the slab; S == 1:
+    every row at that length, through the fused decode kernel) or a [B]
     tensor (decode, S == 1: row i writes and attends at its own length,
-    through the fused decode kernel).
+    through the fused decode kernel).  ``attend_local`` (a prefill from an
+    empty cache, the static-batch loop's): the slab is written, and the
+    attention runs over the fresh k / v alone, as the reference's.
 
     ``page_table`` [B, pages_per_slot] int64 (paged pools): ``cache`` is
     then a page arena [n_pages, page_size, Hk, Dh] per slab; the rows are
@@ -187,7 +191,9 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
         valid = torch.full((b,), cache_index + s, dtype=torch.int32,
                            device=x.device)
 
-    if s == 1:
+    if attend_local:
+        out = attend(q, k, v, q_offset=0, kv_chunk=cfg.kv_chunk)
+    elif s == 1:
         out = fused_decode_attention(q, k_cache, v_cache, valid, plain=plain)
     else:
         out = attend(q, cache_read(k_cache), cache_read(v_cache),

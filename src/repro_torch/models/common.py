@@ -157,16 +157,35 @@ class QuantMaker:
                        scales.reshape(-1, e, n).transpose(0, 1).contiguous(),
                        scheme, (k, n), name)
 
-    def table(self, name: str, rows: int, cols: int, scale: float = 0.02):
-        return self._normal(rows, cols).mul_(scale).to(torch.bfloat16)
+    def table(self, name: str, rows: int, cols: int, scale: float = 0.02,
+              lead: Tuple[int, ...] = ()):
+        """A bf16 [*lead, rows, cols] table of normal draws times
+        ``scale`` (the reference's ``Maker.table``; ``lead`` holds the
+        dims it stacks in front, as sLSTM's [4, heads] recurrent
+        matrices)."""
+        return self._normal(*lead, rows, cols).mul_(scale).to(torch.bfloat16)
 
     def norm(self, name: str, dim: int):
         return torch.ones(dim, dtype=torch.float32, device=self.device)
+
+    def vector(self, name: str, dim: int, init: float = 0.0):
+        """An f32 [dim] vector filled with ``init`` (biases, decay
+        parameters)."""
+        return torch.full((dim,), init, dtype=torch.float32,
+                          device=self.device)
 
 
 # ---------------------------------------------------------------------------
 # Numerics helpers (same f32 / bf16 staging as the reference)
 # ---------------------------------------------------------------------------
+def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """x [..., D] bf16 @ embed [V, D].T -> [..., V] f32: the tied lm-head,
+    products of the bf16 operands summed in f32 (the reference's
+    ``einsum(..., preferred_element_type=f32)``; a bf16 matmul would round
+    the logits to bf16)."""
+    return torch.matmul(x.to(torch.float32), embed.to(torch.float32).t())
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)

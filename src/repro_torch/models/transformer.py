@@ -1,39 +1,58 @@
-"""The dense and MoE transformer families: parameters, forward, KV cache
-(torch twin of the dense / MoE path of ``repro/models/transformer.py``; a
-MoE block holds ``moe`` — router, expert stacks and any shared experts,
+"""The model families: parameters, forward, cache (torch twin of
+``repro/models/transformer.py``).  Dense and MoE models are a ``DenseLM``
+(a MoE block holds ``moe`` — router, expert stacks and any shared experts,
 ``models/moe.py`` — in place of ``ffn``; with ``use_mla`` the block's
 attention is DeepSeek-V2's latent attention, ``attention.mla_forward``).
+The recurrent families are a ``RecurrentLM`` with tied embeddings:
+xLSTM (``ssm``: groups of ``slstm_every - 1`` mLSTM blocks and one sLSTM
+block) and Zamba2 (``hybrid``: Mamba-2 blocks with ONE shared attention +
+FFN block applied after every ``attn_every`` of them, each application
+with its own KV slab), ``models/ssm.py``.
 
 ``forward`` runs the reference's serving modes as a loop over layers:
-  * ``prefill_chunk`` — S new positions written at an int ``cache_index``;
-    attention over the cache (earlier chunks are already there); logits for
-    every chunk position;
-  * ``decode`` — one token per row, a [B] ``cache_index`` (every pool slot
-    at its own length), attention through the fused decode kernel.
+  * ``prefill_chunk`` (dense / MoE) — S new positions written at an int
+    ``cache_index``; attention over the cache (earlier chunks are already
+    there); logits for every chunk position;
+  * ``prefill`` (recurrent families) — a whole prompt from an empty cache
+    at index 0, attention over the fresh k / v; logits of the last
+    position only;
+  * ``decode`` — one token per row: a [B] ``cache_index`` (every pool slot
+    at its own length; dense / MoE) or an int (every row at that length;
+    the static-batch loop), attention through the fused decode kernel.
 
-The cache is ``(k, v)``: stacked per-layer slabs [L, B, Smax, Hk, Dh] (bf16
-or ``QuantizedKV``), written in place (MLA: ``(c_kv, k_rope)``, bf16
-[L, B, Smax, kv_lora] and [L, B, Smax, d_head_rope]); with a
+The dense / MoE cache is ``(k, v)``: stacked per-layer slabs [L, B, Smax,
+Hk, Dh] (bf16 or ``QuantizedKV``), written in place (MLA: ``(c_kv,
+k_rope)``, bf16 [L, B, Smax, kv_lora] and [L, B, Smax, d_head_rope]); with a
 ``page_table`` [B, pages_per_slot], page arenas [L, n_pages, page_size,
 Hk, Dh] instead (paged pools, GQA only: each layer writes through the
-table and reads the gathered virtual slabs).  ``plain=True`` runs every
-kernel's plain version instead (the on-card reference for the kernels).
+table and reads the gathered virtual slabs).  The recurrent caches are
+the reference's trees of stacked tensors, written in place: xLSTM
+``{"mlstm": {"state": SSMState [g, per-1, B, ...], "conv": [g, per-1, B,
+W-1, di]}, "slstm": SLSTMState [g, B, D]}``; Zamba2 ``{"groups": {"mamba":
+{"state": SSMState [g, per, B, ...], "conv": (x, bc) [g, per, B, W-1,
+...]}, "attn": (k, v) [g, B, Smax, Hk, Dh]}, "tail": {"state", "conv"}
+[rem, ...]}`` (states f32, conv states bf16, KV slabs at the tier).
+``plain=True`` runs every kernel's plain version instead (the on-card
+reference for the kernels).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Optional
 
 import torch
 from torch import nn
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
 from repro_torch.quant.kv_cache import kv_dtype_name, kv_slab
 
 from . import attention as A
 from . import moe as MOE
-from .common import QuantMaker, activate, apply_linear, rms_norm
+from . import ssm as S
+from .common import (Norm, QuantMaker, activate, apply_linear, rms_norm,
+                     tied_logits)
 
-MODES = ("prefill_chunk", "decode")
+MODES = ("prefill_chunk", "prefill", "decode")
 
 
 def attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
@@ -49,7 +68,27 @@ def mla_cfg(cfg: ModelConfig) -> A.MLAConfig:
                        rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk)
 
 
+def mamba_cfg(cfg: ModelConfig) -> S.Mamba2Config:
+    return S.Mamba2Config(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                          d_head=cfg.ssm_d_head, expand=cfg.ssm_expand,
+                          chunk=cfg.ssm_chunk, scheme=cfg.scheme_proj)
+
+
+def mlstm_cfg(cfg: ModelConfig) -> S.MLSTMConfig:
+    return S.MLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                         expand=cfg.ssm_expand, chunk=cfg.ssm_chunk,
+                         scheme=cfg.scheme_proj)
+
+
+def slstm_cfg(cfg: ModelConfig) -> S.SLSTMConfig:
+    return S.SLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                         scheme=cfg.scheme_proj)
+
+
 def check_supported(cfg: ModelConfig) -> None:
+    if cfg.family in RECURRENT_FAMILIES:
+        _check_recurrent(cfg)
+        return
     ffn = (cfg.gated_ffn, cfg.activation)
     moe = cfg.family == "moe" and cfg.n_experts > 0 and cfg.top_k > 0
     if (cfg.family not in ("dense", "moe") or (cfg.family == "moe") != moe
@@ -62,6 +101,20 @@ def check_supported(cfg: ModelConfig) -> None:
             "family with gated SiLU experts (routed, and shared where the "
             "config has them), both with GQA or MLA attention and an "
             "untied lm_head")
+
+
+def _check_recurrent(cfg: ModelConfig) -> None:
+    ssm = cfg.family == "ssm"
+    if (cfg.norm != "rms" or not cfg.tie_embeddings or cfg.n_experts
+            or cfg.use_mla
+            or (ssm and (cfg.d_ff or cfg.n_layers % cfg.slstm_every))
+            or (not ssm
+                and (cfg.gated_ffn, cfg.activation) != (True, "silu"))):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the recurrent families with RMS "
+            "norm and tied embeddings: xLSTM (ssm) with no separate FFN and "
+            "whole groups of slstm_every blocks, and Zamba2 (hybrid) with a "
+            "GQA + gated SiLU FFN shared block")
 
 
 class Block(nn.Module):
@@ -94,35 +147,118 @@ class DenseLM(nn.Module):
         self.lm_head = lm_head
 
 
-def build_params(cfg: ModelConfig, mk: QuantMaker) -> DenseLM:
+class RecurrentLM(nn.Module):
+    """Parameters of a recurrent-family model (tied embeddings: no
+    lm_head).  xLSTM: ``mlstm`` [g (per-1)] and ``slstm`` [g] blocks,
+    group-major; Zamba2: ``mamba`` [L] blocks and the one ``shared_attn``
+    ``Block``.  Each recurrent block is a ``RecurrentBlock``."""
+
+    def __init__(self, family: str, embed, ln_f, *, mlstm=(), slstm=(),
+                 mamba=(), shared_attn: Optional[Block] = None):
+        super().__init__()
+        self.family = family
+        self.register_buffer("embed", embed)
+        self.register_buffer("ln_f", ln_f)
+        self.mlstm = nn.ModuleList(mlstm)
+        self.slstm = nn.ModuleList(slstm)
+        self.mamba = nn.ModuleList(mamba)
+        self.shared_attn = shared_attn
+
+
+class RecurrentBlock(nn.Module):
+    """A pre-norm recurrent block: the RMS gamma ``ln1`` and the leaves
+    ``p`` (``ssm.Leaves``)."""
+
+    def __init__(self, ln1, p: S.Leaves):
+        super().__init__()
+        self.register_buffer("ln1", ln1)
+        self.p = p
+
+
+def _attn_params(cfg: ModelConfig, mk: QuantMaker) -> dict:
+    d, h, hk, dh, sp = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, cfg.scheme_proj)
+    return {"wq": mk.dense("attn.wq", d, h * dh, sp),
+            "wk": mk.dense("attn.wk", d, hk * dh, sp),
+            "wv": mk.dense("attn.wv", d, hk * dh, sp),
+            "wo": mk.dense("attn.wo", h * dh, d, sp)}
+
+
+def _ffn_params(cfg: ModelConfig, mk: QuantMaker) -> dict:
+    d, f, sf = cfg.d_model, cfg.d_ff, cfg.scheme_ffn
+    if cfg.gated_ffn:
+        return {"w_gate": mk.dense("ffn.w_gate", d, f, sf),
+                "w_up": mk.dense("ffn.w_up", d, f, sf),
+                "w_down": mk.dense("ffn.w_down", f, d, sf)}
+    return {"w_in": mk.dense("ffn.w_in", d, f, sf),
+            "w_out": mk.dense("ffn.w_out", f, d, sf)}
+
+
+def _build_recurrent(cfg: ModelConfig, mk: QuantMaker) -> RecurrentLM:
+    """The reference's walk order: embed, ln_f, then the family's blocks
+    (xLSTM: the mLSTM blocks group by group, then the sLSTM blocks;
+    Zamba2: the Mamba blocks, then the shared block)."""
+    d = cfg.d_model
+    embed = mk.table("embed", cfg.vocab, d)
+    ln_f = mk.norm("ln_f", d)
+    if cfg.family == "ssm":
+        g = cfg.n_layers // cfg.slstm_every
+        mlstm = [RecurrentBlock(mk.norm("ln1", d),
+                                S.mlstm_params(mk, mlstm_cfg(cfg)))
+                 for _ in range(g * (cfg.slstm_every - 1))]
+        slstm = [RecurrentBlock(mk.norm("ln1", d),
+                                S.slstm_params(mk, slstm_cfg(cfg)))
+                 for _ in range(g)]
+        return RecurrentLM("ssm", embed, ln_f, mlstm=mlstm, slstm=slstm)
+    mamba = [RecurrentBlock(mk.norm("ln1", d),
+                            S.mamba2_params(mk, mamba_cfg(cfg)))
+             for _ in range(cfg.n_layers)]
+    shared = Block(mk.norm("ln1", d), _attn_params(cfg, mk),
+                   mk.norm("ln2", d), _ffn_params(cfg, mk))
+    return RecurrentLM("hybrid", embed, ln_f, mamba=mamba,
+                       shared_attn=shared)
+
+
+def linear_leaves(params: nn.Module):
+    """(logical name, leaf) of every linear leaf of a parameter module,
+    by its place in the tree: the shared experts under their ``ffn.*``
+    names, the recurrent blocks' leaves as ``ssm.*``; norms and tables
+    are no linear leaves."""
+    if isinstance(params, RecurrentLM):
+        for blk in (*params.mlstm, *params.slstm, *params.mamba):
+            for name, leaf in blk.p.items():
+                if isinstance(leaf, nn.Module):
+                    yield f"ssm.{name}", leaf
+        blocks = [params.shared_attn] if params.shared_attn is not None \
+            else []
+    else:
+        yield "lm_head", params.lm_head
+        blocks = params.layers
+    for blk in blocks:
+        for group in ("attn", "ffn", "moe"):
+            for name, leaf in getattr(blk, group, {}).items():
+                if not isinstance(leaf, Norm):
+                    yield MOE.SHARED_LEAVES.get(name, f"{group}.{name}"), leaf
+
+
+def build_params(cfg: ModelConfig, mk: QuantMaker) -> nn.Module:
     """Walk the family's leaves (same logical names as the reference's
     Maker walk) with ``mk``, one layer at a time."""
     check_supported(cfg)
-    d, h, hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    sp, sf = cfg.scheme_proj, cfg.scheme_ffn
+    if cfg.family in RECURRENT_FAMILIES:
+        return _build_recurrent(cfg, mk)
+    d = cfg.d_model
     embed = mk.table("embed", cfg.vocab, d)
     layers = []
     for _ in range(cfg.n_layers):
-        if cfg.use_mla:
-            attn = A.mla_params(mk, mla_cfg(cfg), d, sp)
-        else:
-            attn = {"wq": mk.dense("attn.wq", d, h * dh, sp),
-                    "wk": mk.dense("attn.wk", d, hk * dh, sp),
-                    "wv": mk.dense("attn.wv", d, hk * dh, sp),
-                    "wo": mk.dense("attn.wo", h * dh, d, sp)}
+        attn = A.mla_params(mk, mla_cfg(cfg), d, cfg.scheme_proj) \
+            if cfg.use_mla else _attn_params(cfg, mk)
         if cfg.family == "moe":
             layers.append(Block(mk.norm("ln1", d), attn, mk.norm("ln2", d),
                                 moe=MOE.moe_params(mk, cfg)))
-            continue
-        if cfg.gated_ffn:
-            ffn = {"w_gate": mk.dense("ffn.w_gate", d, f, sf),
-                   "w_up": mk.dense("ffn.w_up", d, f, sf),
-                   "w_down": mk.dense("ffn.w_down", f, d, sf)}
         else:
-            ffn = {"w_in": mk.dense("ffn.w_in", d, f, sf),
-                   "w_out": mk.dense("ffn.w_out", f, d, sf)}
-        layers.append(Block(mk.norm("ln1", d), attn, mk.norm("ln2", d), ffn))
+            layers.append(Block(mk.norm("ln1", d), attn, mk.norm("ln2", d),
+                                _ffn_params(cfg, mk)))
     ln_f = mk.norm("ln_f", d)
     lm_head = mk.dense("lm_head", d, cfg.vocab, None)
     return DenseLM(embed, layers, ln_f, lm_head)
@@ -147,7 +283,7 @@ def _logits(params: DenseLM, x, plain: bool):
 
 
 def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
-            cache: Tuple, cache_index, mode: str, need_logits: bool = True,
+            cache, cache_index, mode: str, need_logits: bool = True,
             plain: bool = False, page_table: Optional[torch.Tensor] = None,
             layer_out: Optional[list] = None,
             routes: Optional[MOE.Routes] = None) -> Optional[torch.Tensor]:
@@ -160,6 +296,19 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
     on the kernel path's routes)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; the port runs {MODES}")
+    if cfg.family in RECURRENT_FAMILIES:
+        if mode == "prefill_chunk" or page_table is not None \
+                or routes is not None:
+            raise ValueError(
+                f"{cfg.name}: the recurrent families run 'prefill' from an "
+                "empty cache and 'decode' at an int index (the static-batch "
+                "loop), without page tables or routes")
+        return _forward_recurrent(cfg, params, tokens, cache, cache_index,
+                                  mode, need_logits, plain, layer_out)
+    if mode == "prefill":
+        raise ValueError("mode 'prefill' is the recurrent families' static-"
+                         "batch prefill; dense / MoE models run "
+                         "'prefill_chunk'")
     if cfg.use_mla:
         acfg, attention = mla_cfg(cfg), A.mla_forward
     else:
@@ -168,27 +317,136 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
     x = params.embed[tokens].to(torch.bfloat16)
     k_all, v_all = cache
     for l, blk in enumerate(params.layers):
-        h = rms_norm(x, blk.ln1)
-        x = x + attention(blk.attn, acfg, h, cache=(k_all[l], v_all[l]),
-                          cache_index=cache_index, plain=plain,
-                          page_table=page_table)
-        h = rms_norm(x, blk.ln2)
-        if mcfg is not None:
-            x = x + MOE.moe_forward(blk.moe, mcfg, h, plain=plain,
-                                    routes=routes)
-        else:
-            x = x + _ffn(cfg, blk.ffn, h, plain)
+        x = _block(cfg, blk, x, acfg, attention, mcfg,
+                   cache=(k_all[l], v_all[l]), cache_index=cache_index,
+                   plain=plain, page_table=page_table, routes=routes)
         if layer_out is not None:
             layer_out.append(x)
     return _logits(params, x, plain) if need_logits else None
 
 
+def _block(cfg: ModelConfig, blk: Block, x, acfg, attention, mcfg, *, cache,
+           cache_index, plain: bool, page_table=None, routes=None):
+    """One transformer block: x + attention(norm(x)), then + FFN / MoE."""
+    h = rms_norm(x, blk.ln1)
+    x = x + attention(blk.attn, acfg, h, cache=cache, cache_index=cache_index,
+                      plain=plain, page_table=page_table)
+    h = rms_norm(x, blk.ln2)
+    if mcfg is not None:
+        return x + MOE.moe_forward(blk.moe, mcfg, h, plain=plain,
+                                   routes=routes)
+    return x + _ffn(cfg, blk.ffn, h, plain)
+
+
+def _forward_recurrent(cfg: ModelConfig, params: RecurrentLM, tokens, cache,
+                       cache_index, mode: str, need_logits: bool,
+                       plain: bool, layer_out: Optional[list]):
+    """The xLSTM / Zamba2 stack over ``cache`` (updated in place); a
+    prefill returns the logits of the last position only."""
+    if mode == "prefill" and cache_index != 0:
+        raise ValueError("a recurrent prefill starts from an empty cache at "
+                         "index 0")
+    if mode == "decode" and (tokens.shape[1] != 1 or torch.is_tensor(
+            cache_index) and cache_index.dim()):
+        raise ValueError("a recurrent decode step takes one token a row at "
+                         "an int index")
+    x = params.embed[tokens].to(torch.bfloat16)
+    run = _forward_xlstm if cfg.family == "ssm" else _forward_zamba
+    x = run(cfg, params, x, cache, cache_index, mode, plain, layer_out)
+    if mode == "prefill":
+        x = x[:, -1:]
+    if not need_logits:
+        return None
+    return tied_logits(rms_norm(x, params.ln_f), params.embed)
+
+
+def _recurrent_block(fn, bcfg, blk: RecurrentBlock, x, cache: dict, idx,
+                     plain: bool):
+    """x + fn(norm(x)) for an mLSTM or Mamba-2 block, its state and conv
+    state read from ``cache`` at ``idx`` and written back in place."""
+    state = S.SSMState(*(a[idx] for a in cache["state"]))
+    conv = cache["conv"]
+    conv_in = tuple(a[idx] for a in conv) if isinstance(conv, tuple) \
+        else conv[idx]
+    out, (new_state, new_conv) = fn(blk.p, bcfg, rms_norm(x, blk.ln1),
+                                    state=state, conv_state=conv_in,
+                                    plain=plain)
+    for a, v in zip(cache["state"], new_state):
+        a[idx].copy_(v)
+    if isinstance(conv, tuple):
+        for a, v in zip(conv, new_conv):
+            a[idx].copy_(v)
+    else:
+        conv[idx].copy_(new_conv)
+    return x + out
+
+
+def _forward_xlstm(cfg, params, x, cache, cache_index, mode, plain,
+                   layer_out):
+    """g groups of (per - 1) mLSTM blocks then one sLSTM block."""
+    per = cfg.slstm_every
+    mc, sc = mlstm_cfg(cfg), slstm_cfg(cfg)
+    for gi in range(cfg.n_layers // per):
+        for j in range(per - 1):
+            x = _recurrent_block(S.mlstm_forward, mc,
+                                 params.mlstm[gi * (per - 1) + j], x,
+                                 cache["mlstm"], (gi, j), plain)
+            if layer_out is not None:
+                layer_out.append(x)
+        blk, st = params.slstm[gi], cache["slstm"]
+        out, new = S.slstm_forward(blk.p, sc, rms_norm(x, blk.ln1),
+                                   state=S.SLSTMState(*(a[gi] for a in st)),
+                                   plain=plain)
+        for a, v in zip(st, new):
+            a[gi].copy_(v)
+        x = x + out
+        if layer_out is not None:
+            layer_out.append(x)
+    return x
+
+
+def _forward_zamba(cfg, params, x, cache, cache_index, mode, plain,
+                   layer_out):
+    """g groups of ``attn_every`` Mamba-2 blocks, each group followed by
+    the shared block over the group's own KV slab; then the remaining
+    Mamba-2 blocks with no attention."""
+    per = cfg.attn_every
+    g, rem = divmod(cfg.n_layers, per)
+    mc, acfg = mamba_cfg(cfg), attn_cfg(cfg)
+    attention = functools.partial(A.gqa_forward,
+                                  attend_local=mode == "prefill")
+    groups = cache["groups"]
+    k_all, v_all = groups["attn"]
+    for gi in range(g):
+        for j in range(per):
+            x = _recurrent_block(S.mamba2_forward, mc,
+                                 params.mamba[gi * per + j], x,
+                                 groups["mamba"], (gi, j), plain)
+            if layer_out is not None:
+                layer_out.append(x)
+        x = _block(cfg, params.shared_attn, x, acfg, attention, None,
+                   cache=(k_all[gi], v_all[gi]), cache_index=cache_index,
+                   plain=plain)
+        if layer_out is not None:
+            layer_out.append(x)
+    for r in range(rem):
+        x = _recurrent_block(S.mamba2_forward, mc, params.mamba[g * per + r],
+                             x, cache["tail"], (r,), plain)
+        if layer_out is not None:
+            layer_out.append(x)
+    return x
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               kv_dtype="bf16", device="cuda") -> Tuple:
+               kv_dtype="bf16", device="cuda"):
     """Zeroed (k, v) cache: stacked slabs [L, batch, max_len, Hk, Dh] at
     ``kv_dtype`` ('bf16' | 'int8' | 'fp8').  MLA: the latent cache (c_kv
     [L, batch, max_len, kv_lora], k_rope [L, batch, max_len,
-    d_head_rope]), bf16 only (``mla_cache_spec``)."""
+    d_head_rope]), bf16 only (``mla_cache_spec``).  The recurrent
+    families: the trees of the module docstring (the hybrid's KV slabs at
+    ``kv_dtype``, recurrent state in its own dtypes)."""
+    if cfg.family in RECURRENT_FAMILIES:
+        return _recurrent_cache(cfg, batch, max_len, kv_dtype, device)
     if cfg.use_mla:
         if kv_dtype_name(kv_dtype) != "bf16":
             raise ValueError(
@@ -200,3 +458,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                 kv_slab(lead + (cfg.d_head_rope,), "bf16", device))
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return (kv_slab(shape, kv_dtype, device), kv_slab(shape, kv_dtype, device))
+
+
+def _recurrent_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype,
+                     device) -> dict:
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def recurrent(lead, states, conv):
+        conv = tuple(zeros(lead + c, torch.bfloat16) for c in conv) \
+            if isinstance(conv[0], tuple) else zeros(lead + conv,
+                                                     torch.bfloat16)
+        return {"state": S.SSMState(*(zeros(lead + sh, torch.float32)
+                                      for sh in states)), "conv": conv}
+
+    if cfg.family == "ssm":
+        g = cfg.n_layers // cfg.slstm_every
+        return {"mlstm": recurrent((g, cfg.slstm_every - 1),
+                                   *S.mlstm_state_shapes(mlstm_cfg(cfg),
+                                                         batch)),
+                "slstm": S.SLSTMState(*(
+                    zeros((g,) + sh, torch.float32)
+                    for sh in S.slstm_state_shapes(slstm_cfg(cfg), batch)))}
+    g, rem = divmod(cfg.n_layers, cfg.attn_every)
+    shapes = S.mamba2_state_shapes(mamba_cfg(cfg), batch)
+    kv = (g, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"groups": {"mamba": recurrent((g, cfg.attn_every), *shapes),
+                       "attn": (kv_slab(kv, kv_dtype, device),
+                                kv_slab(kv, kv_dtype, device))},
+            "tail": recurrent((rem,), *shapes)}

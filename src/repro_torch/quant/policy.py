@@ -24,6 +24,8 @@ import json
 from fnmatch import fnmatchcase
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+from repro_torch.configs import RECURRENT_FAMILIES
+
 from .pack import codes_per_word
 from .schemes import KV_SCHEMES, SCHEMES, effective_group, get_scheme
 
@@ -134,13 +136,20 @@ def leaf_info(cfg) -> Dict[str, Tuple[int, int, str]]:
     the port serves (dense: gated or non-gated FFN; MoE: GQA or MLA
     attention, a bf16 router and per-expert gated FFN stacks, each
     expert's leaf [K, N], and shared experts as one gated FFN under the
-    ``ffn.*`` names; untied ``lm_head``) — the names ``repro``'s Maker walk
-    gives the same leaves, so a rule for ``ffn.*`` reaches the shared
-    experts as it does there."""
+    ``ffn.*`` names; xLSTM's mLSTM / sLSTM and Zamba2's Mamba-2 leaves as
+    ``ssm.*``, with the bf16 ``ssm.w_dt`` / ``ssm.w_if``, and Zamba2's
+    shared block as ``attn.*`` / ``ffn.*``; the ``lm_head`` unless the
+    embeddings are tied) — the names ``repro``'s Maker walk gives the same
+    leaves, so a rule for ``ffn.*`` reaches the shared experts as it does
+    there.  Where two leaves share a name (mLSTM's and sLSTM's
+    ``ssm.w_out``), the later one's shape stands, as in the reference's
+    walk."""
     d, h, hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     sp = cfg.scheme_proj or "bf16"
     sf = cfg.scheme_ffn or "bf16"
+    if cfg.family in RECURRENT_FAMILIES:
+        return _recurrent_leaf_info(cfg, sp, sf)
     if cfg.use_mla:
         qk = h * (cfg.d_head_nope + cfg.d_head_rope)
         info = {"attn.w_dkv": (d, cfg.kv_lora + cfg.d_head_rope, sp),
@@ -164,10 +173,36 @@ def leaf_info(cfg) -> Dict[str, Tuple[int, int, str]]:
             fs = fe * cfg.n_shared_experts
             info.update({"ffn.w_gate": (d, fs, sf), "ffn.w_up": (d, fs, sf),
                          "ffn.w_down": (fs, d, sf)})
-    elif cfg.gated_ffn:
-        info.update({"ffn.w_gate": (d, f, sf), "ffn.w_up": (d, f, sf),
-                     "ffn.w_down": (f, d, sf)})
     else:
-        info.update({"ffn.w_in": (d, f, sf), "ffn.w_out": (f, d, sf)})
-    info["lm_head"] = (d, cfg.vocab, "bf16")
+        info.update(_ffn_info(cfg, sf))
+    if not cfg.tie_embeddings:
+        info["lm_head"] = (d, cfg.vocab, "bf16")
+    return info
+
+
+def _ffn_info(cfg, sf: str) -> Dict[str, Tuple[int, int, str]]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.gated_ffn:
+        return {"ffn.w_gate": (d, f, sf), "ffn.w_up": (d, f, sf),
+                "ffn.w_down": (f, d, sf)}
+    return {"ffn.w_in": (d, f, sf), "ffn.w_out": (f, d, sf)}
+
+
+def _recurrent_leaf_info(cfg, sp: str, sf: str):
+    """The served recurrent configs (``check_supported``): tied, and an
+    FFN only in Zamba2's shared block."""
+    d, di = cfg.d_model, cfg.ssm_expand * cfg.d_model
+    if cfg.family == "ssm":
+        return {"ssm.w_up": (d, 2 * di, sp), "ssm.w_q": (di, di, sp),
+                "ssm.w_k": (di, di, sp), "ssm.w_v": (di, di, sp),
+                "ssm.w_if": (di, 2 * cfg.n_heads, "bf16"),
+                # sLSTM's [D, D] (walked after mLSTM's [di, D])
+                "ssm.w_out": (d, d, sp), "ssm.w_gates": (d, 4 * d, sp)}
+    ds, nh = cfg.ssm_state, di // cfg.ssm_d_head
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    info = {"ssm.w_zx": (d, 2 * di, sp), "ssm.w_bc": (d, 2 * ds, sp),
+            "ssm.w_dt": (d, nh, "bf16"), "ssm.w_out": (di, d, sp),
+            "attn.wq": (d, h * dh, sp), "attn.wk": (d, hk * dh, sp),
+            "attn.wv": (d, hk * dh, sp), "attn.wo": (h * dh, d, sp)}
+    info.update(_ffn_info(cfg, sf))
     return info

@@ -19,8 +19,18 @@ slab path of ``repro/serve/engine.py``).
     step; lengths advance on the device, one transfer brings the [S,
     n_slots] samples back, and ``pool.lengths`` is left to the caller.
 
-``new_pool`` builds a slot pool at any KV tier; one engine's parameters
-serve every tier's pool (the scheduler holds one pool per tier).  With
+``generate`` serves a batch of prompts in one call: the dense and MoE
+families through a private scheduler, the recurrent families (xLSTM,
+Zamba2) through the reference's static-batch loop (``_generate_legacy``):
+one cache of the batch at prompt + new tokens, one prefill from it
+empty, then decode steps of every row at one index, sampled by the
+legacy rule (``sampling.sample_static``), stopping early once every row
+has met its EOS.
+
+``new_pool`` builds a slot pool at any KV tier (dense / MoE only: a
+recurrent family's pool raises ValueError, as the reference's does); one
+engine's parameters serve every tier's pool (the scheduler holds one pool
+per tier).  With
 ``cache_budget_bytes`` the slot count comes from the budget and the tier's
 bytes per slot.  With ``ServeConfig.paged`` the pool is a ``PagedKVPool``
 instead: the budget buys arena pages, the slot count stays the config's,
@@ -50,17 +60,16 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.common import Norm, QLinear
-from repro_torch.models.moe import SHARED_LEAVES
+from repro_torch.models.common import QLinear
 from repro_torch.quant.policy import PrecisionPolicy, validate_kv_tier
 from repro_torch.runtime.fault_tolerance import StepFault
 
-from .kv_pool import (KVCachePool, PagedKVPool, pages_for_budget,
-                      slots_for_budget)
-from .sampling import sample_on_device, sampler_inputs
-
+from .kv_pool import (KVCachePool, PagedKVPool, check_poolable,
+                      pages_for_budget, slots_for_budget)
+from .sampling import sample_on_device, sample_static, sampler_inputs
+from .threefry import prng_key, split
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
@@ -99,18 +108,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def leaf_schemes(params: T.DenseLM) -> Dict[str, str]:
-    """{logical leaf name -> scheme} of a parameter module (the shared
-    experts under their ``ffn.*`` names; norms are no linear leaves);
-    raises when the layers disagree."""
-    found: Dict[str, set] = {"lm_head": {_scheme(params.lm_head)}}
-    for blk in params.layers:
-        for group in ("attn", "ffn", "moe"):
-            for name, leaf in getattr(blk, group, {}).items():
-                if isinstance(leaf, Norm):
-                    continue
-                logical = SHARED_LEAVES.get(name, f"{group}.{name}")
-                found.setdefault(logical, set()).add(_scheme(leaf))
+def leaf_schemes(params) -> Dict[str, str]:
+    """{logical leaf name -> scheme} of a parameter module
+    (``T.linear_leaves``: the shared experts under their ``ffn.*`` names,
+    recurrent leaves as ``ssm.*``); raises when the layers disagree."""
+    found: Dict[str, set] = {}
+    for logical, leaf in T.linear_leaves(params):
+        found.setdefault(logical, set()).add(_scheme(leaf))
     mixed = sorted(n for n, s in found.items() if len(s) > 1)
     if mixed:
         raise ValueError(f"layers disagree on the schemes of {mixed}")
@@ -122,8 +126,7 @@ def _scheme(leaf) -> str:
 
 
 class ServingEngine:
-    def __init__(self, cfg: ModelConfig, params: T.DenseLM,
-                 serve_cfg: ServeConfig):
+    def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig):
         """Validates the policy against ``cfg`` and the parameters against
         the policy (every leaf carries the scheme the policy resolves for
         it), then moves the parameters to the serving device."""
@@ -161,6 +164,7 @@ class ServingEngine:
         the config's ``n_slots``.  Paged: a ``PagedKVPool`` of the
         config's ``n_slots`` (or ``n_slots``), its arena sized from the
         budget when one is set, else fully provisioned."""
+        check_poolable(self.cfg, "ServingEngine.new_pool")
         tier = self.policy.kv if kv_dtype is None \
             else validate_kv_tier(kv_dtype, self.cfg)
         max_len = max_len or self.scfg.max_len
@@ -401,11 +405,14 @@ class ServingEngine:
     def generate(self, tokens: np.ndarray, *, max_new_tokens: int,
                  seed: int = 0, obs=None) -> Dict:
         """One-shot generation for a batch of prompts [B, S] at
-        ``ServeConfig.temperature`` and ``seed``: the rows go through a
-        private scheduler (row i is request id i), to which ``obs`` (a
-        ``repro_torch.obs.Observability`` bundle, or None) is handed.
-        Returns generated ids [B, T] (zero-padded), per-row lengths and
-        finish reasons."""
+        ``ServeConfig.temperature`` and ``seed``.  Dense / MoE: the rows
+        go through a private scheduler (row i is request id i), to which
+        ``obs`` (a ``repro_torch.obs.Observability`` bundle, or None) is
+        handed.  Recurrent families: the static-batch loop, which has no
+        scheduler and ignores ``obs``.  Returns generated ids [B, T]
+        (zero-padded), per-row lengths and finish reasons."""
+        if self.cfg.family in RECURRENT_FAMILIES:
+            return self._generate_legacy(tokens, max_new_tokens, seed)
         from .request import Request, SamplingParams
         from .scheduler import Scheduler
 
@@ -425,3 +432,51 @@ class ServingEngine:
         return {"generated": gen,
                 "lengths": np.array([r.n_generated for r in reqs], np.int32),
                 "finish_reasons": [r.finish_reason for r in reqs]}
+
+    @torch.no_grad()
+    def _generate_legacy(self, tokens: np.ndarray, max_new_tokens: int,
+                         seed: int) -> Dict:
+        """The reference's static-batch loop (``_generate_legacy``): the
+        first token from the prefill's last-position logits with the key
+        ``PRNGKey(seed)`` itself, then ``max_new_tokens - 1`` decode steps
+        of every row at index ``S + i``, each sampled with ``sub`` of
+        ``key, sub = split(key)``; the batch stops early once every row
+        has sampled ``eos_id``, and each row's ids after its first EOS are
+        masked to 0."""
+        cfg, scfg = self.cfg, self.scfg
+        tokens = np.asarray(tokens, np.int32)
+        b, s = tokens.shape
+        if s + max_new_tokens > scfg.max_len:
+            raise ValueError("prompt + max_new_tokens exceeds max_len")
+        cache = T.init_cache(cfg, b, s + max_new_tokens,
+                             kv_dtype=self.policy.kv, device=self.device)
+        logits = T.forward(cfg, self.params, self._tensor(tokens),
+                           cache=cache, cache_index=0, mode="prefill")[:, -1]
+        key = prng_key(seed)
+        tok = sample_static(logits, key, scfg.temperature)
+        out = [tok.cpu().numpy()]
+        finished = np.zeros((b,), bool)
+        for i in range(max_new_tokens - 1):
+            key, sub = split(key)
+            logits = T.forward(cfg, self.params, tok[:, None].to(torch.int64),
+                               cache=cache, cache_index=s + i,
+                               mode="decode")[:, -1]
+            tok = sample_static(logits, sub, scfg.temperature)
+            out.append(tok.cpu().numpy())
+            if scfg.eos_id >= 0:
+                finished |= out[-1] == scfg.eos_id
+                if finished.all():   # the whole batch is done
+                    break
+        gen = np.stack(out, axis=1)
+        lengths = np.full((b,), gen.shape[1], np.int32)
+        reasons = ["length"] * b
+        if scfg.eos_id >= 0:
+            # mask each row after its first EOS (a static batch cannot
+            # retire rows early)
+            eos = gen == scfg.eos_id
+            keep = (np.cumsum(eos, axis=1) - eos) == 0
+            gen = np.where(keep, gen, 0)
+            lengths = keep.sum(1).astype(np.int32)
+            reasons = ["eos" if eos[i].any() else "length" for i in range(b)]
+        return {"generated": gen, "prompt_len": s, "batch": b,
+                "lengths": lengths, "finish_reasons": reasons}

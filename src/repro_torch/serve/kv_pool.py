@@ -18,6 +18,11 @@ twice the bf16 slots of the same budget.  An MLA model's pool holds the
 latent cache (c_kv, k_rope), bf16 only: (kv_lora + d_head_rope) x 2 bytes
 a token a layer (deepseek-v2: 1152).
 
+Neither pool holds the recurrent families (``RECURRENT_FAMILIES``:
+xLSTM, Zamba2): they carry state a slot pool cannot hold and are served
+by the engine's static-batch loop; their pools raise ValueError, as the
+reference's do.
+
 ``PagedKVPool`` (the reference's paged pool) stores each layer's cache as
 a page arena [L, n_pages, page_size, Hk, Dh] instead, with a page table
 per slot over it: pages are allocated as a request's committed length
@@ -34,9 +39,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.quant.kv_cache import QuantizedKV, kv_dtype_name
+
+
+def check_poolable(cfg: ModelConfig, pool: str) -> None:
+    if cfg.family in RECURRENT_FAMILIES:
+        raise ValueError(
+            f"{pool} does not hold the recurrent families "
+            f"{RECURRENT_FAMILIES}, so not {cfg.family!r} (recurrent state "
+            "pooling is a separate layout)")
 
 
 def _cache_bytes(cache) -> int:
@@ -53,6 +66,7 @@ def bytes_per_slot(cfg: ModelConfig, max_len: int, *, kv_dtype="bf16",
     """Cache bytes one slot costs (all layers, K and V, scales included),
     from the shapes ``T.init_cache`` allocates, on the ``meta`` device
     (nothing is allocated)."""
+    check_poolable(cfg, "a slot pool")
     capacity = -(-max_len // align) * align
     return _cache_bytes(T.init_cache(cfg, 1, capacity, kv_dtype=kv_dtype,
                                      device="meta"))
@@ -78,6 +92,7 @@ class KVCachePool:
         """``align``: allocation granularity of the sequence axis (the
         engine passes its prefill chunk, so every chunk's write window fits
         the slab); reads stay bounded by the per-row valid lengths."""
+        check_poolable(cfg, "KVCachePool")
         if n_slots < 1 or max_len < 1 or align < 1:
             raise ValueError("n_slots, max_len and align must be >= 1")
         self.n_slots = n_slots
@@ -473,6 +488,7 @@ class PagedKVPool:
         """``page_size`` defaults to ``align`` (the prefill chunk);
         ``n_pages`` to full provisioning (every slot's capacity plus the
         garbage page)."""
+        check_poolable(cfg, "PagedKVPool")
         if cfg.use_mla:
             raise NotImplementedError(
                 f"{cfg.name}: paged pools of the MLA latent cache are not "

@@ -7,7 +7,9 @@ temperatures [N]: greedy ``argmax`` where t <= 0, elsewhere
 categorical`` as the reference vmaps it), the first maximum winning ties.
 It runs on the logits' device inside the decode step and the decode
 burst, so only [N] int32 ids cross to the host; ``sample_one`` samples the
-first token off a prompt's final prefill-chunk logits.
+first token off a prompt's final prefill-chunk logits.  The static-batch
+loop of the recurrent families samples by the reference's legacy rule
+instead (``sample_static``): one key for the whole batch.
 
 Greedy rows never consume their key, and a batch without a temperature
 row runs no sampler at all: ``sampler_inputs`` names the temperature rows
@@ -95,3 +97,18 @@ def batched_step_keys(seeds, ids, starts, k: int) -> np.ndarray:
                 raise OverflowError(
                     f"Python integer {v} out of bounds for int32 ({name})")
     return threefry.step_keys(seeds, ids, starts, k)
+
+
+def sample_static(logits: torch.Tensor, key, temperature: float
+                  ) -> torch.Tensor:
+    """The static-batch loop's rule (the reference's ``ServingEngine.
+    _sample``): [B, V] f32 logits -> [B] int32 ids, the argmax at
+    ``temperature`` <= 0, else ``jax.random.categorical(key, logits / T)``
+    with one key [2] for the whole batch: argmax(gumbel(key, (B, V)) +
+    logits / T), the Gumbel draw's element (b, v) at flat index b V + v."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    b, v = logits.shape
+    keys = threefry.keys_tensor(np.asarray(key).reshape(1, 2), logits.device)
+    noise = threefry.gumbel(keys, b * v).reshape(b, v)
+    return torch.argmax(noise + logits / temperature, dim=-1).to(torch.int32)

@@ -7,7 +7,8 @@ on.  Under those settings:
   * ``PRNGKey(seed)`` takes the seed as a 32-bit integer: the key is
     ``[0, seed mod 2^32]`` (the high word of a 32-bit seed is 0).
   * ``fold_in(key, d)`` = ``threefry2x32(key, (0, d mod 2^32))``, the two
-    output words forming the new key.
+    output words forming the new key; ``split(key)``'s key i is
+    ``fold_in(key, i)``.
   * The random bits of a draw of n elements: element i is ``y0 ^ y1`` of
     ``threefry2x32(key, (i >> 32, i mod 2^32))`` (the partitionable
     layout: one counter pair per element, not one counter array split in
@@ -69,6 +70,14 @@ def fold_in(key, data) -> np.ndarray:
     key = _words(key)
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], 0, _words(data))
     return np.stack(np.broadcast_arrays(y0, y1), -1).astype(np.uint32)
+
+
+def split(key):
+    """``jax.random.split(key)`` -> (key0, key1), each [2] uint32: under
+    the partitionable layout key i is ``threefry2x32(key, (0, i))``, the
+    same as ``fold_in(key, i)``."""
+    both = fold_in(np.asarray(key)[None, :], np.arange(2))
+    return both[0], both[1]
 
 
 def step_keys(seeds, ids, starts, k: int) -> np.ndarray:
