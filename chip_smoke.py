@@ -14,14 +14,18 @@ non-zero after the last phase; exceptions are not caught):
      M = 4 and K2 at M = 256 and 1024 on each of zamba2's awq_int4
      leaf shapes, 3584 x 14336, 3584 x 128, 7168 x 3584, 3584 x 3584 and
      14336 x 3584, K5 at M = 4 and 1024 on 2048 x 2048, K3 / K4 at 4
-     rows of 32 / 32 heads, Dh 112), timed with CUDA events (L2 flushed before each
+     rows of 32 / 32 heads, Dh 112; phi-3-vision-4.2b's: K1 at M = 4 and
+     K2 at M = 1280 on its fp8 leaves 3072 x 3072, 3072 x 8192 and 8192 x
+     3072, K3 / K4 in three KV tiers at 4 rows of 32 / 32 heads, Dh 96,
+     Sk 336), timed with CUDA events (L2 flushed before each
      launch) beside its bound, its plain version and one library call:
      the packed GEMV (K1, M = 1, 3, 8) and the tensor-core packed matmul (K2,
      M = 9, 64, 100) for three schemes on granite's four linear shapes
      (on its awq_int4 leaves also M = 15, the width of the mixed-tier
      path's int8 / fp8 decode cohorts), plus K2 on a ragged N (1000) and on decode leaves with N % 4 != 0
      (1022) that the dispatch routes to it; decode attention (K3 / K4) in
-     three KV tiers on four head layouts (Dh 128, 192, 64, 112), also
+     three KV tiers on six head layouts (Dh 128, 192, 64, 112, 128 at 48
+     / 4 heads, 96), also
      with zero-length rows (equal weights over the slab), and at the
      mixed-tier path's cohorts (int8 / fp8 at B = 15, bf16 at B = 8, over
      slabs of capacity 512); the int8 matmul
@@ -103,9 +107,11 @@ non-zero after the last phase; exceptions are not caught):
      every request against itself served alone, with grouped K1 launched
      on its int4 expert leaves at decode (M = 1) and prefill (M = 5) and
      K1 / K2 on its attention leaves;
-  5b. after granite's serve phase, on its parameters: one engine serves
+  5b. after granite's serve phase, on its first 18 of 36 layers (the
+     script's time, since phase 9; 5c and 5e too, each cache budget cut
+     in the same proportion, so the slots and pages stay): one engine serves
      bf16, int8 and fp8 KV side by side (``granite-8b-tiers``), each pool
-     sized from 576 MiB (8 / 15 / 15 slots), 22 requests with a third at
+     sized from 288 MiB (8 / 15 / 15 slots), 22 requests with a third at
      temperature 0.8 and two high-class bf16 arrivals that preempt two
      decoders; checks (i) every request's 32 tokens in the vocabulary,
      (ii) each request equals its single-tier run bit for bit (greedy and
@@ -119,10 +125,10 @@ non-zero after the last phase; exceptions are not caught):
      int8 / fp8 cohorts, K3 and K4 (int8 and fp8) in the one engine, (vii)
      the sampler on the card against the CPU: bits and uniforms bit for
      bit, Gumbel noise within 4 eps x max(|g|, 1), ids but near ties;
-  5c. after 5b, on granite's parameters: serving from a paged KV pool
+  5c. after 5b, on granite's first 18 layers: serving from a paged KV pool
      (``granite-8b-paged``; 8 slots, max_len 512, pages of 64 positions),
-     once with bf16 KV from 144 MiB (16 pages) and once with int8 KV from
-     72 MiB (15 pages), far below full provisioning (65), so admission is
+     once with bf16 KV from 72 MiB (16 pages) and once with int8 KV from
+     36 MiB (15 pages), far below full provisioning (65), so admission is
      page-limited: two 192-token prefixes A and B, A0-A5 = A + a suffix
      (A1, A4 at temperature 0.8), A6 / A7 = A (full-cover hits, one
      copy-on-write each), B0-B5 = B + a suffix once A's requests retired
@@ -136,7 +142,7 @@ non-zero after the last phase; exceptions are not caught):
      step no shared page under a write position, (v) every page still
      registered at the end holds the bytes it had when registered (sha256
      of codes and scales), (vi) K1, K2, K3 (bf16) and K4 (int8) launched;
-  5d. after 5c, on granite's parameters: serving under an SLO policy and a
+  5d. after 5c, on granite's 36 layers: serving under an SLO policy and a
      fenced dispatch (``granite-8b-slo``): one engine, bf16 and int8 pools
      of 8 / 15 slots from 576 MiB each, ``SLOPolicy`` (queue cap, protect
      priority 0, bf16 -> int8 downgrade with hysteresis, cost-model burst
@@ -153,7 +159,7 @@ non-zero after the last phase; exceptions are not caught):
      (final tier, no policy, no injector, same pool widths) bit for bit, or
      a prefix of it, (3) a resumed request is held to its rerun by 5b's
      rule iv, (4) K1, K2, K3 (bf16) and K4 (int8) launched;
-  5e. after 5d, on granite's parameters: speculative decoding
+  5e. after 5d, on granite's first 18 layers: speculative decoding
      (``granite-8b-spec``): one engine (8 slots, max_len 512, chunk 64,
      bursts of up to 8, bf16 KV), ``SpecConfig(draft_kv="int8", k_init=2,
      k_max=4)``, 10 requests (prompts 64-192, 48 new tokens, 3 at
@@ -171,7 +177,7 @@ non-zero after the last phase; exceptions are not caught):
      and a registry (``repro_torch.obs``): one spec_draft and one
      spec_verify event a round on the draft / verify lanes, the
      registry's spec-round and host-sync counters the scheduler's;
-  5f. after 5e, on granite's parameters: observability
+  5f. after 5e, on granite's 36 layers: observability
      (``granite-8b-obs``): phase 5's bf16 serve run again with the full
      bundle attached (tracer, registry with JSONL snapshots, the
      model-vs-measured profiler), held to phase 5's obs-off run: the same
@@ -195,7 +201,7 @@ non-zero after the last phase; exceptions are not caught):
      int8 KV; each path's launch counts set to 0 just before its model
      phase and read just after;
   7. deepseek-v2-236b (MLA with absorbed-latent decode, 2 shared + 160
-     routed fp8 experts, top-6) at full width and 8 of its 60 layers
+     routed fp8 experts, top-6) at full width and 4 of its 60 layers
      (about 3.97 GB of fp8 weights a layer: 60 do not fit the card), bf16
      latent KV only: the model phase (logits on replayed routes within 5 %
      of the logit scale, the free plain run's routing flips printed) and
@@ -221,8 +227,27 @@ non-zero after the last phase; exceptions are not caught):
      its top-2 gap exceeds 0.1 (zamba2: miss it at most 1.5 times as
      often as the witness's argmax, with the residual early in the model
      within 1.5 times the witness's spread);
-     a temperature-0.8 run repeats with its seed; the path's launches
-     equal the config's exactly.
+     a temperature-0.8 run repeats with its seed, and its ids are the
+     loop's sampler (``sample_static`` on the key chain) on the kernel
+     path's logits teacher-forced on them; the path's launches equal the
+     config's exactly;
+  9. phi-3-vision-4.2b (``vlm``: 32 layers, d_model 3072, 32 / 32 heads
+     of 96, gated SiLU d_ff 8192, vocab 32064, tied embeddings, fp8
+     projections and FFN, 256 patch rows) at full width and full depth
+     through the same static-batch loop, bf16 and int8 KV, each prompt 256
+     patch rows drawn from a seed at the embedding table's scale and 64
+     tokens: (a) 4 rows teacher-forced (prefill, 8 decode steps) through
+     the kernels and the plain versions, ``logit_check`` (else
+     ``witness_check``); (c) one prefill (K2 224 launches: 32 layers x 7
+     fp8 leaves at M = 1280) and one decode step (K1 224, K3 or K4 32),
+     exactly, with their walls and the step's device-busy ms; (b)
+     ``generate`` on ``{"tokens": [4, 64], "patches": [4, 256, 3072]}``,
+     16 new tokens, greedy and at 0.8 at both tiers, checked as in 8 (b);
+     then the patch check (other patches must move the first token's
+     logits past ``logit_check``'s bound) and ``ServingEngine.score``
+     (mode ``train``: the kernel path's token logits within
+     ``logit_check`` of the plain path's, each NLL finite and the NLL of
+     those logits).
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.  Every case is also written to
 ``chiprun_out/chip_smoke.json``.  The script imports no JAX.
@@ -268,7 +293,8 @@ from repro_torch.kernels.xtramac_mac import (  # noqa: E402
     REF_MAX_STRIDE, check_reference_domain, virtual_dsp_multiply,
     virtual_dsp_plain)
 from repro_torch.launch import logit_spread as LS  # noqa: E402
-from repro_torch.launch.serve import build_fault_injector  # noqa: E402
+from repro_torch.launch.serve import (build_fault_injector,  # noqa: E402
+                                     draw_patches)
 from repro_torch.launch.profile_datapath import (  # noqa: E402
     DATAPATH_COMBOS, TABLE_VII_LANE_MACS, random_operands)
 from repro_torch.launch.profile_step import measure  # noqa: E402
@@ -289,8 +315,9 @@ from repro_torch.serve import (Request, RequestState,  # noqa: E402
                                SamplingParams, Scheduler, ServeConfig,
                                ServingEngine, SLOPolicy, SpecConfig)
 from repro_torch.serve import threefry  # noqa: E402
+from repro_torch.serve.engine import mean_nll  # noqa: E402
 from repro_torch.serve.sampling import (  # noqa: E402
-    batched_step_keys, sample_rows, temperature_scores)
+    batched_step_keys, sample_rows, sample_static, temperature_scores)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -362,6 +389,10 @@ PATH_KERNELS = {
     "zamba2-7b": ("packed_gemv", "packed_matmul", "decode_attention_bf16",
                   "decode_attention_quant"),
     "xlstm-350m": ("w8a8_matmul",),
+    # the VLM through the static-batch loop: fp8 projections and FFN (the
+    # tied head is a plain matmul, as in the reference), bf16 / int8 KV
+    "phi-3-vision-4.2b": ("packed_gemv", "packed_matmul",
+                          "decode_attention_bf16", "decode_attention_quant"),
 }
 # the launches by format (``ops.format_launch_counts``) each path must make
 PATH_FORMATS = {
@@ -391,6 +422,9 @@ PATH_FORMATS = {
     "zamba2-7b": ("packed_gemv:int4", "packed_matmul:int4",
                   "decode_attention_bf16:bf16",
                   "decode_attention_quant:int8"),
+    "phi-3-vision-4.2b": ("packed_gemv:fp8_e4m3", "packed_matmul:fp8_e4m3",
+                          "decode_attention_bf16:bf16",
+                          "decode_attention_quant:int8"),
 }
 # the grouped launches by the rows of a group (``ops.grouped_launch_counts``)
 # each MoE path must make: decode pairs (M = 1) and the capacity buffers of
@@ -426,29 +460,47 @@ MODEL_RUNS = [
      False, ()),
     ("nemotron-4-340b", "nemotron-4-340b", 2, (), ("bf16", "int8"),
      "plain_splitkv", False, ()),
-    # 8 of 60 layers (about 3.97 GB of fp8 weights a layer); the MLA latent
+    # 4 of 60 layers (about 3.97 GB of fp8 weights a layer; 8 until
+    # phi-3-vision-4.2b's phase 9 took the script's time); the MLA latent
     # cache stays bf16, the only tier
-    ("deepseek-v2-236b", "deepseek-v2-236b", 8, (), ("bf16",), None, True,
+    ("deepseek-v2-236b", "deepseek-v2-236b", 4, (), ("bf16",), None, True,
      ()),
 ]
-# the recurrent families at full width and depth, served by the engine's
-# static-batch loop: (path = arch, KV tiers, witness variant of the model
-# phase).  xLSTM has no attention, so no KV tier but the default
-RECURRENT_RUNS = [("zamba2-7b", ("bf16", "int8"), "plain_groupk"),
-                  ("xlstm-350m", ("bf16",), None)]
-RECURRENT_ROWS = 4
-# the model phase's prefills (prompt tokens, teacher-forced decode steps):
-# 256 takes the chunked SSD (a multiple of ssm_chunk 128, past one chunk),
-# 100 the sequential one
+# the static-batch families at full width and depth, served by the
+# engine's static-batch loop: (path = arch, KV tiers, witness variant of
+# the model phase, the model phase's prefills as (prompt tokens,
+# teacher-forced decode steps)).  The recurrent ones: 256 tokens take the
+# chunked SSD (a multiple of ssm_chunk 128, past one chunk), 100 the
+# sequential one; xLSTM has no attention, so no KV tier but the default.
+# phi-3-vision-4.2b (phase 9): 256 patch rows + 64 tokens, 8 steps
 RECURRENT_PREFILLS = ((256, 8), (100, 0))
+STATIC_RUNS = [("zamba2-7b", ("bf16", "int8"), "plain_groupk",
+                RECURRENT_PREFILLS),
+               ("xlstm-350m", ("bf16",), None, RECURRENT_PREFILLS),
+               ("phi-3-vision-4.2b", ("bf16", "int8"), "plain_groupk",
+                ((64, 8),))]
+STATIC_ROWS = 4
 # generate: prompt tokens, new tokens, the temperature rows' seed
-RECURRENT_GEN = (64, 16, 7)
+STATIC_GEN = (64, 16, 7)
+# the seeds of the VLM's drawn patches: the served batch's, and the other
+# patches of the patch check
+PATCH_SEEDS = (5, 6)
 # the prefill chunk of a model run where it is not 64: qwen3-moe at 4
 # layers with 128-token chunks, whose capacity buffers (C = 10) take K2
 MODEL_CHUNKS = {"qwen3-moe-30b-a3b-chunk128": 128}
+# granite's serving paths that run at a cut depth (the script's time,
+# since phase 9): the first CUT_LAYERS of granite's 36 blocks, every cache
+# budget cut in the same proportion (``layer_budget``), so each pool keeps
+# the slots and pages it has at full depth.  The SLO path (its thresholds
+# are the V80 model's seconds, priced at 36 layers) and the obs path (held
+# to phase 5's run) stay at full depth
+CUT_EXTRAS = ("granite-8b-tiers", "granite-8b-paged", "granite-8b-spec")
+CUT_LAYERS = 18
+GRANITE_LAYERS = 36
 # the mixed-tier path: one engine, one pool per KV tier, each sized from
-# 576 MiB (36 layers x 8 KV heads x Dh 128 at capacity 512: 8 bf16 slots
-# of 75,497,472 B, 15 int8 / fp8 slots of 38,928,384 B); bf16 requests
+# 576 MiB at 36 layers (x 8 KV heads x Dh 128 at capacity 512: 8 bf16 slots
+# of 75,497,472 B, 15 int8 / fp8 slots of 38,928,384 B; 288 MiB at 18
+# layers: half of each); bf16 requests
 # 0-9 (0-7 at priority 5, 8-9 at priority 0), int8 10-15, fp8 16-21; every
 # third request of a tier (the tier's index % 3 == 1) samples at 0.8
 TIERS = ("bf16", "int8", "fp8")
@@ -458,9 +510,10 @@ TIERS_REQUESTS = {"bf16": 10, "int8": 6, "fp8": 6}
 TIERS_LOW_CLASS = 8                 # bf16 requests 0-7: priority 5
 TIERS_TEMPERATURE, TIERS_SEED = 0.8, 7
 # the paged path: granite's parameters, 8 slots, max_len 512, chunk 64, so
-# pages of 64 positions: 9,437,184 B bf16 / 4,866,048 B int8 (36 layers x
-# 8 KV heads x Dh 128, K and V); 144 MiB buys 16 bf16 pages and 72 MiB 15
-# int8 pages, garbage page included (full provisioning: 1 + 8 x 8 = 65)
+# pages of 64 positions: 9,437,184 B bf16 / 4,866,048 B int8 at 36 layers
+# (x 8 KV heads x Dh 128, K and V); 144 MiB buys 16 bf16 pages and 72 MiB
+# 15 int8 pages, garbage page included (full provisioning: 1 + 8 x 8 = 65);
+# at 18 layers half of each (``layer_budget``)
 PAGED_BUDGETS = {"bf16": 150_994_944, "int8": 75_497_472}
 PAGED_PAGES = {"bf16": 16, "int8": 15}
 PAGED_PREFIX = 192                  # tokens of each shared prefix: 3 pages
@@ -578,7 +631,7 @@ W8A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096),
 W8A8_EXTRA = [(3, 4096, 4096, 0), (8, 4096, 4096, 5)]
 # decode attention: granite / minitron (the table case), nemotron-4-340b
 # (d_head 192, GQA 96 / 8), qwen3-moe (64, 32 / 4), zamba2-7b (112, 32 / 32),
-# starcoder2-15b (128, 48 / 4)
+# starcoder2-15b (128, 48 / 4), phi-3-vision-4.2b (96, 32 / 32)
 ATTN_LENS = [1024, 1, 37, 512, 1000, 300, 768, 64]
 # the mixed-tier path's decode attention: its cohorts (15 int8 / fp8 rows,
 # 8 bf16 rows) over slabs of capacity 512
@@ -599,9 +652,17 @@ ZAMBA_ROWS = ((4,), (256, 1024))
 # xlstm-350m's W8A8 w_q / w_k / w_v (2048 x 2048) at the decode step's M = 4
 # and the [4, 256] prefill's M = 1024
 XLSTM_W8A8 = (2048, 2048, (4, 1024))
+# phi-3-vision-4.2b's fp8 leaves: q / k / v / o (3072 x 3072), FFN gate /
+# up (3072 x 8192) and down (8192 x 3072); K1 at the decode step's M = 4,
+# K2 at the [4, 64] prefill's M = 4 x (256 patches + 64 tokens) = 1280
+PHI_LEAVES = [(3072, 3072), (3072, 8192), (8192, 3072)]
+PHI_ROWS = ((4,), (1280,))
+# its decode attention (Dh 96: three lanes of 32 dims): the static batch's
+# 4 rows at one length in a slab of the served capacity (256 + 64 + 16)
+PHI_ATTN = dict(b=4, h=32, hk=32, dh=96, sk=336, lens=[330] * 4)
 ATTN_LAYOUTS = [dict(h=32, hk=8, dh=128), dict(h=96, hk=8, dh=192),
                 dict(h=32, hk=4, dh=64), dict(h=32, hk=32, dh=112),
-                dict(h=48, hk=4, dh=128)]
+                dict(h=48, hk=4, dh=128), dict(h=32, hk=32, dh=96)]
 SCHEMES = ["awq_int4", "mxfp4", "fp8"]
 # matmul tolerance of the reference's kernel tests; decode attention to one
 # bf16 ulp (outputs are rounded to bf16; the sums differ only in order);
@@ -663,6 +724,20 @@ class Timer:
             self.e1.synchronize()
             times.append(self.e0.elapsed_time(self.e1))
         return float(np.median(times))
+
+
+def layer_budget(cfg, budget: int) -> int:
+    """A granite cache budget (bytes at its 36 layers) for ``cfg``'s
+    depth: the same slots and pages at any depth."""
+    return budget * cfg.n_layers // GRANITE_LAYERS
+
+
+def cut_depth(cfg, params, layers: int):
+    """(cfg, params) of the first ``layers`` blocks of a dense model, the
+    tensors shared with ``params``."""
+    return (dataclasses.replace(cfg, n_layers=layers),
+            T.DenseLM(params.embed, list(params.layers)[:layers],
+                      params.ln_f, params.lm_head))
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -795,6 +870,10 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
         cases += packed_leaf_cases(timer, gen, dev, "awq_int4", k, n,
                                    gemv_rows=ZAMBA_ROWS[0],
                                    matmul_rows=ZAMBA_ROWS[1])
+    for k, n in PHI_LEAVES:
+        cases += packed_leaf_cases(timer, gen, dev, "fp8", k, n,
+                                   gemv_rows=PHI_ROWS[0],
+                                   matmul_rows=PHI_ROWS[1])
     cases += grouped_cases(timer, gen, dev)
     cases += w8a8_cases(timer, gen, dev, chunk)
     k, n, rows = XLSTM_W8A8
@@ -807,6 +886,7 @@ def kernel_phase(timer: Timer, gen, dev, chunk: int):
     for layout in ATTN_LAYOUTS:
         cases += attention_cases(timer, gen, dev, **layout)
     cases += attention_cases(timer, gen, dev, **ZAMBA_ATTN)
+    cases += attention_cases(timer, gen, dev, **PHI_ATTN)
     for tier, b in TIERS_SLOTS.items():
         cases += attention_cases(timer, gen, dev, b=b, sk=512,
                                  tiers=(tier,), lens=TIERS_ATTN_LENS[:b])
@@ -1420,14 +1500,15 @@ def datapath_phase(gen, dev, seed=3):
 # Phase 4: the model through the kernels and through the plain versions
 # ---------------------------------------------------------------------------
 def model_phase(path, cfg, params, dev, chunk: int, tiers=("bf16", "int8"),
-                rows=8, steps=4, seed=1, witness=None):
+                rows=8, steps=4, seed=1, witness=None, patches=None):
     """Teacher-forced through the kernels, then through the plain versions
     fed the kernel run's ids; held to ``logit_check`` (why that bound:
     ``launch/logit_spread.py`` and PERF.md), at each KV tier of ``tiers``.
     Where the kernels miss the bound, ``witness`` names the
     ``logit_spread`` variant (plain math in the kernels' summation order,
     no kernel) whose spread from the plain run is recorded beside the
-    kernels', and ``witness_check`` decides."""
+    kernels', and ``witness_check`` decides.  ``patches``: the VLM's
+    [rows, Np, D] prompt prefix."""
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(1, cfg.vocab, (rows, chunk)),
                               device=dev)
@@ -1436,7 +1517,8 @@ def model_phase(path, cfg, params, dev, chunk: int, tiers=("bf16", "int8"),
     for tier in tiers:
         routes = MOE.Routes() if moe else None
         got, ids = LS.teacher_forced(cfg, params, prompts, steps, kv=tier,
-                                     plain=False, routes=routes)
+                                     plain=False, routes=routes,
+                                     patches=patches)
         if moe:
             # a routing flip between the paths is not a kernel fault: count
             # the flips of a free plain run, then hold the kernel path to
@@ -1450,7 +1532,8 @@ def model_phase(path, cfg, params, dev, chunk: int, tiers=("bf16", "int8"),
             del free_logits
         replay = MOE.Routes(routes.ids) if moe else None
         want, _ = LS.teacher_forced(cfg, params, prompts, steps, kv=tier,
-                                    plain=True, feed=ids, routes=replay)
+                                    plain=True, feed=ids, routes=replay,
+                                    patches=patches)
         out[tier] = res = LS.logit_check(got, want)
         if moe:
             res["routing"] = flips
@@ -1461,7 +1544,7 @@ def model_phase(path, cfg, params, dev, chunk: int, tiers=("bf16", "int8"),
             with LS.plain_ops(replace):
                 wit, _ = LS.teacher_forced(cfg, params, prompts, steps,
                                            kv=tier, plain=plain, feed=ids,
-                                           routes=replay)
+                                           routes=replay, patches=patches)
             res["witness"] = {"variant": witness, **LS.logit_check(wit, want)}
             ok = res["witness_rule_ok"] = LS.witness_check(res,
                                                            res["witness"])
@@ -1586,7 +1669,7 @@ def serve_phase(cfg, params, chunk, dev, tiers=("bf16", "int8")):
             # greedy output must not depend on batch-mates or admission
             # (MoE: every request, since its routing is per row)
             for r in (reqs if cfg.family == "moe" else reqs[-2:]):
-                solo = engine.generate(r.prompt[None],
+                solo = engine.generate({"tokens": r.prompt[None]},
                                        max_new_tokens=new_tokens)
                 require(list(solo["generated"][0]) == r.output_tokens,
                         f"request {r.id} ({rep['kv']}) differs from its "
@@ -1844,7 +1927,7 @@ def tiers_phase(cfg, params, chunk, dev):
     set to 0 just before the mixed run and read just after."""
     engine = ServingEngine(cfg, params, ServeConfig(
         max_len=512, prefill_chunk=chunk, max_burst=8,
-        cache_budget_bytes=TIERS_BUDGET, device=str(dev)))
+        cache_budget_bytes=layer_budget(cfg, TIERS_BUDGET), device=str(dev)))
     specs, new_tokens = tier_requests(cfg)
     by_id = {s[0]: s for s in specs}
     torch.cuda.reset_peak_memory_stats()
@@ -2078,7 +2161,8 @@ def paged_phase(cfg, params, chunk, dev):
     runs = {}
     for tier, budget in PAGED_BUDGETS.items():
         engine = ServingEngine(cfg, params, dataclasses.replace(
-            base, cache_budget_bytes=budget, policy=PrecisionPolicy(kv=tier)))
+            base, cache_budget_bytes=layer_budget(cfg, budget),
+            policy=PrecisionPolicy(kv=tier)))
         runs[tier] = (engine, *serve_paged(engine, tier, specs, new_tokens,
                                            dev))
     launches = ops.launch_counts()
@@ -2296,7 +2380,7 @@ def slo_phase(cfg, params, chunk, dev):
     injector, arm = build_fault_injector(args)
     engine = ServingEngine(cfg, params, ServeConfig(
         max_len=512, prefill_chunk=chunk, max_burst=8,
-        cache_budget_bytes=TIERS_BUDGET, device=str(dev),
+        cache_budget_bytes=layer_budget(cfg, TIERS_BUDGET), device=str(dev),
         fault_injector=injector, max_fault_retries=SLO_FAULT_RETRIES))
     policy = slo_policy()
     prices = {b: decode_latency(cfg, "awq_int4", batch=b, context=256,
@@ -2773,34 +2857,58 @@ def obs_phase(cfg, params, chunk, dev):
 # ---------------------------------------------------------------------------
 # Phase 8: the recurrent families through the static-batch loop
 # ---------------------------------------------------------------------------
-def recurrent_leaf_calls(cfg) -> int:
-    """Quantized linear leaf calls of one forward of a recurrent model, from
-    the config: xLSTM's mLSTM blocks call 5 (w_up, w_q, w_k, w_v, w_out;
-    w_if is bf16) and its sLSTM blocks 2 (w_gates, w_out); Zamba2's Mamba-2
-    blocks call 3 (w_zx, w_bc, w_out; w_dt is bf16) and each of its shared
-    block's applications 7 (q, k, v, o and the gated FFN)."""
+def static_leaf_calls(cfg) -> int:
+    """Quantized linear leaf calls of one forward of a static-batch model,
+    from the config: xLSTM's mLSTM blocks call 5 (w_up, w_q, w_k, w_v,
+    w_out; w_if is bf16) and its sLSTM blocks 2 (w_gates, w_out); Zamba2's
+    Mamba-2 blocks call 3 (w_zx, w_bc, w_out; w_dt is bf16) and each of its
+    shared block's applications 7 (q, k, v, o and the gated FFN); the
+    VLM's layers 7 each (its tied head is a plain matmul)."""
     if cfg.family == "ssm":
         g = cfg.n_layers // cfg.slstm_every
         return g * (cfg.slstm_every - 1) * 5 + g * 2
+    if cfg.family == "vlm":
+        return cfg.n_layers * 7
     return cfg.n_layers * 3 + (cfg.n_layers // cfg.attn_every) * 7
 
 
-def recurrent_calls(path, cfg, params, dev, tiers) -> dict:
-    """One prefill call ([4, 64], from an empty cache) and one decode step
-    at each KV tier, the launch counts reset just before and read just
-    after each: exactly ``recurrent_leaf_calls`` launches of K2 (prefill)
-    or K1 (decode step) for Zamba2, of K5 for xLSTM, and one K3 / K4 launch
-    a shared-attention application in a decode step (the prefill attends
-    over its own k / v).  Then the prefill's wall, and at the first tier a
-    decode step's wall and device-busy ms (``profile_step.measure``)."""
-    rows, s = RECURRENT_ROWS, RECURRENT_GEN[0]
-    n = recurrent_leaf_calls(cfg)
-    apps = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
-    prompts = torch.as_tensor(np.random.default_rng(3).integers(
-        1, cfg.vocab, (rows, s)), device=dev)
+def attention_calls(cfg) -> int:
+    """Decode-attention launches of one decode step: one a shared-block
+    application (Zamba2), one a layer (the VLM), none (xLSTM)."""
+    return {"ssm": 0, "hybrid": cfg.n_layers // cfg.attn_every,
+            "vlm": cfg.n_layers}[cfg.family]
+
+
+def static_batch(cfg, rows: int, s: int, seed: int, dev) -> dict:
+    """A static batch: [rows, s] prompt tokens from ``default_rng(seed)``,
+    and for the VLM [rows, Np, D] bf16 patches drawn on the card from
+    ``PATCH_SEEDS[0]`` (``launch/serve.draw_patches``)."""
+    batch = {"tokens": np.random.default_rng(seed).integers(
+        1, cfg.vocab, (rows, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = draw_patches(cfg, rows, PATCH_SEEDS[0], dev)
+    return batch
+
+
+def static_calls(path, cfg, params, dev, tiers) -> dict:
+    """One prefill call ([4, 64], from an empty cache; the VLM's 256 patch
+    rows first) and one decode step at each KV tier, the launch counts
+    reset just before and read just after each: exactly
+    ``static_leaf_calls`` launches of K2 (prefill) or K1 (decode step) for
+    Zamba2 and the VLM, of K5 for xLSTM, and ``attention_calls`` K3 / K4
+    launches in a decode step (the prefill attends over its own k / v).
+    Then the prefill's wall, and at the first tier a decode step's wall
+    and device-busy ms (``profile_step.measure``)."""
+    rows, s = STATIC_ROWS, STATIC_GEN[0]
+    n, apps = static_leaf_calls(cfg), attention_calls(cfg)
+    batch = static_batch(cfg, rows, s, 3, dev)
+    prompts = torch.as_tensor(batch["tokens"], device=dev).long()
+    patches = batch.get("patches")
+    index = s + (0 if patches is None else cfg.n_patches)
     out = {"leaf_calls_a_forward": n}
     for tier in tiers:
-        cache = T.init_cache(cfg, rows, s + 2, kv_dtype=tier, device=dev)
+        cache = T.init_cache(cfg, rows, index + 2, kv_dtype=tier,
+                             device=dev)
         attn = "decode_attention_bf16" if tier == "bf16" \
             else "decode_attention_quant"
         with torch.no_grad():
@@ -2808,19 +2916,20 @@ def recurrent_calls(path, cfg, params, dev, tiers) -> dict:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             logits = T.forward(cfg, params, prompts, cache=cache,
-                               cache_index=0, mode="prefill")
+                               cache_index=0, mode="prefill",
+                               patches=patches)
             sync(dev)
             prefill_ms = (time.perf_counter() - t0) * 1e3
             pre = ops.launch_counts()
             tok = logits[:, -1].argmax(-1)[:, None]
             ops.reset_launch_counts()
-            T.forward(cfg, params, tok, cache=cache, cache_index=s,
+            T.forward(cfg, params, tok, cache=cache, cache_index=index,
                       mode="decode")
             sync(dev)
             dec = ops.launch_counts()
             # one profiler pass a path (each costs 15-20 s, PERF.md)
             step = None if tier != tiers[0] else measure(lambda: T.forward(
-                cfg, params, tok, cache=cache, cache_index=s + 1,
+                cfg, params, tok, cache=cache, cache_index=index + 1,
                 mode="decode"), 4, dev, top=8)
         if cfg.family == "ssm":
             want_pre = {"w8a8_matmul": n}
@@ -2835,10 +2944,11 @@ def recurrent_calls(path, cfg, params, dev, tiers) -> dict:
                         f"{path} ({tier}): {got[name]} {name} launches in "
                         f"a {what}, not {want.get(name, 0)}")
         out[tier] = rec = {"prefill_rows": rows, "prefill_tokens": s,
+                           "prefill_positions": index,
                            "prefill_wall_ms": prefill_ms,
                            "prefill_launches": pre, "decode_launches": dec,
                            "decode_step": step}
-        log(json.dumps({"recurrent_calls": path, "kv": tier,
+        log(json.dumps({"static_calls": path, "kv": tier,
                         "device": nvidia_smi(), **rec}))
         del cache
     return out
@@ -2862,15 +2972,19 @@ def first_group_spread(cfg, got: list, want: list) -> dict:
             "layer_rel_rms": [(a / b) ** 0.5 for a, b in zip(num, den)]}
 
 
-def recurrent_serve(path, cfg, params, dev, tiers, witness):
-    """``ServingEngine.generate`` (the static-batch loop) on [4, 64] prompts,
-    16 new tokens: greedy at each KV tier, and twice at temperature 0.8
-    with one seed at the first; the launch counts set to 0 just before and
-    read just after.  Checks: every run's ids in the vocabulary and 16 a
-    row; the temperature run repeats; the launches are exactly the
-    config's (one prefill and 15 decode steps a run); the greedy ids are
-    the kernel path's own teacher-forced greedy ids, bit for bit; at the
-    first tier, on those ids, the plain path's logits are held to the
+def static_serve(path, cfg, params, dev, tiers, witness):
+    """``ServingEngine.generate`` (the static-batch loop) on [4, 64] prompts
+    (the VLM's with 256 drawn patch rows before them), 16 new tokens:
+    greedy at each KV tier, and twice at temperature 0.8 with one seed at
+    the first (the VLM: also once at every other tier); the launch counts
+    set to 0 just before and read just after.  Checks: every run's ids in
+    the vocabulary and 16 a row; the temperature run repeats; the launches
+    are exactly the config's (one prefill and 15 decode steps a run); the
+    greedy ids are the kernel path's own teacher-forced greedy ids, bit
+    for bit, and the temperature ids the loop's sampler (``sample_static``
+    on the key chain) on the kernel path's logits teacher-forced on them;
+    at the first tier, on the greedy ids, the plain path's logits are held
+    to the
     kernel path's as in the model phase (``logit_check``, else
     ``witness_check``), and the ids equal the plain path's argmax wherever
     its top-2 gap exceeds 0.1 (some such token required).  Where the
@@ -2880,9 +2994,9 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
     does, and the residual early in the model spreads at most
     ``WITNESS_FACTOR`` times as far as the witness's
     (``first_group_spread``)."""
-    rows, (s, new, seed) = RECURRENT_ROWS, RECURRENT_GEN
-    prompts = np.random.default_rng(seed).integers(
-        1, cfg.vocab, (rows, s)).astype(np.int32)
+    rows, (s, new, seed) = STATIC_ROWS, STATIC_GEN
+    batch = static_batch(cfg, rows, s, seed, dev)
+    patches = batch.get("patches")
     torch.cuda.reset_peak_memory_stats()
     sync(dev)
     ops.reset_launch_counts()
@@ -2893,15 +3007,14 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
                 max_len=s + new, temperature=temperature,
                 policy=PrecisionPolicy(kv=tier), device=str(dev)))
         t0 = time.perf_counter()
-        greedy = engine(0.0).generate(prompts, max_new_tokens=new, seed=0)
+        greedy = engine(0.0).generate(batch, max_new_tokens=new, seed=0)
         sync(dev)
         runs[tier] = [greedy, time.perf_counter() - t0]
-        if i == 0:
+        if i == 0 or cfg.family == "vlm":
             hot = engine(0.8)
-            runs[tier] += [hot.generate(prompts, max_new_tokens=new,
-                                        seed=seed),
-                           hot.generate(prompts, max_new_tokens=new,
-                                        seed=seed)]
+            runs[tier] += [hot.generate(batch, max_new_tokens=new,
+                                        seed=seed)
+                           for _ in range(2 if i == 0 else 1)]
     sync(dev)
     launches = ops.launch_counts()
     formats = ops.format_launch_counts()
@@ -2910,12 +3023,11 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
     log(json.dumps({"serve_launches": launches, "by_format": formats,
                     "grouped_by_rows": grouped, "arch": cfg.name}))
     check_path_launches(path, launches, formats, grouped)
-    n = recurrent_leaf_calls(cfg)
+    n, apps = static_leaf_calls(cfg), attention_calls(cfg)
     gens = {tier: len(run) - 1 for tier, run in runs.items()}
     if cfg.family == "ssm":
         want = {"w8a8_matmul": sum(gens.values()) * new * n}
     else:
-        apps = cfg.n_layers // cfg.attn_every
         want = {"packed_matmul": sum(gens.values()) * n,
                 "packed_gemv": sum(gens.values()) * (new - 1) * n}
         for tier in tiers:
@@ -2927,7 +3039,7 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
                 f"{path}: {launches[name]} {name} launches over the "
                 f"generate runs, not {want.get(name, 0)}")
     reports = []
-    pt = torch.as_tensor(prompts, device=dev).long()
+    pt = torch.as_tensor(batch["tokens"], device=dev).long()
     for tier, (greedy, wall, *hot) in runs.items():
         for tag, run in (("greedy", greedy),) + tuple(
                 (f"temperature {i}", r) for i, r in enumerate(hot)):
@@ -2937,15 +3049,23 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
                     f"{path} ({tier}, {tag}): generated {gen_ids.shape}")
             require(bool(((gen_ids >= 0) & (gen_ids < cfg.vocab)).all()),
                     f"{path} ({tier}, {tag}): an id outside the vocabulary")
-        if hot:
+        if len(hot) > 1:
             require(np.array_equal(hot[0]["generated"], hot[1]["generated"]),
                     f"{path} ({tier}): a repeated temperature run gave "
                     "other ids")
+        if hot:
+            require(np.array_equal(resampled(cfg, params, pt, patches, tier,
+                                             hot[0]["generated"], seed),
+                                   hot[0]["generated"]),
+                    f"{path} ({tier}): generate's temperature ids are not "
+                    "the loop's sampler on the kernel path's teacher-forced "
+                    "logits")
         ids = greedy["generated"]
         first = tier == tiers[0]
         kern_l = [] if first and witness is not None else None
         kern, kids = LS.teacher_forced(cfg, params, pt, new - 1, kv=tier,
-                                       plain=False, layer_out=kern_l)
+                                       plain=False, layer_out=kern_l,
+                                       patches=patches)
         require(np.array_equal(torch.stack(kids, 1).cpu().numpy(), ids),
                 f"{path} ({tier}): generate's greedy ids are not the "
                 "kernel path's teacher-forced ids")
@@ -2961,7 +3081,7 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
         plain_l = [] if witness is not None else None
         plain, _ = LS.teacher_forced(cfg, params, pt, new - 1, kv=tier,
                                      plain=True, feed=kids,
-                                     layer_out=plain_l)
+                                     layer_out=plain_l, patches=patches)
         res = LS.logit_check(kern, plain)
         ok = res["logits_ok"]
         top2 = plain.topk(2, dim=-1).values
@@ -2975,7 +3095,7 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
             with LS.plain_ops(replace):
                 wit, _ = LS.teacher_forced(cfg, params, pt, new - 1, kv=tier,
                                            plain=variant, feed=kids,
-                                           layer_out=wit_l)
+                                           layer_out=wit_l, patches=patches)
             res["witness"] = {"variant": witness, **LS.logit_check(wit,
                                                                    plain)}
             ok = res["witness_rule_ok"] = LS.witness_check(res,
@@ -3014,23 +3134,104 @@ def recurrent_serve(path, cfg, params, dev, tiers, witness):
     return reports, launches, formats
 
 
-def recurrent_phase(path, cfg, params, dev, tiers, witness):
+def resampled(cfg, params, prompts, patches, tier, ids, seed):
+    """The static-batch loop's sampler (``sample_static`` at 0.8 on the key
+    chain ``PRNGKey(seed)`` / ``split``) on the kernel path's logits,
+    teacher-forced on ``ids`` [rows, T]: [rows, T] ids."""
+    feed = [torch.as_tensor(ids[:, t], device=prompts.device).long()
+            for t in range(ids.shape[1])]
+    logits, _ = LS.teacher_forced(cfg, params, prompts, ids.shape[1] - 1,
+                                  kv=tier, plain=False, feed=feed,
+                                  patches=patches)
+    key, out = threefry.prng_key(seed), []
+    for t in range(ids.shape[1]):
+        if t:
+            key, sub = threefry.split(key)
+        out.append(sample_static(logits[t], sub if t else key,
+                                 0.8).cpu().numpy())
+    return np.stack(out, axis=1)
+
+
+def vlm_checks(path, cfg, params, dev) -> dict:
+    """The VLM's patch prefix and ``score`` on the served batch ([4, 64]
+    tokens, 256 patch rows): (1) with the same tokens and other patches
+    (``PATCH_SEEDS[1]``) the first token's logits (the kernel path's
+    prefill) move past ``logit_check``'s bound, which a dropped or ignored
+    prefix would not; (2) ``ServingEngine.score`` with the next token as
+    each position's label (row 0's first 8 and every row's last position
+    masked): the kernel path's train-mode token logits within
+    ``logit_check``'s bound of the plain path's, and every NLL finite and
+    the one recomputed from those logits (``engine.mean_nll``)."""
+    rows, (s, _, seed) = STATIC_ROWS, STATIC_GEN
+    batch = static_batch(cfg, rows, s, seed, dev)
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    first = []
+    for pseed in PATCH_SEEDS:
+        cache = T.init_cache(cfg, rows, cfg.n_patches + s, device=dev)
+        with torch.no_grad():
+            first.append(T.forward(
+                cfg, params, tokens, cache=cache, cache_index=0,
+                mode="prefill",
+                patches=draw_patches(cfg, rows, pseed, dev))[:, -1])
+        del cache
+    moved = LS.logit_check(first[1], first[0])
+    log(json.dumps({"patch_check": path, **moved}))
+    require(moved["finite"] and not moved["logits_ok"],
+            f"{path}: other patches moved the first token's logits by "
+            f"{moved['max_abs_logit_diff']}, within {moved['tolerance']}")
+    labels = np.concatenate([batch["tokens"][:, 1:],
+                             np.full((rows, 1), -1, np.int32)], axis=1)
+    labels[0, :8] = -1
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=s,
+                                                    device=str(dev)))
+    t0 = time.perf_counter()
+    nll = engine.score(dict(batch, labels=labels))
+    sync(dev)
+    score_s = time.perf_counter() - t0
+    kern = engine.train_logits(batch)
+    with torch.no_grad():
+        plain = T.forward(cfg, params, tokens, cache=None, cache_index=0,
+                          mode="train", plain=True,
+                          patches=batch["patches"])[:, cfg.n_patches:]
+    res = LS.logit_check(kern, plain)
+    again = mean_nll(kern, labels)
+    out = {"patch_check": moved, "score": {
+        "nll": nll.tolist(), "nll_from_logits": again.tolist(),
+        "nll_plain": mean_nll(plain, labels).tolist(), "wall_s": score_s,
+        "logits": res}}
+    log(json.dumps({"score": path, **out["score"]}))
+    require(res["finite"] and res["logits_ok"],
+            f"{path}: train-mode logits kernel vs plain: max diff "
+            f"{res['max_abs_logit_diff']}, past {res['tolerance']}")
+    require(bool(np.isfinite(nll).all()) and nll.shape == (rows,),
+            f"{path}: score gave {nll}")
+    require(np.allclose(nll, again, rtol=1e-6, atol=0.0),
+            f"{path}: score {nll.tolist()} is not the NLL of its logits "
+            f"{again.tolist()}")
+    return out
+
+
+def static_phase(path, cfg, params, dev, tiers, witness, prefills):
     """(a) the model teacher-forced through the kernels and the plain
-    versions (``model_phase``: 4 rows, a 256-token prefill and 8 decode
-    steps at each tier, then a 100-token prefill); (c) one prefill and one
-    decode step
-    with exact launch counts, and their walls; (b) serving through
-    ``generate``, the path's launch counts (``recurrent_serve``)."""
+    versions (``model_phase``: 4 rows, each prefill of ``prefills`` with
+    its decode steps, at each tier; a prefill alone at the first tier
+    only); (c) one prefill and one decode step with exact launch counts,
+    and their walls; (b) serving through ``generate``, the path's launch
+    counts (``static_serve``); for the VLM, its patch and score checks
+    (``vlm_checks``)."""
+    patches = draw_patches(cfg, STATIC_ROWS, PATCH_SEEDS[0], dev) \
+        if cfg.family == "vlm" else None
     out = {}
-    for s, steps in RECURRENT_PREFILLS:
-        # a prefill alone attends over its own k / v, not the KV tier: the
-        # 100-token prefill runs at the first tier only
+    for s, steps in prefills:
+        # a prefill alone attends over its own k / v, not the KV tier
         out[f"model_prefill_{s}"] = model_phase(
             path, cfg, params, dev, s, tiers=tiers if steps else tiers[:1],
-            rows=RECURRENT_ROWS, steps=steps, witness=witness)
-    out["calls"] = recurrent_calls(path, cfg, params, dev, tiers)
-    out["serve"], launches, formats = recurrent_serve(path, cfg, params, dev,
-                                                      tiers, witness)
+            rows=STATIC_ROWS, steps=steps, witness=witness, patches=patches)
+    out["calls"] = static_calls(path, cfg, params, dev, tiers)
+    out["serve"], launches, formats = static_serve(path, cfg, params, dev,
+                                                   tiers, witness)
+    if cfg.family == "vlm":
+        out.update(vlm_checks(path, cfg, params, dev))
     return out, launches, formats
 
 
@@ -3180,18 +3381,20 @@ def main() -> None:
                         result[path]["seconds"]}))
         for extra in extras:
             t0 = time.perf_counter()
+            ecfg, eparams = cut_depth(cfg, params, CUT_LAYERS) \
+                if extra in CUT_EXTRAS else (cfg, params)
             result[extra], launches, formats = extra_phases[extra](
-                cfg, params, chunk, dev)
+                ecfg, eparams, chunk, dev)
             launches_by_path[extra] = launches
-            result[extra].update(launches=launches,
+            result[extra].update(layers=ecfg.n_layers, launches=launches,
                                  launches_by_format=formats,
                                  seconds=time.perf_counter() - t0)
-            log(json.dumps({"path": extra, "seconds":
-                            result[extra]["seconds"]}))
+            log(json.dumps({"path": extra, "layers": ecfg.n_layers,
+                            "seconds": result[extra]["seconds"]}))
         del params                  # free the card for the next model
         torch.cuda.empty_cache()
 
-    for path, tiers, witness in RECURRENT_RUNS:
+    for path, tiers, witness, prefills in STATIC_RUNS:
         cfg = get_config(path)        # full width and full depth
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -3205,8 +3408,8 @@ def main() -> None:
                         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                         "device": smi}))
         t0 = time.perf_counter()
-        result[path], launches, formats = recurrent_phase(
-            path, cfg, params, dev, tiers, witness)
+        result[path], launches, formats = static_phase(
+            path, cfg, params, dev, tiers, witness, prefills)
         launches_by_path[path] = launches
         result[path].update(layers=cfg.n_layers, launches=launches,
                             launches_by_format=formats,

@@ -18,7 +18,8 @@ xLSTM's ``mlstm`` leaves stacked [g, per-1, ...] and ``slstm`` leaves
 [g, ...] (``r_gates`` [g, 4, nh, dh, dh]) with their ``mlstm_ln`` /
 ``slstm_ln`` gammas, and Zamba2's ``mamba`` leaves [L, ...] with
 ``mamba_ln`` and the unstacked ``shared_attn`` block; a key starting
-``w_`` is a linear leaf, any other a table, vector or norm.
+``w_`` is a linear leaf, any other a table, vector or norm.  A tied model
+(the VLM) has no ``lm_head`` on either side.
 ``params_to_numpy`` is the inverse, returning quantized leaves as
 ``NumpyQLinear`` records and bf16 tensors as their int16 bit patterns
 (numpy has no bfloat16 of its own).
@@ -127,9 +128,10 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
         return _recurrent_from_numpy(cfg, tree, device)
     layers = [_block_from_numpy(tree["layers"], l, device)
               for l in range(cfg.n_layers)]
+    head = None if cfg.tie_embeddings \
+        else _leaf(tree["lm_head"], None, "lm_head", device)
     return DenseLM(_tensor(tree["embed"], device), layers,
-                   _tensor(tree["ln_f"]["g"], device),
-                   _leaf(tree["lm_head"], None, "lm_head", device))
+                   _tensor(tree["ln_f"]["g"], device), head)
 
 
 def _leaf_of(mods, lead=None):
@@ -185,12 +187,12 @@ def params_to_numpy(params) -> Dict[str, Any]:
     """The port's parameters as the reference's stacked numpy tree."""
     if isinstance(params, RecurrentLM):
         return _recurrent_to_numpy(params)
-    layers = _blocks_to_numpy(list(params.layers))
+    out = {"embed": _array(params.embed), "ln_f": {"g": _array(params.ln_f)},
+           "layers": _blocks_to_numpy(list(params.layers))}
     head = params.lm_head
-    lm_head = NumpyQLinear(_array(head.reference_codes()),
-                           _array(head.scales),
-                           head.scheme_name, head.shape, head.name) \
-        if isinstance(head, QLinear) else _array(head.weight)
-    return {"embed": _array(params.embed),
-            "ln_f": {"g": _array(params.ln_f)},
-            "lm_head": lm_head, "layers": layers}
+    if head is not None:
+        out["lm_head"] = NumpyQLinear(
+            _array(head.reference_codes()), _array(head.scales),
+            head.scheme_name, head.shape, head.name) \
+            if isinstance(head, QLinear) else _array(head.weight)
+    return out

@@ -3,8 +3,10 @@
 ``ModelConfig`` is the subset of ``repro.models.transformer.ModelConfig``
 the serving paths read (dense; MoE with GQA or MLA attention, with or
 without shared experts; the recurrent xLSTM (``ssm``) and Zamba2
-(``hybrid``) families), with the same field names and defaults, so a
-config of the reference maps onto this one field for field.
+(``hybrid``) families; the VLM (``vlm``: a dense GQA model whose prompt
+starts with ``n_patches`` precomputed patch embeddings)), with the same
+field names and defaults, so a config of the reference maps onto this one
+field for field.
 """
 from __future__ import annotations
 
@@ -13,15 +15,18 @@ import importlib
 from typing import Dict, List, Optional
 
 
-# the families that keep recurrent state: no slot pool holds it, so the
-# engine serves them through its static-batch loop
+# the families that keep recurrent state
 RECURRENT_FAMILIES = ("ssm", "hybrid")
+# the families no slot pool or scheduler holds: the engine serves them
+# through its static-batch loop (the VLM's patch prefix is a per-request
+# input the pool's chunked prefill does not carry, as in the reference)
+STATIC_BATCH_FAMILIES = RECURRENT_FAMILIES + ("vlm",)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid
+    family: str                 # dense | moe | ssm | hybrid | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,6 +62,8 @@ class ModelConfig:
     ssm_chunk: int = 128
     slstm_every: int = 8        # xlstm: every 8th block is sLSTM
     attn_every: int = 6         # zamba2: shared attn block every 6 mamba
+    # --- frontend stub: precomputed embeddings arrive as inputs ---
+    n_patches: int = 0          # vlm: patch embeddings [B, n_patches, d]
     kv_chunk: int = 512
 
     @property
@@ -73,6 +80,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "xlstm-350m": "xlstm_350m",
     "zamba2-7b": "zamba2_7b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -13,7 +13,8 @@ out) or, for a MoE model, the router [D, E], every expert's gate, up and
 down and the shared experts (always on, one gated FFN of
 ``n_shared_experts`` expert widths).  The active count keeps ``top_k`` of
 ``n_experts`` of the routed experts' weights, as the reference computes
-it.  The recurrent families count their blocks' leaves: xLSTM's mLSTM
+it.  The VLM counts as the dense model it is (tied: no ``lm_head``; its
+patch embeddings are inputs, not parameters).  The recurrent families count their blocks' leaves: xLSTM's mLSTM
 (``w_up``, ``conv_w``, ``w_q`` / ``w_k`` / ``w_v``, ``w_if``, ``if_bias``,
 ``norm``, ``w_out``) and sLSTM (``w_gates``, ``r_gates``, ``b_gates``,
 ``norm``, ``w_out``) blocks with a norm each (and an FFN a block where
@@ -51,7 +52,7 @@ def model_params(cfg: ModelConfig) -> Dict[str, float]:
     if cfg.family in RECURRENT_FAMILIES:
         total = float(_recurrent(cfg))
         return {"total": total, "active": total}
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"model_params: family {cfg.family!r} is not ported")
     d = cfg.d_model

@@ -46,14 +46,21 @@ snapshot.
   python -m repro_torch.launch.serve --arch granite-8b --smoke \
       --device cpu --spec --spec-k 4 --temperature 0.8
 
-The recurrent families (``--arch xlstm-350m``, ``--arch zamba2-7b``) are
-served by the engine's static-batch loop (``ServingEngine.generate``, the
+The static-batch families (the recurrent ``--arch xlstm-350m`` and
+``--arch zamba2-7b``, and the VLM ``--arch phi-3-vision-4.2b``) are served
+by the engine's static-batch loop (``ServingEngine.generate``, the
 reference's ``_generate_legacy``): one warm-up generation at the real
 shapes, then the timed one; the report gives the generated shape, tokens
-a second, the kernel launches and the peak memory.  The scheduler's flags
-(tiers, budgets, SLO, faults, spec, trace) do not apply there.
+a second, the kernel launches and the peak memory.  The VLM's prompts
+start with [batch, n_patches, d_model] patch embeddings drawn from
+``--seed`` at the embedding table's scale (0.02 x a standard normal: the
+stub of the vision frontend's output); ``prompt_len`` counts the tokens
+only, ``n_patches`` stands beside it.  The scheduler's flags (tiers,
+budgets, SLO, faults, spec, trace) do not apply there.
 
   python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --smoke \
+      --device cpu
 
 Observability: ``--trace PATH`` writes a Chrome trace of the timed run
 (each request's WAITING / PREFILL / DECODE spans, one event per prefill
@@ -79,7 +86,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, RECURRENT_FAMILIES, get_config
+from repro_torch.configs import ARCH_IDS, STATIC_BATCH_FAMILIES, get_config
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
@@ -217,22 +224,30 @@ def parse_priority_mix(spec: Optional[str]):
     return classes, [w / total for w in weights]
 
 
-def serve_static(engine: ServingEngine, args, prompts: np.ndarray, dev,
+def draw_patches(cfg, rows: int, seed: int, device) -> torch.Tensor:
+    """[rows, n_patches, d_model] bf16 patch embeddings drawn from ``seed``
+    at the embedding table's scale (0.02 x a standard normal)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((rows, cfg.n_patches, cfg.d_model), generator=gen,
+                        device=device) * 0.02).to(torch.bfloat16)
+
+
+def serve_static(engine: ServingEngine, args, batch: dict, dev,
                  build_s: float) -> dict:
-    """A recurrent family through ``generate``'s static-batch loop: a
+    """A static-batch family through ``generate``'s static-batch loop: a
     warm-up generation at the real shapes, then the timed one."""
     if args.tiers or args.spec or args.trace or args.metrics_out \
             or args.fault_rate or args.cache_budget_mb is not None \
             or build_slo(args) is not None:
         raise SystemExit(f"{engine.cfg.name}: the static-batch loop takes "
                          "none of the scheduler's flags")
-    engine.generate(prompts, max_new_tokens=args.max_new, seed=args.seed)
+    engine.generate(batch, max_new_tokens=args.max_new, seed=args.seed)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new_tokens=args.max_new,
+    out = engine.generate(batch, max_new_tokens=args.max_new,
                           seed=args.seed)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -240,7 +255,8 @@ def serve_static(engine: ServingEngine, args, prompts: np.ndarray, dev,
     new_tokens = int(out["lengths"].sum())
     return {
         "arch": engine.cfg.name, "batch": out["batch"],
-        "prompt_len": out["prompt_len"], "kv": engine.policy.kv,
+        "prompt_len": out["prompt_len"], "n_patches": engine.cfg.n_patches,
+        "kv": engine.policy.kv,
         "temperature": args.temperature, "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
@@ -301,8 +317,11 @@ def main(argv=None) -> None:
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len))
-    if cfg.family in RECURRENT_FAMILIES:
-        print(json.dumps(serve_static(engine, args, prompts, dev, build_s)))
+    if cfg.family in STATIC_BATCH_FAMILIES:
+        batch = {"tokens": prompts}
+        if cfg.family == "vlm":
+            batch["patches"] = draw_patches(cfg, args.batch, args.seed, dev)
+        print(json.dumps(serve_static(engine, args, batch, dev, build_s)))
         return
     classes, weights = parse_priority_mix(args.priority_mix)
     prios = rng.choice(classes, size=args.batch, p=weights)

@@ -137,7 +137,7 @@ def _attend_chunked(q, k, v, *, q_offset, kv_chunk, kv_valid_len):
 
 
 def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
-                cache: Tuple, cache_index, plain: bool = False,
+                cache: Optional[Tuple], cache_index, plain: bool = False,
                 page_table: Optional[torch.Tensor] = None,
                 attend_local: bool = False):
     """x [B, S, D] -> out [B, S, D]; writes the new K/V into ``cache``.
@@ -149,7 +149,10 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
     tensor (decode, S == 1: row i writes and attends at its own length,
     through the fused decode kernel).  ``attend_local`` (a prefill from an
     empty cache, the static-batch loop's): the slab is written, and the
-    attention runs over the fresh k / v alone, as the reference's.
+    attention runs over the fresh k / v alone, as the reference's.  With
+    no ``cache`` (mode ``train``, ``cache_index`` 0) nothing is written and
+    the attention is causal over the fresh k / v, as the reference's
+    forward with ``cache=None``.
 
     ``page_table`` [B, pages_per_slot] int64 (paged pools): ``cache`` is
     then a page arena [n_pages, page_size, Hk, Dh] per slab; the rows are
@@ -170,6 +173,13 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
+    if cache is None:
+        if per_row or cache_index != 0:
+            raise ValueError("attention without a cache starts at "
+                             "position 0")
+        out = attend(q, k, v, q_offset=0, kv_chunk=cfg.kv_chunk)
+        return apply_linear(params["wo"], out.reshape(b, s, h * dh),
+                            plain=plain)
     k_cache, v_cache = cache
     if per_row and s != 1:
         raise ValueError("per-row cache_index is the decode (S == 1) path")

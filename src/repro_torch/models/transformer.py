@@ -7,18 +7,27 @@ The recurrent families are a ``RecurrentLM`` with tied embeddings:
 xLSTM (``ssm``: groups of ``slstm_every - 1`` mLSTM blocks and one sLSTM
 block) and Zamba2 (``hybrid``: Mamba-2 blocks with ONE shared attention +
 FFN block applied after every ``attn_every`` of them, each application
-with its own KV slab), ``models/ssm.py``.
+with its own KV slab), ``models/ssm.py``.  The VLM (``vlm``) is a dense
+GQA ``DenseLM`` with tied embeddings (no ``lm_head``: the logits are
+``tied_logits`` over the embedding table) whose prompt starts with
+``n_patches`` precomputed patch embeddings (``patches`` [B, Np, D], the
+stub of the vision frontend's output), put before the token embeddings.
 
 ``forward`` runs the reference's serving modes as a loop over layers:
   * ``prefill_chunk`` (dense / MoE) — S new positions written at an int
     ``cache_index``; attention over the cache (earlier chunks are already
     there); logits for every chunk position;
-  * ``prefill`` (recurrent families) — a whole prompt from an empty cache
-    at index 0, attention over the fresh k / v; logits of the last
-    position only;
+  * ``prefill`` (the static-batch families: recurrent and VLM) — a whole
+    prompt (the VLM's patches first) from an empty cache at index 0,
+    attention over the fresh k / v; logits of the last position only;
   * ``decode`` — one token per row: a [B] ``cache_index`` (every pool slot
     at its own length; dense / MoE) or an int (every row at that length;
-    the static-batch loop), attention through the fused decode kernel.
+    the static-batch loop: for the VLM, positions go on after the patch
+    prefix), attention through the fused decode kernel;
+  * ``train`` (dense and VLM) — no cache: causal attention over the
+    sequence's own k / v and logits for every position (the VLM's cover
+    patches + tokens), the reference's ``cache=None`` forward that
+    ``ServingEngine.score`` reads.
 
 The dense / MoE cache is ``(k, v)``: stacked per-layer slabs [L, B, Smax,
 Hk, Dh] (bf16 or ``QuantizedKV``), written in place (MLA: ``(c_kv,
@@ -43,7 +52,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
+from repro_torch.configs import (RECURRENT_FAMILIES, STATIC_BATCH_FAMILIES,
+                                 ModelConfig)
 from repro_torch.quant.kv_cache import kv_dtype_name, kv_slab
 
 from . import attention as A
@@ -52,7 +62,7 @@ from . import ssm as S
 from .common import (Norm, QuantMaker, activate, apply_linear, rms_norm,
                      tied_logits)
 
-MODES = ("prefill_chunk", "prefill", "decode")
+MODES = ("prefill_chunk", "prefill", "decode", "train")
 
 
 def attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
@@ -89,6 +99,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family in RECURRENT_FAMILIES:
         _check_recurrent(cfg)
         return
+    if cfg.family == "vlm":
+        _check_vlm(cfg)
+        return
     ffn = (cfg.gated_ffn, cfg.activation)
     moe = cfg.family == "moe" and cfg.n_experts > 0 and cfg.top_k > 0
     if (cfg.family not in ("dense", "moe") or (cfg.family == "moe") != moe
@@ -101,6 +114,18 @@ def check_supported(cfg: ModelConfig) -> None:
             "family with gated SiLU experts (routed, and shared where the "
             "config has them), both with GQA or MLA attention and an "
             "untied lm_head")
+
+
+def _check_vlm(cfg: ModelConfig) -> None:
+    """The VLM as the reference builds it: a dense GQA stack with tied
+    embeddings and a gated SiLU FFN."""
+    if (cfg.norm != "rms" or not cfg.tie_embeddings or cfg.n_experts
+            or cfg.use_mla or cfg.n_patches <= 0
+            or (cfg.gated_ffn, cfg.activation) != (True, "silu")):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the VLM family as a dense GQA "
+            "model with RMS norm, a gated SiLU FFN, tied embeddings and a "
+            "patch prefix (n_patches > 0)")
 
 
 def _check_recurrent(cfg: ModelConfig) -> None:
@@ -137,9 +162,10 @@ class Block(nn.Module):
 
 
 class DenseLM(nn.Module):
-    """Parameters of a model: embedding, blocks, final norm, head."""
+    """Parameters of a model: embedding, blocks, final norm, head (None
+    with tied embeddings: the VLM)."""
 
-    def __init__(self, embed, layers, ln_f, lm_head: nn.Module):
+    def __init__(self, embed, layers, ln_f, lm_head: Optional[nn.Module]):
         super().__init__()
         self.register_buffer("embed", embed)
         self.layers = nn.ModuleList(layers)
@@ -232,7 +258,8 @@ def linear_leaves(params: nn.Module):
         blocks = [params.shared_attn] if params.shared_attn is not None \
             else []
     else:
-        yield "lm_head", params.lm_head
+        if params.lm_head is not None:
+            yield "lm_head", params.lm_head
         blocks = params.layers
     for blk in blocks:
         for group in ("attn", "ffn", "moe"):
@@ -260,7 +287,8 @@ def build_params(cfg: ModelConfig, mk: QuantMaker) -> nn.Module:
             layers.append(Block(mk.norm("ln1", d), attn, mk.norm("ln2", d),
                                 _ffn_params(cfg, mk)))
     ln_f = mk.norm("ln_f", d)
-    lm_head = mk.dense("lm_head", d, cfg.vocab, None)
+    lm_head = None if cfg.tie_embeddings \
+        else mk.dense("lm_head", d, cfg.vocab, None)
     return DenseLM(embed, layers, ln_f, lm_head)
 
 
@@ -278,6 +306,8 @@ def _ffn(cfg: ModelConfig, p: nn.ModuleDict, x, plain: bool):
 
 def _logits(params: DenseLM, x, plain: bool):
     x = rms_norm(x, params.ln_f)
+    if params.lm_head is None:              # tied (the reference's einsum)
+        return tied_logits(x, params.embed)
     return apply_linear(params.lm_head, x, out_dtype=torch.float32,
                         plain=plain)
 
@@ -286,9 +316,13 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
             cache, cache_index, mode: str, need_logits: bool = True,
             plain: bool = False, page_table: Optional[torch.Tensor] = None,
             layer_out: Optional[list] = None,
-            routes: Optional[MOE.Routes] = None) -> Optional[torch.Tensor]:
+            routes: Optional[MOE.Routes] = None,
+            patches: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
     """tokens [B, S] -> logits [B, S, V] f32 (None when ``need_logits`` is
-    False: the lm-head is skipped).  ``cache`` is updated in place.  A
+    False: the lm-head is skipped).  ``cache`` is updated in place (None in
+    mode ``train``).  ``patches`` [B, Np, D] (the VLM's prefill and train
+    modes, and only there) go before the token embeddings as bf16, so the
+    prefill writes Np + S positions and the train logits cover Np + S.  A
     ``layer_out`` list gets the residual stream [B, S, D] after every layer
     appended (a diagnostic: ``launch/logit_spread.py``); ``routes`` (MoE)
     records every layer's expert ids, or replays those it holds (a
@@ -296,6 +330,22 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
     on the kernel path's routes)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; the port runs {MODES}")
+    if mode == "train" and (cfg.family not in ("dense", "vlm")
+                            or cfg.use_mla):
+        raise NotImplementedError(
+            f"{cfg.name}: mode 'train' runs the dense GQA and VLM families; "
+            "the reference's MoE train mode (routing with capacity drops) "
+            "and the recurrent families' (scans from a zero state) are not "
+            "ported")
+    if (patches is not None) != (cfg.family == "vlm"
+                                 and mode in ("prefill", "train")):
+        raise ValueError(
+            "patches go with the VLM's 'prefill' and 'train' modes and "
+            "nowhere else: a VLM decode step continues after the patch "
+            "prefix already in the cache")
+    if (cache is None) != (mode == "train"):
+        raise ValueError("mode 'train' runs without a cache, every other "
+                         "mode with one")
     if cfg.family in RECURRENT_FAMILIES:
         if mode == "prefill_chunk" or page_table is not None \
                 or routes is not None:
@@ -305,23 +355,37 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
                 "loop), without page tables or routes")
         return _forward_recurrent(cfg, params, tokens, cache, cache_index,
                                   mode, need_logits, plain, layer_out)
-    if mode == "prefill":
-        raise ValueError("mode 'prefill' is the recurrent families' static-"
-                         "batch prefill; dense / MoE models run "
+    static = cfg.family in STATIC_BATCH_FAMILIES
+    if mode == "prefill" and not static:
+        raise ValueError("mode 'prefill' is the static-batch families' "
+                         "prefill; dense / MoE models run 'prefill_chunk'")
+    if mode == "prefill_chunk" and static:
+        raise ValueError(f"{cfg.name}: the VLM runs the static-batch loop's "
+                         "'prefill' from an empty cache, not a slot pool's "
                          "'prefill_chunk'")
     if cfg.use_mla:
         acfg, attention = mla_cfg(cfg), A.mla_forward
     else:
         acfg, attention = attn_cfg(cfg), A.gqa_forward
+    if mode == "prefill":
+        if cache_index != 0:
+            raise ValueError("a static-batch prefill starts from an empty "
+                             "cache at index 0")
+        attention = functools.partial(attention, attend_local=True)
     mcfg = MOE.moe_cfg(cfg) if cfg.family == "moe" else None
     x = params.embed[tokens].to(torch.bfloat16)
-    k_all, v_all = cache
+    if patches is not None:
+        x = torch.cat([patches.to(torch.bfloat16), x], dim=1)
     for l, blk in enumerate(params.layers):
         x = _block(cfg, blk, x, acfg, attention, mcfg,
-                   cache=(k_all[l], v_all[l]), cache_index=cache_index,
-                   plain=plain, page_table=page_table, routes=routes)
+                   cache=None if cache is None else (cache[0][l],
+                                                     cache[1][l]),
+                   cache_index=cache_index, plain=plain,
+                   page_table=page_table, routes=routes)
         if layer_out is not None:
             layer_out.append(x)
+    if mode == "prefill":       # the loop reads the last position only
+        x = x[:, -1:]
     return _logits(params, x, plain) if need_logits else None
 
 
@@ -444,7 +508,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     [L, batch, max_len, kv_lora], k_rope [L, batch, max_len,
     d_head_rope]), bf16 only (``mla_cache_spec``).  The recurrent
     families: the trees of the module docstring (the hybrid's KV slabs at
-    ``kv_dtype``, recurrent state in its own dtypes)."""
+    ``kv_dtype``, recurrent state in its own dtypes).  The VLM's is the
+    dense one, ``max_len`` counting the patch prefix too."""
     if cfg.family in RECURRENT_FAMILIES:
         return _recurrent_cache(cfg, batch, max_len, kv_dtype, device)
     if cfg.use_mla:

@@ -3,8 +3,8 @@ events, a metrics registry and a model-vs-measured step profiler for the
 continuous-batching scheduler.
 
 The pieces are independent and each optional; ``Observability`` bundles
-them for ``Scheduler(engine, obs=...)`` and ``ServingEngine.generate(...,
-obs=...)``.  ``obs=None`` (the default) is a strict no-op: the scheduler
+them for ``Scheduler(engine, obs=...)`` and
+``ServingEngine.generate({"tokens": ...}, ..., obs=...)``.  ``obs=None`` (the default) is a strict no-op: the scheduler
 takes no extra clock sample, makes no extra host sync, dispatch or kernel
 launch.  With the bundle attached it adds no host sync either: every hook
 is a host-side record taken around syncs the scheduler already makes.

@@ -138,8 +138,8 @@ def leaf_info(cfg) -> Dict[str, Tuple[int, int, str]]:
     expert's leaf [K, N], and shared experts as one gated FFN under the
     ``ffn.*`` names; xLSTM's mLSTM / sLSTM and Zamba2's Mamba-2 leaves as
     ``ssm.*``, with the bf16 ``ssm.w_dt`` / ``ssm.w_if``, and Zamba2's
-    shared block as ``attn.*`` / ``ffn.*``; the ``lm_head`` unless the
-    embeddings are tied) — the names ``repro``'s Maker walk gives the same
+    shared block as ``attn.*`` / ``ffn.*``; the VLM's, the dense family's;
+    the ``lm_head`` unless the embeddings are tied) — the names ``repro``'s Maker walk gives the same
     leaves, so a rule for ``ffn.*`` reaches the shared experts as it does
     there.  Where two leaves share a name (mLSTM's and sLSTM's
     ``ssm.w_out``), the later one's shape stands, as in the reference's

@@ -19,16 +19,19 @@ slab path of ``repro/serve/engine.py``).
     step; lengths advance on the device, one transfer brings the [S,
     n_slots] samples back, and ``pool.lengths`` is left to the caller.
 
-``generate`` serves a batch of prompts in one call: the dense and MoE
-families through a private scheduler, the recurrent families (xLSTM,
-Zamba2) through the reference's static-batch loop (``_generate_legacy``):
-one cache of the batch at prompt + new tokens, one prefill from it
-empty, then decode steps of every row at one index, sampled by the
-legacy rule (``sampling.sample_static``), stopping early once every row
-has met its EOS.
+``generate`` serves a batch dict (``tokens`` [B, S], plus ``patches``
+[B, Np, D] for the VLM) in one call, as the reference's does: the dense
+and MoE families through a private scheduler, the static-batch families
+(xLSTM, Zamba2, the VLM) through the reference's static-batch loop
+(``_generate_legacy``): one cache of the batch at prefix + prompt + new
+tokens (the prefix being the VLM's patches), one prefill from it empty,
+then decode steps of every row at one index, sampled by the legacy rule
+(``sampling.sample_static``), stopping early once every row has met its
+EOS.  ``score`` is the reference's teacher-forced mean NLL per row (mode
+``train``; dense and VLM).
 
 ``new_pool`` builds a slot pool at any KV tier (dense / MoE only: a
-recurrent family's pool raises ValueError, as the reference's does); one
+static-batch family's pool raises ValueError); one
 engine's parameters serve every tier's pool (the scheduler holds one pool
 per tier).  With
 ``cache_budget_bytes`` the slot count comes from the budget and the tier's
@@ -55,12 +58,12 @@ error, a kernel that fails to build or launch) ends the run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
+from repro_torch.configs import STATIC_BATCH_FAMILIES, ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QLinear
 from repro_torch.quant.policy import PrecisionPolicy, validate_kv_tier
@@ -402,21 +405,49 @@ class ServingEngine:
         return sampled
 
     # ------------------------------------------------------------------
-    def generate(self, tokens: np.ndarray, *, max_new_tokens: int,
-                 seed: int = 0, obs=None) -> Dict:
-        """One-shot generation for a batch of prompts [B, S] at
-        ``ServeConfig.temperature`` and ``seed``.  Dense / MoE: the rows
-        go through a private scheduler (row i is request id i), to which
-        ``obs`` (a ``repro_torch.obs.Observability`` bundle, or None) is
-        handed.  Recurrent families: the static-batch loop, which has no
-        scheduler and ignores ``obs``.  Returns generated ids [B, T]
-        (zero-padded), per-row lengths and finish reasons."""
-        if self.cfg.family in RECURRENT_FAMILIES:
-            return self._generate_legacy(tokens, max_new_tokens, seed)
+    def _batch_inputs(self, batch: Dict):
+        """(tokens [B, S] int32 on the host, patches on the device or
+        None): ``patches`` [B, n_patches, D] must come with a VLM's batch
+        and with no other."""
+        if not isinstance(batch, Mapping):
+            raise TypeError("a batch is the reference's dict {'tokens': "
+                            "[B, S], ...}, not an array")
+        tokens = np.asarray(batch["tokens"], np.int32)
+        patches = batch.get("patches")
+        vlm = self.cfg.family == "vlm"
+        if vlm != (patches is not None):
+            raise ValueError(f"{self.cfg.name}: a batch carries 'patches' "
+                             "exactly when the model is a VLM")
+        if patches is None:
+            return tokens, None
+        patches = patches.to(self.device) if torch.is_tensor(patches) \
+            else torch.as_tensor(np.asarray(patches, np.float32),
+                                 device=self.device)
+        want = (tokens.shape[0], self.cfg.n_patches, self.cfg.d_model)
+        if tuple(patches.shape) != want:
+            raise ValueError(f"patches {tuple(patches.shape)}, not {want}")
+        return tokens, patches
+
+    def generate(self, batch: Dict, *, max_new_tokens: int, seed: int = 0,
+                 obs=None) -> Dict:
+        """One-shot generation for a batch dict at
+        ``ServeConfig.temperature`` and ``seed``: ``tokens`` [B, S], plus
+        ``patches`` [B, n_patches, d_model] for the VLM.  Dense / MoE: the
+        rows go through a private scheduler (row i is request id i), to
+        which ``obs`` (a ``repro_torch.obs.Observability`` bundle, or None)
+        is handed.  The static-batch families: the static-batch loop, which
+        has no scheduler and ignores ``obs``.  Returns generated ids [B, T]
+        (zero-padded), ``prompt_len`` (S, the prefix not counted),
+        ``batch``, per-row lengths and finish reasons; dense / MoE also the
+        scheduler's ``decode_dispatches``, ``decode_token_steps``,
+        ``burst_hist`` and ``host_syncs``, as the reference's."""
+        tokens, patches = self._batch_inputs(batch)
+        if self.cfg.family in STATIC_BATCH_FAMILIES:
+            return self._generate_legacy(tokens, patches, max_new_tokens,
+                                         seed)
         from .request import Request, SamplingParams
         from .scheduler import Scheduler
 
-        tokens = np.asarray(tokens, np.int32)
         b, s = tokens.shape
         if s + max_new_tokens > self.scfg.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
@@ -429,37 +460,48 @@ class ServingEngine:
         gen = np.zeros((b, width), np.int32)
         for i, r in enumerate(reqs):
             gen[i, :r.n_generated] = r.output_tokens
-        return {"generated": gen,
+        m = sched.metrics
+        return {"generated": gen, "prompt_len": s, "batch": b,
                 "lengths": np.array([r.n_generated for r in reqs], np.int32),
-                "finish_reasons": [r.finish_reason for r in reqs]}
+                "finish_reasons": [r.finish_reason for r in reqs],
+                "decode_dispatches": m.decode_dispatches,
+                "decode_token_steps": m.decode_token_steps,
+                "host_syncs": sched.n_host_syncs,
+                "burst_hist": dict(m.burst_hist)}
 
     @torch.no_grad()
-    def _generate_legacy(self, tokens: np.ndarray, max_new_tokens: int,
-                         seed: int) -> Dict:
-        """The reference's static-batch loop (``_generate_legacy``): the
-        first token from the prefill's last-position logits with the key
-        ``PRNGKey(seed)`` itself, then ``max_new_tokens - 1`` decode steps
-        of every row at index ``S + i``, each sampled with ``sub`` of
-        ``key, sub = split(key)``; the batch stops early once every row
-        has sampled ``eos_id``, and each row's ids after its first EOS are
-        masked to 0."""
+    def _generate_legacy(self, tokens: np.ndarray,
+                         patches: Optional[torch.Tensor],
+                         max_new_tokens: int, seed: int) -> Dict:
+        """The reference's static-batch loop (``_generate_legacy``): one
+        cache of prefix + S + ``max_new_tokens`` positions (the prefix
+        being the VLM's ``n_patches``, else 0), the first token from the
+        prefill's last-position logits with the key ``PRNGKey(seed)``
+        itself, then ``max_new_tokens - 1`` decode steps of every row at
+        index ``prefix + S + i``, each sampled with ``sub`` of ``key, sub =
+        split(key)``; the batch stops early once every row has sampled
+        ``eos_id``, and each row's ids after its first EOS are masked to 0.
+        ``max_len`` bounds S + ``max_new_tokens``, the prefix not counted,
+        as the reference's check does."""
         cfg, scfg = self.cfg, self.scfg
-        tokens = np.asarray(tokens, np.int32)
         b, s = tokens.shape
+        prefix = cfg.n_patches if cfg.family == "vlm" else 0
         if s + max_new_tokens > scfg.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
-        cache = T.init_cache(cfg, b, s + max_new_tokens,
+        cache = T.init_cache(cfg, b, prefix + s + max_new_tokens,
                              kv_dtype=self.policy.kv, device=self.device)
         logits = T.forward(cfg, self.params, self._tensor(tokens),
-                           cache=cache, cache_index=0, mode="prefill")[:, -1]
+                           cache=cache, cache_index=0, mode="prefill",
+                           patches=patches)[:, -1]
         key = prng_key(seed)
         tok = sample_static(logits, key, scfg.temperature)
         out = [tok.cpu().numpy()]
         finished = np.zeros((b,), bool)
+        index = prefix + s
         for i in range(max_new_tokens - 1):
             key, sub = split(key)
             logits = T.forward(cfg, self.params, tok[:, None].to(torch.int64),
-                               cache=cache, cache_index=s + i,
+                               cache=cache, cache_index=index + i,
                                mode="decode")[:, -1]
             tok = sample_static(logits, sub, scfg.temperature)
             out.append(tok.cpu().numpy())
@@ -480,3 +522,31 @@ class ServingEngine:
             reasons = ["eos" if eos[i].any() else "length" for i in range(b)]
         return {"generated": gen, "prompt_len": s, "batch": b,
                 "lengths": lengths, "finish_reasons": reasons}
+
+    @torch.no_grad()
+    def train_logits(self, batch: Dict) -> torch.Tensor:
+        """The teacher-forced logits of the batch's token positions [B, S,
+        V] f32 (mode ``train``; a VLM's patch rows dropped)."""
+        tokens, patches = self._batch_inputs(batch)
+        logits = T.forward(self.cfg, self.params, self._tensor(tokens),
+                           cache=None, cache_index=0, mode="train",
+                           patches=patches)
+        return logits[:, logits.shape[1] - tokens.shape[1]:]
+
+    def score(self, batch: Dict) -> np.ndarray:
+        """Teacher-forced mean NLL per row [B] f32 (the reference's
+        ``score``, a serving-quality check): ``batch`` as for ``generate``
+        plus ``labels`` [B, S], positions with a label < 0 left out."""
+        return mean_nll(self.train_logits(batch), batch["labels"])
+
+
+def mean_nll(logits: torch.Tensor, labels) -> np.ndarray:
+    """Mean over each row's positions with a label >= 0 of logsumexp -
+    the label's logit, in f32 (``logits`` [B, S, V], ``labels`` [B, S])."""
+    lf = logits.to(torch.float32)
+    labels = torch.as_tensor(np.asarray(labels), device=lf.device).long()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = labels >= 0
+    nll = torch.where(mask, lse - gold, torch.zeros((), device=lf.device))
+    return (nll.sum(-1) / mask.sum(-1).to(torch.float32)).cpu().numpy()

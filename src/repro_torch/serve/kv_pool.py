@@ -18,10 +18,12 @@ twice the bf16 slots of the same budget.  An MLA model's pool holds the
 latent cache (c_kv, k_rope), bf16 only: (kv_lora + d_head_rope) x 2 bytes
 a token a layer (deepseek-v2: 1152).
 
-Neither pool holds the recurrent families (``RECURRENT_FAMILIES``:
-xLSTM, Zamba2): they carry state a slot pool cannot hold and are served
-by the engine's static-batch loop; their pools raise ValueError, as the
-reference's do.
+Neither pool holds the static-batch families (``STATIC_BATCH_FAMILIES``:
+xLSTM and Zamba2, whose recurrent state a slot pool cannot hold, and the
+VLM, whose patch prefix the chunked prefill does not carry): the engine
+serves them through its static-batch loop, and their pools raise
+ValueError (the reference's pools refuse the recurrent families; its
+pool path cannot run a VLM either, its chunk step passing no patches).
 
 ``PagedKVPool`` (the reference's paged pool) stores each layer's cache as
 a page arena [L, n_pages, page_size, Hk, Dh] instead, with a page table
@@ -39,17 +41,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
+from repro_torch.configs import STATIC_BATCH_FAMILIES, ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.quant.kv_cache import QuantizedKV, kv_dtype_name
 
 
 def check_poolable(cfg: ModelConfig, pool: str) -> None:
-    if cfg.family in RECURRENT_FAMILIES:
+    if cfg.family in STATIC_BATCH_FAMILIES:
         raise ValueError(
-            f"{pool} does not hold the recurrent families "
-            f"{RECURRENT_FAMILIES}, so not {cfg.family!r} (recurrent state "
-            "pooling is a separate layout)")
+            f"{pool} does not hold the static-batch families "
+            f"{STATIC_BATCH_FAMILIES}, so not {cfg.family!r} (recurrent "
+            "state and patch prefixes are served by the engine's "
+            "static-batch loop)")
 
 
 def _cache_bytes(cache) -> int:

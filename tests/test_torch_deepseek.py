@@ -170,8 +170,8 @@ def test_scheduler_serves_requests_equal_to_their_solo_runs(max_burst):
     attends over its own latents, so its batch-mates cannot move it)."""
     eng = _engine(max_burst=max_burst)
     prompts = _prompts(eng.cfg.vocab, (8, 6, 10, 13, 17), seed=4)
-    solo = [eng.generate(p[None], max_new_tokens=6)["generated"][0]
-            for p in prompts]
+    solo = [eng.generate({"tokens": p[None]},
+                         max_new_tokens=6)["generated"][0] for p in prompts]
     sched = Scheduler(eng)
     first = [sched.submit(Request(prompt=p, sampling=SamplingParams(
         max_new_tokens=6))) for p in prompts[:2]]

@@ -416,8 +416,8 @@ def test_scheduler_serves_requests_equal_to_their_solo_runs(tier):
     group, so its batch-mates cannot move it)."""
     eng = _engine(tier)
     prompts = _prompts(eng.cfg.vocab, (8, 6, 10, 13), seed=4)
-    solo = [eng.generate(p[None], max_new_tokens=6)["generated"][0]
-            for p in prompts]
+    solo = [eng.generate({"tokens": p[None]},
+                         max_new_tokens=6)["generated"][0] for p in prompts]
     sched = Scheduler(eng)
     first = [sched.submit(Request(prompt=p, sampling=SamplingParams(
         max_new_tokens=6))) for p in prompts[:2]]
@@ -429,11 +429,12 @@ def test_scheduler_serves_requests_equal_to_their_solo_runs(tier):
     for req, want in zip(first + late, solo):
         assert req.is_finished and req.finish_reason == "length"
         np.testing.assert_array_equal(np.asarray(req.output_tokens), want)
-    batch = eng.generate(np.stack([p[:5] for p in prompts]),
+    batch = eng.generate({"tokens": np.stack([p[:5] for p in prompts])},
                          max_new_tokens=6)["generated"]
     for row, p in zip(batch, prompts):
         np.testing.assert_array_equal(
-            row, eng.generate(p[None, :5], max_new_tokens=6)["generated"][0])
+            row, eng.generate({"tokens": p[None, :5]},
+                              max_new_tokens=6)["generated"][0])
 
 
 # ---------------------------------------------------------------------------

@@ -175,5 +175,6 @@ def test_moe_smoke_serves_each_request_as_alone_on_card(cuda_device, tier):
     assert rows.get("packed_gemv_grouped:M=1", 0) > 0       # decode pairs
     assert rows.get("packed_gemv_grouped:M=5", 0) > 0       # chunk of 16
     for r, p in zip(reqs, prompts):
-        solo = engine.generate(p[None], max_new_tokens=12)["generated"][0]
+        solo = engine.generate({"tokens": p[None]},
+                               max_new_tokens=12)["generated"][0]
         assert list(solo) == r.output_tokens

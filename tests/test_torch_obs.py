@@ -534,10 +534,10 @@ def test_profiler_fallback_and_tier_pricing_equal_reference(weights):
 def test_generate_threads_obs(sides):
     eng = sides["port"].engine()
     prompts = np.stack(_prompts(eng.cfg.vocab, [6, 6], seed=4))
-    plain = eng.generate(prompts, max_new_tokens=5)
+    plain = eng.generate({"tokens": prompts}, max_new_tokens=5)
     obs = PO.Observability(tracer=PO.Tracer(), registry=PO.MetricsRegistry(),
                            profiler=PO.StepProfiler(eng.cfg))
-    traced = eng.generate(prompts, max_new_tokens=5, obs=obs)
+    traced = eng.generate({"tokens": prompts}, max_new_tokens=5, obs=obs)
     assert np.array_equal(plain["generated"], traced["generated"])
     events = json.loads(obs.tracer.to_json())
     assert sum(e["name"] == "finished" for e in events) == 2

@@ -464,7 +464,8 @@ def test_full_cover_hit_prefills_only_the_final_chunk(weights):
     assert (again.prefix_hit_tokens, calls) == (16, [8])
     assert sched.pool.n_cow_copies == 1
     assert again.output_tokens == first.output_tokens
-    want = _engine(weights).generate(prompt[None], max_new_tokens=4)
+    want = _engine(weights).generate({"tokens": prompt[None]},
+                                      max_new_tokens=4)
     assert first.output_tokens == list(want["generated"][0])
 
 

@@ -179,7 +179,7 @@ def generate_vs_reference(arch, *, temperature=0.0, eos_id=-1, s=20,
     tokens = np.random.default_rng(prompt_seed).integers(
         1, ref.cfg.vocab, (rows, s)).astype(np.int32)
     want = ref.generate({"tokens": tokens}, max_new_tokens=new, seed=seed)
-    got = mine.generate(tokens, max_new_tokens=new, seed=seed)
+    got = mine.generate({"tokens": tokens}, max_new_tokens=new, seed=seed)
     assert (got["prompt_len"], got["batch"]) == (s, rows)
     assert got["generated"].dtype == np.int32
     if eos_id < 0:
@@ -210,9 +210,9 @@ def test_generate_at_temperature_matches_reference_and_repeats():
     got, want, tokens = generate_vs_reference("zamba2-7b", temperature=0.8,
                                               seed=9)
     mine = engines("zamba2-7b", temperature=0.8)[1]
-    again = mine.generate(tokens, max_new_tokens=8, seed=9)
+    again = mine.generate({"tokens": tokens}, max_new_tokens=8, seed=9)
     np.testing.assert_array_equal(again["generated"], got["generated"])
-    other = mine.generate(tokens, max_new_tokens=8, seed=10)
+    other = mine.generate({"tokens": tokens}, max_new_tokens=8, seed=10)
     assert (other["generated"] != got["generated"]).any()
 
 
@@ -233,7 +233,7 @@ def test_generate_eos_masks_and_stops_like_reference():
     eos = int(free["generated"][r0, 2])
     ref, mine = engines("zamba2-7b", eos_id=eos)
     want = ref.generate({"tokens": tokens}, max_new_tokens=8, seed=3)
-    got = mine.generate(tokens, max_new_tokens=8, seed=3)
+    got = mine.generate({"tokens": tokens}, max_new_tokens=8, seed=3)
     for r in range(2):
         row = got["generated"][r]
         if (free["generated"][r] == free_ref["generated"][r]).all():
@@ -246,7 +246,8 @@ def test_generate_eos_masks_and_stops_like_reference():
         assert got["lengths"][r] == n and (row[n:] == 0).all()
         assert got["finish_reasons"][r] == ("eos" if hit.size else "length")
     assert got["lengths"][r0] == 3 and got["finish_reasons"][r0] == "eos"
-    alone = mine.generate(tokens[r0:r0 + 1], max_new_tokens=8, seed=3)
+    alone = mine.generate({"tokens": tokens[r0:r0 + 1]}, max_new_tokens=8,
+                          seed=3)
     np.testing.assert_array_equal(alone["generated"],
                                   free["generated"][r0:r0 + 1, :3])
     assert alone["finish_reasons"] == ["eos"]

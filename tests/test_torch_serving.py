@@ -257,8 +257,8 @@ def test_w8a8_serving_admits_mid_flight_and_repeats_exactly(minitron_weights):
 def test_scheduler_mid_flight_admission_matches_solo_runs(weights):
     eng = _engine(weights)
     prompts = _prompts(eng.cfg.vocab, (8, 6, 10, 13), seed=4)
-    solo = [eng.generate(p[None], max_new_tokens=5)["generated"][0]
-            for p in prompts]
+    solo = [eng.generate({"tokens": p[None]},
+                         max_new_tokens=5)["generated"][0] for p in prompts]
     sched = Scheduler(eng)
     first = [sched.submit(Request(prompt=p,
                                   sampling=SamplingParams(max_new_tokens=5)))
@@ -278,20 +278,23 @@ def test_scheduler_mid_flight_admission_matches_solo_runs(weights):
 def test_one_shot_batch_matches_solo_and_bursts_match_single_steps(weights):
     eng = _engine(weights, "int8")
     prompts = _prompts(eng.cfg.vocab, (9, 9, 9), seed=6)
-    batch = eng.generate(np.stack(prompts), max_new_tokens=12)
+    batch = eng.generate({"tokens": np.stack(prompts)}, max_new_tokens=12)
     for row, p in zip(batch["generated"], prompts):
         np.testing.assert_array_equal(
-            row, eng.generate(p[None], max_new_tokens=12)["generated"][0])
+            row, eng.generate({"tokens": p[None]},
+                              max_new_tokens=12)["generated"][0])
     single = _engine(weights, "int8", max_burst=1)
     np.testing.assert_array_equal(
         batch["generated"],
-        single.generate(np.stack(prompts), max_new_tokens=12)["generated"])
+        single.generate({"tokens": np.stack(prompts)},
+                        max_new_tokens=12)["generated"])
 
 
 def test_slot_reuse_eos_and_metrics(weights):
     eng = _engine(weights)
     prompts = _prompts(eng.cfg.vocab, (6, 9, 5), seed=7) * 3
-    probe = eng.generate(prompts[0][None], max_new_tokens=4)["generated"][0]
+    probe = eng.generate({"tokens": prompts[0][None]},
+                         max_new_tokens=4)["generated"][0]
     clock = iter(range(10_000))
     sched = Scheduler(eng, clock=lambda: float(next(clock)))
     reqs = [sched.submit(Request(prompt=p, sampling=SamplingParams(
@@ -342,7 +345,7 @@ def test_engine_holds_parameters_to_the_policy_schemes():
     eng = ServingEngine(pcfg, params, ServeConfig(policy=policy, max_len=24,
                                                   prefill_chunk=8,
                                                   device="cpu"))
-    out = eng.generate(np.arange(1, 10, dtype=np.int32)[None],
+    out = eng.generate({"tokens": np.arange(1, 10, dtype=np.int32)[None]},
                        max_new_tokens=3)
     assert out["generated"].shape == (1, 3)
     assert eng.new_pool().kv_dtype == "fp8"
