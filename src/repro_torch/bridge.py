@@ -19,7 +19,14 @@ xLSTM's ``mlstm`` leaves stacked [g, per-1, ...] and ``slstm`` leaves
 ``slstm_ln`` gammas, and Zamba2's ``mamba`` leaves [L, ...] with
 ``mamba_ln`` and the unstacked ``shared_attn`` block; a key starting
 ``w_`` is a linear leaf, any other a table, vector or norm.  A tied model
-(the VLM) has no ``lm_head`` on either side.
+(the VLM, the audio model) has no ``lm_head`` on either side.  The audio
+tree (whisper) holds ``enc_layers`` [Le] and ``dec_layers`` [Ld] blocks
+(a decoder block adds ``ln_x`` and the cross-attention ``xattn``), the
+position tables ``enc_pos`` / ``dec_pos`` and ``enc_ln_f``; its every norm
+is a LayerNorm ``{"g", "b"}``, both carried across (``common.Norm`` with
+a bias).  A key the reader does not map (a norm's ``b`` where the family
+has RMS norms, an unknown leaf or table) raises ValueError: nothing is
+dropped.
 ``params_to_numpy`` is the inverse, returning quantized leaves as
 ``NumpyQLinear`` records and bf16 tensors as their int16 bit patterns
 (numpy has no bfloat16 of its own).
@@ -36,7 +43,8 @@ from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
 from repro_torch.models.common import DenseLinear, Norm, QLinear
 from repro_torch.models.moe import SHARED_LEAVES
 from repro_torch.models.ssm import Leaves
-from repro_torch.models.transformer import (Block, DenseLM, RecurrentBlock,
+from repro_torch.models.transformer import (AudioBlock, Block, DenseLM,
+                                            EncDecLM, RecurrentBlock,
                                             RecurrentLM, check_supported)
 
 
@@ -64,6 +72,20 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _check_keys(tree: Dict[str, Any], allowed, where: str) -> None:
+    """Raise on a key of ``tree`` the reader does not map."""
+    unknown = sorted(set(tree) - set(allowed))
+    if unknown:
+        raise ValueError(f"{where}: no mapping for {unknown} (the reader "
+                         f"maps {sorted(allowed)})")
+
+
+def _gamma(ln: Dict[str, Any], where: str):
+    """An RMS norm's gamma, from its ``{"g": ...}`` dict."""
+    _check_keys(ln, ("g",), where)
+    return ln["g"]
+
+
 def _leaf(leaf, layer: Optional[int], name: str, device):
     if name.endswith("_norm"):
         return Norm(_tensor(np.asarray(leaf)[layer], device), name)
@@ -84,7 +106,8 @@ def _recurrent_block(block: Dict[str, Any], ln, idx, device):
     leaves = {k: (_leaf(v, idx, f"ssm.{k}", device) if k.startswith("w_")
                   else _tensor(np.asarray(v)[idx], device))
               for k, v in block.items()}
-    return RecurrentBlock(_tensor(np.asarray(ln["g"])[idx], device),
+    return RecurrentBlock(_tensor(np.asarray(_gamma(ln, "a recurrent "
+                                                    "norm"))[idx], device),
                           Leaves(leaves))
 
 
@@ -95,17 +118,67 @@ def _block_from_numpy(tree: Dict[str, Any], layer, device) -> Block:
         return np.asarray(a) if layer is None else np.asarray(a)[layer]
 
     mlp = "moe" if "moe" in tree else "ffn"
+    _check_keys(tree, ("ln1", "attn", "ln2", mlp), "a transformer block")
     attn = {k: _leaf(v, layer, f"attn.{k}", device)
             for k, v in tree["attn"].items()}
     ffn = {k: _leaf(v, layer, SHARED_LEAVES.get(k, f"{mlp}.{k}"), device)
            for k, v in tree[mlp].items()}
-    return Block(_tensor(pick(tree["ln1"]["g"]), device), attn,
-                 _tensor(pick(tree["ln2"]["g"]), device), **{mlp: ffn})
+    return Block(_tensor(pick(_gamma(tree["ln1"], "ln1")), device), attn,
+                 _tensor(pick(_gamma(tree["ln2"], "ln2")), device),
+                 **{mlp: ffn})
+
+
+def _layer_norm(ln: Dict[str, Any], layer, name: str, device) -> Norm:
+    """A LayerNorm leaf (gamma ``g`` and beta ``b``) at ``layer`` of its
+    stack (unstacked with ``layer`` None)."""
+    _check_keys(ln, ("g", "b"), name)
+    pick = np.asarray if layer is None else (lambda a: np.asarray(a)[layer])
+    return Norm(_tensor(pick(ln["g"]), device), name,
+                bias=_tensor(pick(ln["b"]), device))
+
+
+def _audio_block(tree: Dict[str, Any], layer: int, device) -> AudioBlock:
+    """An encoder block, or with ``ln_x`` / ``xattn`` a decoder block, at
+    ``layer`` of the stacks; the cross-attention leaves keep the
+    reference's ``attn.*`` names."""
+    _check_keys(tree, ("ln1", "attn", "ln_x", "xattn", "ln2", "ffn"),
+                "an audio block")
+
+    def leaves(group, prefix):
+        return {k: _leaf(v, layer, f"{prefix}.{k}", device)
+                for k, v in tree[group].items()}
+
+    cross = {}
+    if "xattn" in tree or "ln_x" in tree:
+        cross = {"ln_x": _layer_norm(tree["ln_x"], layer, "ln_x", device),
+                 "xattn": leaves("xattn", "attn")}
+    return AudioBlock(_layer_norm(tree["ln1"], layer, "ln1", device),
+                      leaves("attn", "attn"),
+                      _layer_norm(tree["ln2"], layer, "ln2", device),
+                      leaves("ffn", "ffn"), **cross)
+
+
+def _audio_from_numpy(cfg: ModelConfig, tree, device) -> EncDecLM:
+    _check_keys(tree, ("embed", "ln_f", "enc_layers", "enc_pos", "enc_ln_f",
+                       "dec_layers", "dec_pos"), "the audio tree")
+    le = cfg.encoder_layers
+    return EncDecLM(
+        _tensor(tree["embed"], device),
+        [_audio_block(tree["enc_layers"], l, device) for l in range(le)],
+        _tensor(tree["enc_pos"], device),
+        _layer_norm(tree["enc_ln_f"], None, "enc_ln_f", device),
+        [_audio_block(tree["dec_layers"], l, device)
+         for l in range(cfg.n_layers - le)],
+        _tensor(tree["dec_pos"], device),
+        _layer_norm(tree["ln_f"], None, "ln_f", device))
 
 
 def _recurrent_from_numpy(cfg: ModelConfig, tree, device) -> RecurrentLM:
+    blocks = ("mlstm", "mlstm_ln", "slstm", "slstm_ln") \
+        if cfg.family == "ssm" else ("mamba", "mamba_ln", "shared_attn")
+    _check_keys(tree, ("embed", "ln_f") + blocks, f"the {cfg.family} tree")
     embed = _tensor(tree["embed"], device)
-    ln_f = _tensor(tree["ln_f"]["g"], device)
+    ln_f = _tensor(_gamma(tree["ln_f"], "ln_f"), device)
     if cfg.family == "ssm":
         g, per = cfg.n_layers // cfg.slstm_every, cfg.slstm_every
         mlstm = [_recurrent_block(tree["mlstm"], tree["mlstm_ln"], (gi, j),
@@ -126,12 +199,17 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
     check_supported(cfg)
     if cfg.family in RECURRENT_FAMILIES:
         return _recurrent_from_numpy(cfg, tree, device)
+    if cfg.family == "audio":
+        return _audio_from_numpy(cfg, tree, device)
+    _check_keys(tree, ("embed", "ln_f", "layers")
+                + (() if cfg.tie_embeddings else ("lm_head",)),
+                f"the {cfg.family} tree")
     layers = [_block_from_numpy(tree["layers"], l, device)
               for l in range(cfg.n_layers)]
     head = None if cfg.tie_embeddings \
         else _leaf(tree["lm_head"], None, "lm_head", device)
     return DenseLM(_tensor(tree["embed"], device), layers,
-                   _tensor(tree["ln_f"]["g"], device), head)
+                   _tensor(_gamma(tree["ln_f"], "ln_f"), device), head)
 
 
 def _leaf_of(mods, lead=None):
@@ -165,6 +243,37 @@ def _blocks_to_numpy(blocks, lead=None) -> Dict[str, Any]:
     }
 
 
+def _norm_to_numpy(norms, lead=None) -> Dict[str, Any]:
+    """``Norm`` leaves as the reference's ``{"g"[, "b"]}`` dict."""
+    out = {"g": _leaf_of([n.weight for n in norms], lead)}
+    if norms[0].bias is not None:
+        out["b"] = _leaf_of([n.bias for n in norms], lead)
+    return out
+
+
+def _audio_to_numpy(params: EncDecLM) -> Dict[str, Any]:
+    def blocks(mods):
+        out = {"ln1": _norm_to_numpy([b.ln1 for b in mods]),
+               "attn": {k: _leaf_of([b.attn[k] for b in mods])
+                        for k in mods[0].attn},
+               "ln2": _norm_to_numpy([b.ln2 for b in mods]),
+               "ffn": {k: _leaf_of([b.ffn[k] for b in mods])
+                       for k in mods[0].ffn}}
+        if mods[0].xattn is not None:
+            out["ln_x"] = _norm_to_numpy([b.ln_x for b in mods])
+            out["xattn"] = {k: _leaf_of([b.xattn[k] for b in mods])
+                            for k in mods[0].xattn}
+        return out
+
+    return {"embed": _array(params.embed),
+            "ln_f": _norm_to_numpy([params.ln_f], ()),
+            "enc_layers": blocks(list(params.enc_layers)),
+            "enc_pos": _array(params.enc_pos),
+            "enc_ln_f": _norm_to_numpy([params.enc_ln_f], ()),
+            "dec_layers": blocks(list(params.dec_layers)),
+            "dec_pos": _array(params.dec_pos)}
+
+
 def _recurrent_to_numpy(params: RecurrentLM) -> Dict[str, Any]:
     def blocks(mods, lead):
         return ({k: _leaf_of([m.p[k] for m in mods], lead)
@@ -187,6 +296,8 @@ def params_to_numpy(params) -> Dict[str, Any]:
     """The port's parameters as the reference's stacked numpy tree."""
     if isinstance(params, RecurrentLM):
         return _recurrent_to_numpy(params)
+    if isinstance(params, EncDecLM):
+        return _audio_to_numpy(params)
     out = {"embed": _array(params.embed), "ln_f": {"g": _array(params.ln_f)},
            "layers": _blocks_to_numpy(list(params.layers))}
     head = params.lm_head

@@ -4,7 +4,10 @@
 the serving paths read (dense; MoE with GQA or MLA attention, with or
 without shared experts; the recurrent xLSTM (``ssm``) and Zamba2
 (``hybrid``) families; the VLM (``vlm``: a dense GQA model whose prompt
-starts with ``n_patches`` precomputed patch embeddings)), with the same
+starts with ``n_patches`` precomputed patch embeddings); the audio
+encoder-decoder (``audio``: ``encoder_layers`` non-causal blocks over
+``n_frames`` precomputed frame embeddings, then ``n_layers -
+encoder_layers`` decoder blocks with cross-attention)), with the same
 field names and defaults, so a config of the reference maps onto this one
 field for field.
 """
@@ -18,15 +21,20 @@ from typing import Dict, List, Optional
 # the families that keep recurrent state
 RECURRENT_FAMILIES = ("ssm", "hybrid")
 # the families no slot pool or scheduler holds: the engine serves them
-# through its static-batch loop (the VLM's patch prefix is a per-request
-# input the pool's chunked prefill does not carry, as in the reference)
-STATIC_BATCH_FAMILIES = RECURRENT_FAMILIES + ("vlm",)
+# through its static-batch loop (the VLM's patch prefix and the audio
+# model's frames are per-request inputs the pool's chunked prefill does
+# not carry, as in the reference)
+STATIC_BATCH_FAMILIES = RECURRENT_FAMILIES + ("vlm", "audio")
+# the stub frontends' outputs a batch carries: family -> (batch key, the
+# config field of its rows); each is [B, rows, d_model]
+FRONTEND_INPUTS = {"vlm": ("patches", "n_patches"),
+                   "audio": ("frames", "n_frames")}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid | vlm
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,6 +72,8 @@ class ModelConfig:
     attn_every: int = 6         # zamba2: shared attn block every 6 mamba
     # --- frontend stub: precomputed embeddings arrive as inputs ---
     n_patches: int = 0          # vlm: patch embeddings [B, n_patches, d]
+    n_frames: int = 0           # audio: encoder frames [B, n_frames, d]
+    encoder_layers: int = 0     # audio enc-dec split
     kv_chunk: int = 512
 
     @property
@@ -81,6 +91,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "xlstm-350m": "xlstm_350m",
     "zamba2-7b": "zamba2_7b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-medium": "whisper_medium",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

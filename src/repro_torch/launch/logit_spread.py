@@ -55,7 +55,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.packed_matmul import (GEMV_MAX_M,
                                                packed_gemv_ordered,
                                                packed_matmul_ordered)
-from repro_torch.launch.serve import draw_patches
+from repro_torch.launch.serve import draw_frontend
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
 from repro_torch.models.moe import Routes
@@ -108,21 +108,24 @@ def witness_check(res: dict, witness: dict,
 
 def teacher_forced(cfg, params, prompts: torch.Tensor, steps: int, *,
                    kv: str, plain: bool, max_len: int = 512, feed=None,
-                   layer_out=None, routes=None, patches=None):
+                   layer_out=None, routes=None, frontend=None):
     """One prefill chunk per row (``prompts`` [rows, chunk], each row in its
     own cache slot), then ``steps`` decode steps over all rows, fed
     ``feed`` when given, else each step's greedy ids.  ``routes`` (MoE)
     records or replays every MoE layer's expert ids (``models/moe.Routes``).
-    The static-batch families (recurrent, VLM) prefill every row at once
-    from an empty cache (the VLM's ``patches`` [rows, Np, D] first) and
-    decode all rows at one index (the static-batch loop).
+    The static-batch families (recurrent, VLM, audio) prefill every row at
+    once from an empty cache, taking the ``frontend`` inputs (the VLM's
+    ``patches`` [rows, Np, D] first; the audio model's ``frames`` [rows,
+    n_frames, D] into its encoder), and decode all rows at one index (the
+    static-batch loop).
     Returns (logits [1 + steps, rows, V] f32, the ids fed)."""
     rows, chunk = prompts.shape
     dev = prompts.device
     if cfg.family in T.STATIC_BATCH_FAMILIES:
         return _teacher_forced_static(cfg, params, prompts, steps, kv=kv,
                                       plain=plain, feed=feed,
-                                      layer_out=layer_out, patches=patches)
+                                      layer_out=layer_out,
+                                      frontend=frontend or {})
     cache = T.init_cache(cfg, rows, max_len, kv_dtype=kv, device=dev)
     with torch.no_grad():
         last = [T.forward(cfg, params, prompts[r:r + 1],
@@ -144,15 +147,16 @@ def teacher_forced(cfg, params, prompts: torch.Tensor, steps: int, *,
 
 
 def _teacher_forced_static(cfg, params, prompts, steps, *, kv, plain, feed,
-                           layer_out, patches):
+                           layer_out, frontend):
     rows, s = prompts.shape
-    s += 0 if patches is None else patches.shape[1]      # the VLM's prefix
+    if "patches" in frontend:                             # the VLM's prefix
+        s += frontend["patches"].shape[1]
     cache = T.init_cache(cfg, rows, s + steps, kv_dtype=kv,
                          device=prompts.device)
     with torch.no_grad():
         seq = [T.forward(cfg, params, prompts, cache=cache, cache_index=0,
                          mode="prefill", plain=plain, layer_out=layer_out,
-                         patches=patches)[:, -1]]
+                         **frontend)[:, -1]]
         ids = [seq[0].argmax(-1) if feed is None else feed[0]]
         for t in range(steps):
             lg = T.forward(cfg, params, ids[-1][:, None], cache=cache,
@@ -165,9 +169,12 @@ def _teacher_forced_static(cfg, params, prompts, steps, *, kv, plain, feed,
 
 def outputs_per_call(cfg) -> int:
     """The residual streams one forward call appends to ``layer_out``:
-    one a layer, and the hybrid's shared block once a group."""
+    one a layer, the hybrid's shared block once a group, and the audio
+    model's decoder layers alone."""
     if cfg.family == "hybrid":
         return cfg.n_layers + cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.n_layers - cfg.encoder_layers
     return cfg.n_layers
 
 
@@ -346,8 +353,7 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(1)
     prompts = torch.as_tensor(rng.integers(1, cfg.vocab, (ROWS, CHUNK)),
                               device=dev)
-    patches = draw_patches(cfg, ROWS, 1, dev) if cfg.family == "vlm" \
-        else None
+    frontend = draw_frontend(cfg, ROWS, 1, dev)
     result = {"device": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"), "arch": cfg.name,
               "rows": ROWS, "chunk": CHUNK, "steps": STEPS,
@@ -367,7 +373,7 @@ def main(argv=None) -> None:
                 logits[name], ids = teacher_forced(
                     cfg, params, prompts, STEPS, kv=kv, plain=plain,
                     feed=feed, layer_out=layers[name], routes=routes,
-                    patches=patches)
+                    frontend=frontend)
             feed = feed or ids
         for name in VARIANTS:
             run = {"kv": kv, "variant": name,

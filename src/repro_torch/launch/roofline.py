@@ -20,13 +20,19 @@ patch embeddings are inputs, not parameters).  The recurrent families count thei
 ``norm``, ``w_out``) blocks with a norm each (and an FFN a block where
 ``d_ff``), Zamba2's Mamba-2 blocks (``w_zx``, ``w_bc``, ``w_dt``, the two
 convs, ``A_log``, ``dt_bias``, ``D``, ``norm``, ``w_out``) with a norm
-each and one shared attention + FFN block.
+each and one shared attention + FFN block.  The audio encoder-decoder
+counts its tied embedding, final LayerNorm (gamma and beta), encoder
+blocks (two LayerNorms, the attention, the FFN), ``enc_pos`` [n_frames,
+D], ``enc_ln_f``, decoder blocks (the encoder block's leaves plus
+``ln_x`` and the cross-attention's q / k / v / o) and ``dec_pos``
+[``DEC_POSITIONS``, D].
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import RECURRENT_FAMILIES, ModelConfig
+from repro_torch.models.transformer import DEC_POSITIONS
 
 
 def _norm(cfg: ModelConfig) -> int:
@@ -52,6 +58,9 @@ def model_params(cfg: ModelConfig) -> Dict[str, float]:
     if cfg.family in RECURRENT_FAMILIES:
         total = float(_recurrent(cfg))
         return {"total": total, "active": total}
+    if cfg.family == "audio":
+        total = float(_audio(cfg))
+        return {"total": total, "active": total}
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"model_params: family {cfg.family!r} is not ported")
@@ -76,6 +85,15 @@ def model_params(cfg: ModelConfig) -> Dict[str, float]:
 
 def _ffn(cfg: ModelConfig) -> int:
     return cfg.d_model * cfg.d_ff * (3 if cfg.gated_ffn else 2)
+
+
+def _audio(cfg: ModelConfig) -> int:
+    d, le = cfg.d_model, cfg.encoder_layers
+    block = 2 * _norm(cfg) + _attention(cfg) + _ffn(cfg)
+    enc = le * block + cfg.n_frames * d + _norm(cfg)
+    dec = (cfg.n_layers - le) * (block + _norm(cfg) + _attention(cfg)) \
+        + DEC_POSITIONS * d
+    return cfg.vocab * d + _norm(cfg) + enc + dec      # tied: no lm_head
 
 
 def _recurrent(cfg: ModelConfig) -> int:

@@ -47,7 +47,8 @@ snapshot.
       --device cpu --spec --spec-k 4 --temperature 0.8
 
 The static-batch families (the recurrent ``--arch xlstm-350m`` and
-``--arch zamba2-7b``, and the VLM ``--arch phi-3-vision-4.2b``) are served
+``--arch zamba2-7b``, the VLM ``--arch phi-3-vision-4.2b`` and the audio
+encoder-decoder ``--arch whisper-medium``) are served
 by the engine's static-batch loop (``ServingEngine.generate``, the
 reference's ``_generate_legacy``): one warm-up generation at the real
 shapes, then the timed one; the report gives the generated shape, tokens
@@ -55,11 +56,16 @@ a second, the kernel launches and the peak memory.  The VLM's prompts
 start with [batch, n_patches, d_model] patch embeddings drawn from
 ``--seed`` at the embedding table's scale (0.02 x a standard normal: the
 stub of the vision frontend's output); ``prompt_len`` counts the tokens
-only, ``n_patches`` stands beside it.  The scheduler's flags (tiers,
+only, ``n_patches`` stands beside it.  The audio model's batch carries
+[batch, n_frames, d_model] frame embeddings drawn the same way (the stub
+of the conv frontend's output), which its encoder reads; ``n_frames``
+stands beside ``prompt_len``.  The scheduler's flags (tiers,
 budgets, SLO, faults, spec, trace) do not apply there.
 
   python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
   python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --smoke \
+      --device cpu
+  python -m repro_torch.launch.serve --arch whisper-medium --smoke \
       --device cpu
 
 Observability: ``--trace PATH`` writes a Chrome trace of the timed run
@@ -81,12 +87,13 @@ import argparse
 import json
 import os
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, STATIC_BATCH_FAMILIES, get_config
+from repro_torch.configs import (ARCH_IDS, FRONTEND_INPUTS,
+                                 STATIC_BATCH_FAMILIES, get_config)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QuantMaker
@@ -224,12 +231,19 @@ def parse_priority_mix(spec: Optional[str]):
     return classes, [w / total for w in weights]
 
 
-def draw_patches(cfg, rows: int, seed: int, device) -> torch.Tensor:
-    """[rows, n_patches, d_model] bf16 patch embeddings drawn from ``seed``
-    at the embedding table's scale (0.02 x a standard normal)."""
+def draw_frontend(cfg, rows: int, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The stub frontend's output a static batch carries, bf16, drawn from
+    ``seed`` at the embedding table's scale (0.02 x a standard normal):
+    ``{"patches": [rows, n_patches, d_model]}`` for the VLM, ``{"frames":
+    [rows, n_frames, d_model]}`` for the audio model, {} for the other
+    families."""
+    if cfg.family not in FRONTEND_INPUTS:
+        return {}
+    key, length = FRONTEND_INPUTS[cfg.family]
     gen = torch.Generator(device=device).manual_seed(seed)
-    return (torch.randn((rows, cfg.n_patches, cfg.d_model), generator=gen,
-                        device=device) * 0.02).to(torch.bfloat16)
+    return {key: (torch.randn((rows, getattr(cfg, length), cfg.d_model),
+                              generator=gen, device=device)
+                  * 0.02).to(torch.bfloat16)}
 
 
 def serve_static(engine: ServingEngine, args, batch: dict, dev,
@@ -256,6 +270,7 @@ def serve_static(engine: ServingEngine, args, batch: dict, dev,
     return {
         "arch": engine.cfg.name, "batch": out["batch"],
         "prompt_len": out["prompt_len"], "n_patches": engine.cfg.n_patches,
+        "n_frames": engine.cfg.n_frames,
         "kv": engine.policy.kv,
         "temperature": args.temperature, "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
@@ -318,9 +333,8 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len))
     if cfg.family in STATIC_BATCH_FAMILIES:
-        batch = {"tokens": prompts}
-        if cfg.family == "vlm":
-            batch["patches"] = draw_patches(cfg, args.batch, args.seed, dev)
+        batch = {"tokens": prompts,
+                 **draw_frontend(cfg, args.batch, args.seed, dev)}
         print(json.dumps(serve_static(engine, args, batch, dev, build_s)))
         return
     classes, weights = parse_priority_mix(args.priority_mix)

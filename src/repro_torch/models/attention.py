@@ -1,5 +1,6 @@
-"""GQA and MLA self-attention with a KV cache (torch twin of the GQA and
-MLA paths of ``repro/models/attention.py``).
+"""GQA and MLA self-attention with a KV cache, and cross-attention (torch
+twin of the GQA, MLA and cross-attention paths of
+``repro/models/attention.py``).
 
 Two execution modes, as in the reference:
   * ``attend`` — plain torch, for prefill chunks: dense (one score block)
@@ -8,6 +9,11 @@ Two execution modes, as in the reference:
     softmax).  It is not a TPU kernel in the reference either.
   * Sq == 1 decode goes to ``kernels.ops.fused_decode_attention``: the
     flash-decode kernel reads the (packed) slab directly.
+
+Non-causal attention (``AttnConfig.causal`` False: the audio model's
+encoder, with no cache) and ``cross_attn_forward`` (its decoder's queries
+over the encoder output, K / V projected from it at every call, as the
+reference does) run ``attend`` with every key allowed.
 
 Shapes: x [B, S, D]; heads [B, S, H, Dh]; KV slabs [B, Smax, Hk, Dh]
 (bf16 or ``QuantizedKV``).  Cache writes go into the slab in place.  With
@@ -48,6 +54,7 @@ class AttnConfig:
     d_head: int
     rope_theta: float = 10000.0
     use_rope: bool = True
+    causal: bool = True
     kv_chunk: int = 512
 
 
@@ -64,27 +71,31 @@ def _scale(dh: int, device) -> torch.Tensor:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           q_offset=0, kv_chunk: int = 512,
+           causal: bool = True, q_offset=0, kv_chunk: int = 512,
            kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal softmax attention.  q [B,Sq,H,Dh]; k,v [B,Sk,Hk,Dh] ->
-    [B,Sq,H,Dh].
+    """Softmax attention, causal or not.  q [B,Sq,H,Dh]; k,v [B,Sk,Hk,Dh]
+    -> [B,Sq,H,Dh].
 
     ``q_offset``: absolute position of q[0] (int or [B] tensor);
     ``kv_valid_len``: optional [B] count of valid KV positions."""
     sq, sk = q.shape[1], k.shape[1]
     if sq == 1 or sk <= kv_chunk or sk % kv_chunk != 0:
-        return _attend_dense(q, k, v, q_offset=q_offset,
+        return _attend_dense(q, k, v, causal=causal, q_offset=q_offset,
                              kv_valid_len=kv_valid_len)
-    return _attend_chunked(q, k, v, q_offset=q_offset, kv_chunk=kv_chunk,
-                           kv_valid_len=kv_valid_len)
+    return _attend_chunked(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_chunk=kv_chunk, kv_valid_len=kv_valid_len)
 
 
-def _mask_bias(q_offset, sq, sk, k_offset, kv_valid_len, device):
-    """[B or 1, Sq, Sk] additive f32 bias (0 or -1e30)."""
+def _mask_bias(causal, q_offset, sq, sk, k_offset, kv_valid_len, device):
+    """[B or 1, Sq, Sk] additive f32 bias (0 or -1e30): keys after the
+    query masked where ``causal``, none otherwise, then keys past
+    ``kv_valid_len``."""
     q_off = torch.as_tensor(q_offset, device=device).reshape(-1, 1, 1)
     qpos = q_off + torch.arange(sq, device=device)[None, :, None]
     kpos = k_offset + torch.arange(sk, device=device)[None, None, :]
-    ok = (kpos <= qpos).expand(qpos.shape[0], sq, sk)
+    ok = (kpos <= qpos) if causal else torch.ones((1, 1, sk), dtype=torch.bool,
+                                                   device=device)
+    ok = ok.expand(qpos.shape[0], sq, sk)
     zero = torch.zeros((), device=device)
     neg = torch.full((), _NEG, device=device)
     bias = torch.where(ok, zero, neg)
@@ -94,7 +105,7 @@ def _mask_bias(q_offset, sq, sk, k_offset, kv_valid_len, device):
     return bias
 
 
-def _attend_dense(q, k, v, *, q_offset, kv_valid_len):
+def _attend_dense(q, k, v, *, causal, q_offset, kv_valid_len):
     b, sq, h, dh = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -102,14 +113,15 @@ def _attend_dense(q, k, v, *, q_offset, kv_valid_len):
     qg = (q * _scale(dh, q.device)).reshape(b, sq, hk, rep, dh)
     s = _bf16_einsum("bqhrd,bkhd->bhrqk", qg, k).to(torch.float32)
     s = s.reshape(b, h, sq, sk)
-    s = s + _mask_bias(q_offset, sq, sk, 0, kv_valid_len, q.device)[:, None]
+    s = s + _mask_bias(causal, q_offset, sq, sk, 0, kv_valid_len,
+                       q.device)[:, None]
     p = torch.softmax(s, dim=-1)
     pg = p.reshape(b, hk, rep, sq, sk).to(v.dtype)
     out = _bf16_einsum("bhrqk,bkhd->bqhrd", pg, v)
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
-def _attend_chunked(q, k, v, *, q_offset, kv_chunk, kv_valid_len):
+def _attend_chunked(q, k, v, *, causal, q_offset, kv_chunk, kv_valid_len):
     b, sq, h, dh = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -122,7 +134,7 @@ def _attend_chunked(q, k, v, *, q_offset, kv_chunk, kv_valid_len):
         sl = slice(idx * kv_chunk, (idx + 1) * kv_chunk)
         s = _bf16_einsum("bqhrd,bkhd->bhrqk", qg, k[:, sl]).to(torch.float32)
         s = s.reshape(b, h, sq, kv_chunk)
-        s = s + _mask_bias(q_offset, sq, kv_chunk, idx * kv_chunk,
+        s = s + _mask_bias(causal, q_offset, sq, kv_chunk, idx * kv_chunk,
                            kv_valid_len, q.device)[:, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
         corr = torch.exp(m - m_new)
@@ -152,7 +164,8 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
     attention runs over the fresh k / v alone, as the reference's.  With
     no ``cache`` (mode ``train``, ``cache_index`` 0) nothing is written and
     the attention is causal over the fresh k / v, as the reference's
-    forward with ``cache=None``.
+    forward with ``cache=None``; with ``cfg.causal`` False (the audio
+    encoder) it runs that way with every key allowed, and a cache raises.
 
     ``page_table`` [B, pages_per_slot] int64 (paged pools): ``cache`` is
     then a page arena [n_pages, page_size, Hk, Dh] per slab; the rows are
@@ -177,9 +190,13 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
         if per_row or cache_index != 0:
             raise ValueError("attention without a cache starts at "
                              "position 0")
-        out = attend(q, k, v, q_offset=0, kv_chunk=cfg.kv_chunk)
+        out = attend(q, k, v, causal=cfg.causal, q_offset=0,
+                     kv_chunk=cfg.kv_chunk)
         return apply_linear(params["wo"], out.reshape(b, s, h * dh),
                             plain=plain)
+    if not cfg.causal:
+        raise ValueError("non-causal self-attention (the audio encoder) "
+                         "runs without a cache")
     k_cache, v_cache = cache
     if per_row and s != 1:
         raise ValueError("per-row cache_index is the decode (S == 1) path")
@@ -210,6 +227,23 @@ def gqa_forward(params: nn.ModuleDict, cfg: AttnConfig, x: torch.Tensor, *,
                      q_offset=cache_index, kv_chunk=cfg.kv_chunk,
                      kv_valid_len=valid)
     return apply_linear(params["wo"], out.reshape(b, s, h * dh), plain=plain)
+
+
+def cross_attn_forward(params: nn.ModuleDict, cfg: AttnConfig,
+                       x: torch.Tensor, enc: torch.Tensor, *,
+                       plain: bool = False) -> torch.Tensor:
+    """x [B, Sq, D] attends over enc [B, Sk, D] (the audio decoder's
+    cross-attention): q from x, k / v projected from ``enc`` at every call
+    (the reference's: no cross K / V cache), no mask, no rope."""
+    b, sq, _ = x.shape
+    sk = enc.shape[1]
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = apply_linear(params["wq"], x, plain=plain).reshape(b, sq, h, dh)
+    k = apply_linear(params["wk"], enc, plain=plain).reshape(b, sk, hk, dh)
+    v = apply_linear(params["wv"], enc, plain=plain).reshape(b, sk, hk, dh)
+    out = attend(q, k, v, causal=False, kv_chunk=cfg.kv_chunk)
+    return apply_linear(params["wo"], out.reshape(b, sq, h * dh),
+                        plain=plain)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@ Linear leaves keep the reference's ``[K, N]`` layout (x @ W):
                     ``kernels.ops.grouped_quantized_matmul``;
   * ``DenseLinear`` a bf16 [K, N] weight (``lm_head``); applied with
                     ``torch.matmul``, as the reference leaves it to XLA;
-  * ``Norm``        an RMS norm's f32 gamma inside a layer's leaf dict
-                    (MLA's ``q_norm`` / ``kv_norm``).
+  * ``Norm``        a norm's f32 gamma inside a layer's leaf dict (MLA's
+                    ``q_norm`` / ``kv_norm``), or a LayerNorm's f32 gamma
+                    and beta (the audio model's norms; ``apply_norm``).
 
 ``QuantMaker`` draws normal weights from a ``torch.Generator`` on the
 target device and quantizes each leaf there, one layer at a time, so a
@@ -91,11 +92,14 @@ class DenseLinear(nn.Module):
 
 
 class Norm(nn.Module):
-    """An RMS norm's f32 gamma [dim] as a leaf of a layer's leaf dict."""
+    """A norm's f32 gamma [dim] as a module leaf; with a ``bias`` (the
+    beta [dim]) it is a LayerNorm, else an RMS norm (``apply_norm``)."""
 
-    def __init__(self, weight: torch.Tensor, name: Optional[str] = None):
+    def __init__(self, weight: torch.Tensor, name: Optional[str] = None,
+                 bias: Optional[torch.Tensor] = None):
         super().__init__()
         self.register_buffer("weight", weight)
+        self.register_buffer("bias", bias)
         self.name = name
 
 
@@ -191,6 +195,25 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gamma).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The reference's ``layer_norm``: in f32, the mean and the variance
+    with correction 0 (``jnp.var``: the sum of squared deviations over n),
+    then cast back.  Not ``torch.var``: its default is unbiased, and its
+    CPU reduction is no sum followed by a division."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.sum((xf - mu) ** 2, dim=-1, keepdim=True) / xf.shape[-1]
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
+
+
+def apply_norm(norm: "Norm", x: torch.Tensor) -> torch.Tensor:
+    """A ``Norm`` leaf on x: LayerNorm where it carries a beta, else RMS."""
+    if norm.bias is not None:
+        return layer_norm(x, norm.weight, norm.bias)
+    return rms_norm(x, norm.weight)
 
 
 def activate(kind: str, x: torch.Tensor) -> torch.Tensor:

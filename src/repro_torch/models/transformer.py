@@ -12,22 +12,32 @@ GQA ``DenseLM`` with tied embeddings (no ``lm_head``: the logits are
 ``tied_logits`` over the embedding table) whose prompt starts with
 ``n_patches`` precomputed patch embeddings (``patches`` [B, Np, D], the
 stub of the vision frontend's output), put before the token embeddings.
+The audio family (``audio``, whisper) is an ``EncDecLM`` with tied
+embeddings and LayerNorms with a bias (``common.Norm`` leaves): its
+encoder runs ``encoder_layers`` non-causal blocks over ``frames`` [B,
+n_frames, D] (the stub of the conv frontend's output) plus the learned
+``enc_pos``, then ``enc_ln_f``; its decoder blocks add a cross-attention
+over the encoder output (``attention.cross_attn_forward``) between the
+self-attention and the FFN, the tokens at learned positions ``dec_pos``.
 
 ``forward`` runs the reference's serving modes as a loop over layers:
   * ``prefill_chunk`` (dense / MoE) — S new positions written at an int
     ``cache_index``; attention over the cache (earlier chunks are already
     there); logits for every chunk position;
-  * ``prefill`` (the static-batch families: recurrent and VLM) — a whole
-    prompt (the VLM's patches first) from an empty cache at index 0,
-    attention over the fresh k / v; logits of the last position only;
+  * ``prefill`` (the static-batch families: recurrent, VLM and audio) — a
+    whole prompt (the VLM's patches first; the audio model's encoder over
+    its frames first, its output written into the cache) from an empty
+    cache at index 0, attention over the fresh k / v; logits of the last
+    position only;
   * ``decode`` — one token per row: a [B] ``cache_index`` (every pool slot
     at its own length; dense / MoE) or an int (every row at that length;
     the static-batch loop: for the VLM, positions go on after the patch
-    prefix), attention through the fused decode kernel;
-  * ``train`` (dense and VLM) — no cache: causal attention over the
+    prefix; the audio decoder cross-attends over the cached encoder
+    output), attention through the fused decode kernel;
+  * ``train`` (dense, VLM and audio) — no cache: causal attention over the
     sequence's own k / v and logits for every position (the VLM's cover
-    patches + tokens), the reference's ``cache=None`` forward that
-    ``ServingEngine.score`` reads.
+    patches + tokens; the audio model runs its encoder first), the
+    reference's ``cache=None`` forward that ``ServingEngine.score`` reads.
 
 The dense / MoE cache is ``(k, v)``: stacked per-layer slabs [L, B, Smax,
 Hk, Dh] (bf16 or ``QuantizedKV``), written in place (MLA: ``(c_kv,
@@ -40,12 +50,15 @@ the reference's trees of stacked tensors, written in place: xLSTM
 W-1, di]}, "slstm": SLSTMState [g, B, D]}``; Zamba2 ``{"groups": {"mamba":
 {"state": SSMState [g, per, B, ...], "conv": (x, bc) [g, per, B, W-1,
 ...]}, "attn": (k, v) [g, B, Smax, Hk, Dh]}, "tail": {"state", "conv"}
-[rem, ...]}`` (states f32, conv states bf16, KV slabs at the tier).
+[rem, ...]}`` (states f32, conv states bf16, KV slabs at the tier).  The
+audio cache is ``{"enc": bf16 [B, n_frames, D], "dec": (k, v) [L_dec, B,
+Smax, Hk, Dh]}``, the encoder output written by the prefill in place.
 ``plain=True`` runs every kernel's plain version instead (the on-card
 reference for the kernels).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
@@ -59,10 +72,13 @@ from repro_torch.quant.kv_cache import kv_dtype_name, kv_slab
 from . import attention as A
 from . import moe as MOE
 from . import ssm as S
-from .common import (Norm, QuantMaker, activate, apply_linear, rms_norm,
-                     tied_logits)
+from .common import (Norm, QuantMaker, activate, apply_linear, apply_norm,
+                     rms_norm, tied_logits)
 
 MODES = ("prefill_chunk", "prefill", "decode", "train")
+# rows of the audio decoder's learned position table (the reference's
+# ``dec_pos``)
+DEC_POSITIONS = 32768
 
 
 def attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
@@ -102,6 +118,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "vlm":
         _check_vlm(cfg)
         return
+    if cfg.family == "audio":
+        _check_audio(cfg)
+        return
     ffn = (cfg.gated_ffn, cfg.activation)
     moe = cfg.family == "moe" and cfg.n_experts > 0 and cfg.top_k > 0
     if (cfg.family not in ("dense", "moe") or (cfg.family == "moe") != moe
@@ -126,6 +145,22 @@ def _check_vlm(cfg: ModelConfig) -> None:
             f"{cfg.name}: the port serves the VLM family as a dense GQA "
             "model with RMS norm, a gated SiLU FFN, tied embeddings and a "
             "patch prefix (n_patches > 0)")
+
+
+def _check_audio(cfg: ModelConfig) -> None:
+    """The audio encoder-decoder as the reference builds it: LayerNorms,
+    GQA self-attention, learned positions, tied embeddings."""
+    ffn = (cfg.gated_ffn, cfg.activation)
+    if (cfg.norm != "layer" or not cfg.tie_embeddings or cfg.use_rope
+            or cfg.n_experts or cfg.use_mla or cfg.n_frames <= 0
+            or not 0 < cfg.encoder_layers < cfg.n_layers
+            or ffn not in ((True, "silu"), (False, "relu2"),
+                           (False, "gelu"))):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the audio family as an encoder-"
+            "decoder with LayerNorm, GQA attention at learned positions (no "
+            "rope), a dense FFN, tied embeddings, n_frames > 0 and 0 < "
+            "encoder_layers < n_layers")
 
 
 def _check_recurrent(cfg: ModelConfig) -> None:
@@ -201,6 +236,44 @@ class RecurrentBlock(nn.Module):
         self.p = p
 
 
+class AudioBlock(nn.Module):
+    """One block of the audio encoder-decoder: LayerNorm leaves
+    (``common.Norm`` with a beta) ``ln1``, ``ln2`` and, in a decoder
+    block, ``ln_x``; the self-attention ``attn``, the decoder's
+    cross-attention ``xattn`` (None in an encoder block) and the FFN."""
+
+    def __init__(self, ln1: Norm, attn: dict, ln2: Norm, ffn: dict,
+                 ln_x: Optional[Norm] = None, xattn: Optional[dict] = None):
+        super().__init__()
+        if (ln_x is None) != (xattn is None):
+            raise ValueError("a decoder block holds ln_x and xattn together")
+        self.ln1 = ln1
+        self.attn = nn.ModuleDict(attn)
+        self.ln_x = ln_x
+        self.xattn = None if xattn is None else nn.ModuleDict(xattn)
+        self.ln2 = ln2
+        self.ffn = nn.ModuleDict(ffn)
+
+
+class EncDecLM(nn.Module):
+    """Parameters of the audio encoder-decoder (tied embeddings: no
+    lm_head): the token ``embed``, ``enc_layers`` (``AudioBlock``s), the
+    learned ``enc_pos`` [n_frames, D], ``enc_ln_f``, ``dec_layers``
+    (``AudioBlock``s with cross-attention), ``dec_pos`` [DEC_POSITIONS, D]
+    and ``ln_f``; the tables bf16, the norms ``common.Norm`` leaves."""
+
+    def __init__(self, embed, enc_layers, enc_pos, enc_ln_f: Norm,
+                 dec_layers, dec_pos, ln_f: Norm):
+        super().__init__()
+        self.register_buffer("embed", embed)
+        self.enc_layers = nn.ModuleList(enc_layers)
+        self.register_buffer("enc_pos", enc_pos)
+        self.enc_ln_f = enc_ln_f
+        self.dec_layers = nn.ModuleList(dec_layers)
+        self.register_buffer("dec_pos", dec_pos)
+        self.ln_f = ln_f
+
+
 def _attn_params(cfg: ModelConfig, mk: QuantMaker) -> dict:
     d, h, hk, dh, sp = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.head_dim, cfg.scheme_proj)
@@ -245,11 +318,50 @@ def _build_recurrent(cfg: ModelConfig, mk: QuantMaker) -> RecurrentLM:
                        shared_attn=shared)
 
 
+def _layer_norm(mk: QuantMaker, name: str, d: int) -> Norm:
+    """A LayerNorm leaf: gamma ``name`` (ones) and beta ``name.b`` (zeros),
+    as the reference's ``_norm_params`` makes them."""
+    return Norm(mk.norm(name, d), name, bias=mk.vector(name + ".b", d))
+
+
+def _build_audio(cfg: ModelConfig, mk: QuantMaker) -> EncDecLM:
+    """The reference's walk order: embed, ln_f, the encoder blocks,
+    enc_pos, enc_ln_f, the decoder blocks, dec_pos; a block's leaves in
+    the order ln1, attn, (ln_x, xattn,) ln2, ffn."""
+    d = cfg.d_model
+    embed = mk.table("embed", cfg.vocab, d)
+    ln_f = _layer_norm(mk, "ln_f", d)
+
+    def block(cross: bool) -> AudioBlock:
+        ln1, attn = _layer_norm(mk, "ln1", d), _attn_params(cfg, mk)
+        xattn = {}
+        if cross:
+            xattn = {"ln_x": _layer_norm(mk, "ln_x", d),
+                     "xattn": _attn_params(cfg, mk)}
+        ln2 = _layer_norm(mk, "ln2", d)
+        return AudioBlock(ln1, attn, ln2, _ffn_params(cfg, mk), **xattn)
+
+    enc = [block(False) for _ in range(cfg.encoder_layers)]
+    enc_pos = mk.table("enc_pos", cfg.n_frames, d)
+    enc_ln_f = _layer_norm(mk, "enc_ln_f", d)
+    dec = [block(True) for _ in range(cfg.n_layers - cfg.encoder_layers)]
+    dec_pos = mk.table("dec_pos", DEC_POSITIONS, d)
+    return EncDecLM(embed, enc, enc_pos, enc_ln_f, dec, dec_pos, ln_f)
+
+
 def linear_leaves(params: nn.Module):
     """(logical name, leaf) of every linear leaf of a parameter module,
     by its place in the tree: the shared experts under their ``ffn.*``
-    names, the recurrent blocks' leaves as ``ssm.*``; norms and tables
-    are no linear leaves."""
+    names, the recurrent blocks' leaves as ``ssm.*``, the audio decoder's
+    cross-attention leaves as ``attn.*`` (the reference's names for them);
+    norms and tables are no linear leaves."""
+    if isinstance(params, EncDecLM):
+        for blk in (*params.enc_layers, *params.dec_layers):
+            for group, prefix in (("attn", "attn"), ("xattn", "attn"),
+                                  ("ffn", "ffn")):
+                for name, leaf in (getattr(blk, group) or {}).items():
+                    yield f"{prefix}.{name}", leaf
+        return
     if isinstance(params, RecurrentLM):
         for blk in (*params.mlstm, *params.slstm, *params.mamba):
             for name, leaf in blk.p.items():
@@ -274,6 +386,8 @@ def build_params(cfg: ModelConfig, mk: QuantMaker) -> nn.Module:
     check_supported(cfg)
     if cfg.family in RECURRENT_FAMILIES:
         return _build_recurrent(cfg, mk)
+    if cfg.family == "audio":
+        return _build_audio(cfg, mk)
     d = cfg.d_model
     embed = mk.table("embed", cfg.vocab, d)
     layers = []
@@ -304,9 +418,10 @@ def _ffn(cfg: ModelConfig, p: nn.ModuleDict, x, plain: bool):
     return apply_linear(p["w_down"], h, plain=plain)
 
 
-def _logits(params: DenseLM, x, plain: bool):
-    x = rms_norm(x, params.ln_f)
-    if params.lm_head is None:              # tied (the reference's einsum)
+def _logits(cfg: ModelConfig, params, x, plain: bool):
+    x = apply_norm(params.ln_f, x) if cfg.norm == "layer" \
+        else rms_norm(x, params.ln_f)
+    if cfg.tie_embeddings:                  # the reference's einsum
         return tied_logits(x, params.embed)
     return apply_linear(params.lm_head, x, out_dtype=torch.float32,
                         plain=plain)
@@ -317,23 +432,29 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
             plain: bool = False, page_table: Optional[torch.Tensor] = None,
             layer_out: Optional[list] = None,
             routes: Optional[MOE.Routes] = None,
-            patches: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
     """tokens [B, S] -> logits [B, S, V] f32 (None when ``need_logits`` is
     False: the lm-head is skipped).  ``cache`` is updated in place (None in
     mode ``train``).  ``patches`` [B, Np, D] (the VLM's prefill and train
     modes, and only there) go before the token embeddings as bf16, so the
-    prefill writes Np + S positions and the train logits cover Np + S.  A
-    ``layer_out`` list gets the residual stream [B, S, D] after every layer
-    appended (a diagnostic: ``launch/logit_spread.py``); ``routes`` (MoE)
+    prefill writes Np + S positions and the train logits cover Np + S.
+    ``frames`` [B, n_frames, D] (the audio model's prefill and train
+    modes, and only there) are its encoder's input; a decode step reads
+    the encoder output the prefill left in the cache.  A ``layer_out``
+    list gets the residual stream [B, S, D] after every layer appended
+    (the audio model's: after every decoder layer; a diagnostic:
+    ``launch/logit_spread.py``); ``routes`` (MoE)
     records every layer's expert ids, or replays those it holds (a
     diagnostic: ``chip_smoke.py`` holds the kernel path to the plain path
     on the kernel path's routes)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; the port runs {MODES}")
-    if mode == "train" and (cfg.family not in ("dense", "vlm")
+    if mode == "train" and (cfg.family not in ("dense", "vlm", "audio")
                             or cfg.use_mla):
         raise NotImplementedError(
-            f"{cfg.name}: mode 'train' runs the dense GQA and VLM families; "
+            f"{cfg.name}: mode 'train' runs the dense GQA, VLM and audio "
+            "families; "
             "the reference's MoE train mode (routing with capacity drops) "
             "and the recurrent families' (scans from a zero state) are not "
             "ported")
@@ -343,6 +464,12 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
             "patches go with the VLM's 'prefill' and 'train' modes and "
             "nowhere else: a VLM decode step continues after the patch "
             "prefix already in the cache")
+    if (frames is not None) != (cfg.family == "audio"
+                                and mode in ("prefill", "train")):
+        raise ValueError(
+            "frames go with the audio model's 'prefill' and 'train' modes "
+            "and nowhere else: an audio decode step reads the encoder "
+            "output already in the cache")
     if (cache is None) != (mode == "train"):
         raise ValueError("mode 'train' runs without a cache, every other "
                          "mode with one")
@@ -360,9 +487,15 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
         raise ValueError("mode 'prefill' is the static-batch families' "
                          "prefill; dense / MoE models run 'prefill_chunk'")
     if mode == "prefill_chunk" and static:
-        raise ValueError(f"{cfg.name}: the VLM runs the static-batch loop's "
-                         "'prefill' from an empty cache, not a slot pool's "
-                         "'prefill_chunk'")
+        raise ValueError(f"{cfg.name}: a static-batch family runs the "
+                         "static-batch loop's 'prefill' from an empty "
+                         "cache, not a slot pool's 'prefill_chunk'")
+    if cfg.family == "audio":
+        if page_table is not None or routes is not None:
+            raise ValueError(f"{cfg.name}: the audio model runs without "
+                             "page tables or routes")
+        return _forward_audio(cfg, params, tokens, cache, cache_index, mode,
+                              need_logits, plain, layer_out, frames)
     if cfg.use_mla:
         acfg, attention = mla_cfg(cfg), A.mla_forward
     else:
@@ -386,7 +519,7 @@ def forward(cfg: ModelConfig, params: DenseLM, tokens: torch.Tensor, *,
             layer_out.append(x)
     if mode == "prefill":       # the loop reads the last position only
         x = x[:, -1:]
-    return _logits(params, x, plain) if need_logits else None
+    return _logits(cfg, params, x, plain) if need_logits else None
 
 
 def _block(cfg: ModelConfig, blk: Block, x, acfg, attention, mcfg, *, cache,
@@ -400,6 +533,67 @@ def _block(cfg: ModelConfig, blk: Block, x, acfg, attention, mcfg, *, cache,
         return x + MOE.moe_forward(blk.moe, mcfg, h, plain=plain,
                                    routes=routes)
     return x + _ffn(cfg, blk.ffn, h, plain)
+
+
+def _audio_block(cfg: ModelConfig, blk: AudioBlock, x, acfg, attention, *,
+                 cache, cache_index, enc, plain: bool):
+    """x + self-attention(LN(x)); in a decoder block + cross-attention
+    (LN(x)) over ``enc``; then + FFN(LN(x))."""
+    h = apply_norm(blk.ln1, x)
+    x = x + attention(blk.attn, acfg, h, cache=cache, cache_index=cache_index,
+                      plain=plain)
+    if blk.xattn is not None:
+        x = x + A.cross_attn_forward(blk.xattn, acfg, apply_norm(blk.ln_x, x),
+                                     enc, plain=plain)
+    return x + _ffn(cfg, blk.ffn, apply_norm(blk.ln2, x), plain)
+
+
+def _forward_audio(cfg: ModelConfig, params: EncDecLM, tokens, cache,
+                   cache_index, mode: str, need_logits: bool, plain: bool,
+                   layer_out: Optional[list], frames):
+    """The reference's ``_forward_audio``.  Modes ``train`` and
+    ``prefill`` run the encoder over ``frames`` (+ ``enc_pos``, bf16),
+    ``encoder_layers`` non-causal blocks, then ``enc_ln_f``; a prefill
+    writes its output into ``cache["enc"]``, and a decode step reads it
+    there.  The decoder: tokens at ``dec_pos[index : index + S]`` (index 0
+    but in decode), causal blocks with cross-attention over the encoder
+    output; a prefill attends over its own k / v and returns the logits of
+    the last position only."""
+    if mode == "prefill" and cache_index != 0:
+        raise ValueError("an audio prefill starts from an empty cache at "
+                         "index 0")
+    if mode == "decode" and torch.is_tensor(cache_index):
+        raise ValueError("an audio decode step runs every row at one int "
+                         "index (the static-batch loop)")
+    acfg = attn_cfg(cfg)
+    if mode == "decode":
+        enc = cache["enc"]
+    else:
+        ecfg = dataclasses.replace(acfg, causal=False)
+        enc = frames.to(torch.bfloat16) \
+            + params.enc_pos[None, :frames.shape[1]].to(torch.bfloat16)
+        for blk in params.enc_layers:
+            enc = _audio_block(cfg, blk, enc, ecfg, A.gqa_forward, cache=None,
+                               cache_index=0, enc=None, plain=plain)
+        enc = apply_norm(params.enc_ln_f, enc)
+        if cache is not None:
+            cache["enc"].copy_(enc)
+    s = tokens.shape[1]
+    base = cache_index if mode == "decode" else 0
+    x = params.embed[tokens].to(torch.bfloat16) \
+        + params.dec_pos[None, base:base + s].to(torch.bfloat16)
+    attention = functools.partial(A.gqa_forward,
+                                  attend_local=mode == "prefill")
+    for l, blk in enumerate(params.dec_layers):
+        x = _audio_block(cfg, blk, x, acfg, attention,
+                         cache=None if cache is None else (
+                             cache["dec"][0][l], cache["dec"][1][l]),
+                         cache_index=cache_index, enc=enc, plain=plain)
+        if layer_out is not None:
+            layer_out.append(x)
+    if mode == "prefill":
+        x = x[:, -1:]
+    return _logits(cfg, params, x, plain) if need_logits else None
 
 
 def _forward_recurrent(cfg: ModelConfig, params: RecurrentLM, tokens, cache,
@@ -509,9 +703,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     d_head_rope]), bf16 only (``mla_cache_spec``).  The recurrent
     families: the trees of the module docstring (the hybrid's KV slabs at
     ``kv_dtype``, recurrent state in its own dtypes).  The VLM's is the
-    dense one, ``max_len`` counting the patch prefix too."""
+    dense one, ``max_len`` counting the patch prefix too.  The audio
+    model's: ``{"enc": bf16 [batch, n_frames, D], "dec": (k, v) [L_dec,
+    batch, max_len, Hk, Dh]}``, the decoder's slabs at ``kv_dtype``."""
     if cfg.family in RECURRENT_FAMILIES:
         return _recurrent_cache(cfg, batch, max_len, kv_dtype, device)
+    if cfg.family == "audio":
+        shape = (cfg.n_layers - cfg.encoder_layers, batch, max_len,
+                 cfg.n_kv_heads, cfg.head_dim)
+        return {"enc": torch.zeros((batch, cfg.n_frames, cfg.d_model),
+                                   dtype=torch.bfloat16, device=device),
+                "dec": (kv_slab(shape, kv_dtype, device),
+                        kv_slab(shape, kv_dtype, device))}
     if cfg.use_mla:
         if kv_dtype_name(kv_dtype) != "bf16":
             raise ValueError(

@@ -20,15 +20,16 @@ slab path of ``repro/serve/engine.py``).
     n_slots] samples back, and ``pool.lengths`` is left to the caller.
 
 ``generate`` serves a batch dict (``tokens`` [B, S], plus ``patches``
-[B, Np, D] for the VLM) in one call, as the reference's does: the dense
-and MoE families through a private scheduler, the static-batch families
-(xLSTM, Zamba2, the VLM) through the reference's static-batch loop
+[B, Np, D] for the VLM, ``frames`` [B, n_frames, D] for the audio model)
+in one call, as the reference's does: the dense and MoE families through
+a private scheduler, the static-batch families (xLSTM, Zamba2, the VLM,
+the audio model) through the reference's static-batch loop
 (``_generate_legacy``): one cache of the batch at prefix + prompt + new
 tokens (the prefix being the VLM's patches), one prefill from it empty,
 then decode steps of every row at one index, sampled by the legacy rule
 (``sampling.sample_static``), stopping early once every row has met its
 EOS.  ``score`` is the reference's teacher-forced mean NLL per row (mode
-``train``; dense and VLM).
+``train``; dense, VLM and audio).
 
 ``new_pool`` builds a slot pool at any KV tier (dense / MoE only: a
 static-batch family's pool raises ValueError); one
@@ -63,7 +64,8 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import STATIC_BATCH_FAMILIES, ModelConfig
+from repro_torch.configs import (FRONTEND_INPUTS, STATIC_BATCH_FAMILIES,
+                                 ModelConfig)
 from repro_torch.models import transformer as T
 from repro_torch.models.common import QLinear
 from repro_torch.quant.policy import PrecisionPolicy, validate_kv_tier
@@ -406,33 +408,39 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _batch_inputs(self, batch: Dict):
-        """(tokens [B, S] int32 on the host, patches on the device or
-        None): ``patches`` [B, n_patches, D] must come with a VLM's batch
-        and with no other."""
+        """(tokens [B, S] int32 on the host, the frontend inputs on the
+        device as ``T.forward`` keywords): ``patches`` [B, n_patches, D]
+        must come with a VLM's batch and with no other, ``frames`` [B,
+        n_frames, D] with an audio model's and with no other."""
         if not isinstance(batch, Mapping):
             raise TypeError("a batch is the reference's dict {'tokens': "
                             "[B, S], ...}, not an array")
         tokens = np.asarray(batch["tokens"], np.int32)
-        patches = batch.get("patches")
-        vlm = self.cfg.family == "vlm"
-        if vlm != (patches is not None):
-            raise ValueError(f"{self.cfg.name}: a batch carries 'patches' "
-                             "exactly when the model is a VLM")
-        if patches is None:
-            return tokens, None
-        patches = patches.to(self.device) if torch.is_tensor(patches) \
-            else torch.as_tensor(np.asarray(patches, np.float32),
-                                 device=self.device)
-        want = (tokens.shape[0], self.cfg.n_patches, self.cfg.d_model)
-        if tuple(patches.shape) != want:
-            raise ValueError(f"patches {tuple(patches.shape)}, not {want}")
-        return tokens, patches
+        inputs = {}
+        for family, (key, rows) in FRONTEND_INPUTS.items():
+            given = batch.get(key)
+            if (self.cfg.family == family) != (given is not None):
+                raise ValueError(f"{self.cfg.name}: a batch carries "
+                                 f"{key!r} exactly when the model's family "
+                                 f"is {family!r}")
+            if given is None:
+                continue
+            given = given.to(self.device) if torch.is_tensor(given) \
+                else torch.as_tensor(np.asarray(given, np.float32),
+                                     device=self.device)
+            want = (tokens.shape[0], getattr(self.cfg, rows),
+                    self.cfg.d_model)
+            if tuple(given.shape) != want:
+                raise ValueError(f"{key} {tuple(given.shape)}, not {want}")
+            inputs[key] = given
+        return tokens, inputs
 
     def generate(self, batch: Dict, *, max_new_tokens: int, seed: int = 0,
                  obs=None) -> Dict:
         """One-shot generation for a batch dict at
         ``ServeConfig.temperature`` and ``seed``: ``tokens`` [B, S], plus
-        ``patches`` [B, n_patches, d_model] for the VLM.  Dense / MoE: the
+        ``patches`` [B, n_patches, d_model] for the VLM or ``frames`` [B,
+        n_frames, d_model] for the audio model.  Dense / MoE: the
         rows go through a private scheduler (row i is request id i), to
         which ``obs`` (a ``repro_torch.obs.Observability`` bundle, or None)
         is handed.  The static-batch families: the static-batch loop, which
@@ -441,9 +449,9 @@ class ServingEngine:
         ``batch``, per-row lengths and finish reasons; dense / MoE also the
         scheduler's ``decode_dispatches``, ``decode_token_steps``,
         ``burst_hist`` and ``host_syncs``, as the reference's."""
-        tokens, patches = self._batch_inputs(batch)
+        tokens, inputs = self._batch_inputs(batch)
         if self.cfg.family in STATIC_BATCH_FAMILIES:
-            return self._generate_legacy(tokens, patches, max_new_tokens,
+            return self._generate_legacy(tokens, inputs, max_new_tokens,
                                          seed)
         from .request import Request, SamplingParams
         from .scheduler import Scheduler
@@ -470,12 +478,13 @@ class ServingEngine:
                 "burst_hist": dict(m.burst_hist)}
 
     @torch.no_grad()
-    def _generate_legacy(self, tokens: np.ndarray,
-                         patches: Optional[torch.Tensor],
+    def _generate_legacy(self, tokens: np.ndarray, inputs: Dict,
                          max_new_tokens: int, seed: int) -> Dict:
         """The reference's static-batch loop (``_generate_legacy``): one
         cache of prefix + S + ``max_new_tokens`` positions (the prefix
-        being the VLM's ``n_patches``, else 0), the first token from the
+        being the VLM's ``n_patches``, else 0; the audio model's cache also
+        holds its encoder output), the prefill taking the frontend
+        ``inputs`` (``_batch_inputs``), the first token from the
         prefill's last-position logits with the key ``PRNGKey(seed)``
         itself, then ``max_new_tokens - 1`` decode steps of every row at
         index ``prefix + S + i``, each sampled with ``sub`` of ``key, sub =
@@ -492,7 +501,7 @@ class ServingEngine:
                              kv_dtype=self.policy.kv, device=self.device)
         logits = T.forward(cfg, self.params, self._tensor(tokens),
                            cache=cache, cache_index=0, mode="prefill",
-                           patches=patches)[:, -1]
+                           **inputs)[:, -1]
         key = prng_key(seed)
         tok = sample_static(logits, key, scfg.temperature)
         out = [tok.cpu().numpy()]
@@ -527,10 +536,9 @@ class ServingEngine:
     def train_logits(self, batch: Dict) -> torch.Tensor:
         """The teacher-forced logits of the batch's token positions [B, S,
         V] f32 (mode ``train``; a VLM's patch rows dropped)."""
-        tokens, patches = self._batch_inputs(batch)
+        tokens, inputs = self._batch_inputs(batch)
         logits = T.forward(self.cfg, self.params, self._tensor(tokens),
-                           cache=None, cache_index=0, mode="train",
-                           patches=patches)
+                           cache=None, cache_index=0, mode="train", **inputs)
         return logits[:, logits.shape[1] - tokens.shape[1]:]
 
     def score(self, batch: Dict) -> np.ndarray:
